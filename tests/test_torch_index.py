@@ -1,0 +1,286 @@
+"""The port's build and batched dense search against the JAX package.
+
+One JAX-built index (n=4096, d=128, kc=128, m=8, k=16, scan_mode="dense")
+is carried across to the port, by attribute access and through format-v1
+files in both directions; the port's own build is held to the JAX build's
+recall. On the CPU the JAX package runs its Pallas kernels in interpret
+mode and the port runs its kernels' plain versions.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from ivfadc_tpu import IVFADCIndex as JaxIndex
+from ivfadc_tpu_torch import IVFADCConfig, IVFADCIndex, load_ivfadc_index
+from ivfadc_tpu_torch import config as t_config
+from ivfadc_tpu_torch.convert import from_reference
+from ivfadc_tpu_torch.ops import dense_scan as t_scan
+from ivfadc_tpu_torch.ops import kmeans as t_kmeans
+from ivfadc_tpu_torch.ops import pq as t_pq
+from ivfadc_tpu_torch.utils.datasets import synthetic_clustered
+from ivfadc_tpu_torch.utils.evaluation import brute_force_topk, recall_at_r
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BUILD = dict(kc=128, m=8, k=16, seed=0, scan_mode="dense")
+K, W, B = 10, 8, 64
+
+
+@pytest.fixture(scope="module")
+def data():
+    return synthetic_clustered(4096, 128, seed=0)
+
+
+@pytest.fixture(scope="module")
+def queries(data):
+    rng = np.random.RandomState(1)
+    return (data[rng.randint(0, len(data), B)]
+            + 0.05 * rng.randn(B, data.shape[1])).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def jax_index(data):
+    return JaxIndex.build(data, **BUILD)
+
+
+@pytest.fixture(scope="module")
+def jax_result(jax_index, queries):
+    return jax_index.search_padded(queries, K, w=W)
+
+
+@pytest.fixture(scope="module")
+def port_index(jax_index):
+    return from_reference(jax_index, "cpu")
+
+
+def test_device_view_dense_bit_identical(jax_index, port_index):
+    jv = jax_index.store.device_view_dense(
+        jax_index.quantizer, jax_index.config.scan_chunk, cache="int8")
+    tv = port_index.store.device_view_dense(
+        port_index.quantizer, port_index.config.scan_chunk, cache="int8")
+    for key in ("decoded", "scale", "ids2d", "norms2d", "offsets", "sizes",
+                "ids"):
+        a, b = np.asarray(jv[key]), tv[key].numpy()
+        assert a.dtype == b.dtype and a.shape == b.shape, key
+        np.testing.assert_array_equal(b, a, err_msg=key)
+
+
+def test_store_introspection_matches_jax(jax_index, port_index):
+    js, ts = jax_index.store, port_index.store
+    assert (ts.n, ts.total_cap, ts.window) == (js.n, js.total_cap, js.window)
+    for cell in (0, 5, jax_index.config.kc - 1):
+        for a, b in zip(ts.cell_entries(cell), js.cell_entries(cell)):
+            np.testing.assert_array_equal(a, b)
+
+
+def _assert_matches_jax(ids, dists, jax_result):
+    ji, jd = jax_result
+    assert ids.shape == ji.shape == (B, K)
+    # same index, same kernels' arithmetic; f32 sums in another order may
+    # swap near-tied neighbours, so ids agree on >= 99% of slots and the
+    # distances (~1e2) agree to 1e-5 relative where the ids do
+    same = ids == ji
+    assert same.mean() >= 0.99
+    np.testing.assert_allclose(dists[same], jd[same], rtol=1e-5, atol=1e-4)
+
+
+def test_search_padded_matches_jax(port_index, queries, jax_result):
+    ids, dists = port_index.search_padded(queries, K, w=W)
+    _assert_matches_jax(ids, dists, jax_result)
+
+
+def test_search_lists_match_jax(port_index, jax_index, queries):
+    # batch search -> per-query id / distance lists trimmed of padding, in
+    # the config's id dtype, through the free function as well
+    from ivfadc_tpu_torch import knn_search
+    ids, dists = knn_search(port_index, queries, K, w=W)
+    jids, jdists = jax_index.search(queries, K, w=W)
+    assert len(ids) == len(jids) == B
+    assert ids[0].dtype == jids[0].dtype == np.uint32
+    agree = np.mean([np.array_equal(a, b) for a, b in zip(ids, jids)])
+    assert agree >= 0.9
+    for a, b in zip(dists, jdists):
+        np.testing.assert_allclose(np.sort(a), np.sort(b), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_jax_file_loads_in_port(tmp_path, jax_index, port_index, queries,
+                                jax_result):
+    path = str(tmp_path / "jax.npz")
+    jax_index.save(path)
+    loaded = load_ivfadc_index(path, device="cpu")
+    assert len(loaded) == len(jax_index) and loaded.shape == jax_index.shape
+    ids, dists = loaded.search_padded(queries, K, w=W)
+    ref_ids, ref_dists = port_index.search_padded(queries, K, w=W)
+    np.testing.assert_array_equal(ids, ref_ids)
+    np.testing.assert_array_equal(dists, ref_dists)
+    _assert_matches_jax(ids, dists, jax_result)
+
+
+def test_port_file_loads_in_jax(tmp_path, jax_index, port_index, queries,
+                                jax_result):
+    path = str(tmp_path / "port.npz")
+    port_index.save(path)
+    loaded = JaxIndex.load(path)
+    np.testing.assert_array_equal(loaded.store.ids, jax_index.store.ids)
+    np.testing.assert_array_equal(loaded.store.codes, jax_index.store.codes)
+    ids, dists = loaded.search_padded(queries, K, w=W)
+    np.testing.assert_array_equal(ids, jax_result[0])
+    np.testing.assert_array_equal(dists, jax_result[1])
+
+
+def test_port_build_recall_matches_jax(data, queries, jax_result):
+    # the RNGs differ, so the two builds differ bit for bit; hold the
+    # port's build to the JAX build's recall@10 within 0.05
+    idx = IVFADCIndex.build(data, device="cpu", **BUILD)
+    assert len(idx) == len(data) and idx.store.align == 128
+    assert set(idx.build_timings) >= {"coarse_kmeans", "encode"}
+    _, gt = brute_force_topk(data, queries, K)
+    ids, _ = idx.search_padded(queries, K, w=W)
+    r_port = recall_at_r(ids, gt, K)
+    r_jax = recall_at_r(jax_result[0], gt, K)
+    assert r_jax > 0.5
+    assert abs(r_port - r_jax) <= 0.05, (r_port, r_jax)
+    # and a rebuild from the same seed is identical
+    again = IVFADCIndex.build(data, device="cpu", **BUILD)
+    np.testing.assert_array_equal(again.store.codes, idx.store.codes)
+    np.testing.assert_array_equal(again.store.ids, idx.store.ids)
+
+
+def test_pq_layouts_agree(monkeypatch):
+    # the batched and the one-subspace-at-a-time PQ training layouts draw
+    # the same per-subspace random streams
+    res = torch.from_numpy(np.random.RandomState(3).randn(600, 32)
+                           .astype(np.float32))
+    a = t_pq.train_quantizer(5, res, m=4, k=8, maxiter=5)
+    monkeypatch.setattr(t_pq, "_SEQ_TRAIN_BYTES", 0)
+    b = t_pq.train_quantizer(5, res, m=4, k=8, maxiter=5)
+    torch.testing.assert_close(a.codebooks, b.codebooks, rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_config_round_trip_and_validation(jax_index):
+    d = jax_index.config.to_dict()
+    cfg = IVFADCConfig.from_dict(d)
+    assert cfg.to_dict() == d
+    assert IVFADCConfig.from_dict({**d, "unknown": 1}) == cfg
+    with pytest.raises(ValueError):
+        IVFADCConfig(scan_fold_lanes=96)
+    with pytest.raises(ValueError):
+        IVFADCConfig(quantization_method="lsq")
+    bad = [(dict(kc=1), 100, 8), (dict(k=256), 100, 8),
+           (dict(m=9), 100, 8), (dict(coarse_maxiter=0), 100, 8),
+           (dict(index_dtype="uint8"), 1000, 8)]
+    for kwargs, n, dim in bad:
+        with pytest.raises(AssertionError):
+            IVFADCConfig(**kwargs).validate_for_data(n, dim)
+    IVFADCConfig(kc=4, k=16, m=8).validate_for_data(100, 8)
+
+
+def test_device_id_cap_clamps_override(monkeypatch):
+    monkeypatch.setenv("IVFADC_DEVICE_ID_CAP", str(1 << 40))
+    assert t_config.device_id_cap() == 1 << 31
+    monkeypatch.setenv("IVFADC_DEVICE_ID_CAP", "1000")
+    assert t_config.device_id_cap() == 1000
+    with pytest.raises(AssertionError):
+        IVFADCConfig(kc=4, k=16, m=8).validate_for_data(2000, 8)
+
+
+def _variant(index, **changes):
+    return IVFADCIndex(dataclasses.replace(index.config, **changes),
+                       index.coarse, index.quantizer, index.store,
+                       index.data_dtype, index.dim)
+
+
+@pytest.mark.parametrize("case", [
+    "small_batch", "k_over_128", "lut", "auto_on_cpu", "non_dot_metric",
+    "exact_merge", "bf16_cache", "qc_vbase", "extract"])
+def test_unported_routes_raise(case, port_index, queries, monkeypatch):
+    idx, q, k, w = port_index, queries, K, W
+    if case == "small_batch":            # B*w < 4*kc
+        q = queries[:8]
+    elif case == "k_over_128":
+        k = 129
+    elif case == "lut":
+        idx = _variant(port_index, scan_mode="lut")
+    elif case == "auto_on_cpu":
+        idx = _variant(port_index, scan_mode="auto")
+    elif case == "non_dot_metric":
+        idx = _variant(port_index, scan_mode="auto",
+                       quantization_metric="cityblock")
+    elif case == "exact_merge":
+        idx = _variant(port_index, scan_merge="exact")
+    elif case == "bf16_cache":
+        idx = _variant(port_index, scan_cache="bf16")
+    elif case == "qc_vbase":
+        monkeypatch.setenv("IVFADC_VBASE", "qc")
+    elif case == "extract":
+        monkeypatch.setenv("IVFADC_EXTRACT", "1")
+    with pytest.raises(NotImplementedError):
+        idx.search_padded(q, k, w=w)
+
+
+def test_unported_build_parts_raise(data, port_index):
+    with pytest.raises(NotImplementedError):
+        IVFADCIndex.build(data[:512], device="cpu", kc=16, m=8, k=16,
+                          coarse_quantizer="two_level")
+    with pytest.raises(NotImplementedError):
+        IVFADCIndex.build(data[:512], device="cpu", kc=16, m=8, k=16,
+                          quantization_method="opq")
+    with pytest.raises(NotImplementedError):
+        t_pq.train_quantizer(0, torch.zeros(64, 8), m=2, k=4, method="opq")
+    with pytest.raises(NotImplementedError):      # k-means|| seeding
+        t_kmeans.kmeans(t_kmeans.make_generator(0, 0, "cpu"),
+                        torch.zeros(5000, 2), 4097)
+    with pytest.raises(NotImplementedError):      # sort-based prep, kc > 4096
+        t_scan.grouped_dense_scan(
+            torch.zeros((8, 1), dtype=torch.int32), None, None,
+            torch.zeros((8, 1, 128)), torch.zeros((8, 1)),
+            torch.zeros((256, 128), dtype=torch.int8), torch.ones(128),
+            torch.zeros((2, 128), dtype=torch.int32), torch.zeros((2, 128)),
+            kc=5000, k_out=10, chunk=128, pb=8)
+    with pytest.raises(NotImplementedError):
+        port_index.coarse.search(torch.zeros((8, 128)), 4)
+
+
+def test_import_loads_no_jax():
+    code = ("import sys, ivfadc_tpu_torch, ivfadc_tpu_torch.convert, "
+            "ivfadc_tpu_torch.utils.persistence, "
+            "ivfadc_tpu_torch.utils.evaluation\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', "
+            "'ivfadc_tpu') or m.startswith(('jax.', 'jaxlib.', "
+            "'ivfadc_tpu.'))]\n"
+            "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
+                   env=env, timeout=120)
+
+
+@pytest.mark.parametrize("variant", [
+    # OPQ rotation: the fused probe applies it (apply_rot) before v and base
+    dict(dim=128, quantization_method="opq", opq_iters=1),
+    # d not a 128-multiple (v and the decoded cache are zero-padded to 128),
+    # euclidean metrics (sqrt finalize) and the "pure" score
+    dict(dim=96, coarse_metric="euclidean", quantization_metric="euclidean",
+         score_mode="pure"),
+])
+def test_search_variants_match_jax(variant):
+    variant = dict(variant)
+    dim = variant.pop("dim")
+    data = synthetic_clustered(2048, dim, seed=2)
+    rng = np.random.RandomState(4)
+    q = (data[rng.randint(0, 2048, B)]
+         + 0.05 * rng.randn(B, dim)).astype(np.float32)
+    jidx = JaxIndex.build(data, kc=64, m=8, k=16, seed=0, scan_mode="dense",
+                          **variant)
+    ji, jd = jidx.search_padded(q, K, w=W)
+    ti, td = from_reference(jidx, "cpu").search_padded(q, K, w=W)
+    same = ti == ji
+    assert same.mean() >= 0.99
+    np.testing.assert_allclose(td[same], jd[same], rtol=1e-4, atol=1e-4)

@@ -1,0 +1,164 @@
+"""The port's kernel modules against the JAX package's, on the CPU.
+
+Each test feeds the same numpy inputs (from a seed) to an `ivfadc_tpu`
+wrapper, which runs its Pallas kernel in interpret mode, and to the
+matching `ivfadc_tpu_torch` wrapper, which on CPU tensors runs the
+kernel's plain PyTorch version. The CUDA kernels themselves are checked
+against those plain versions on the card (tests/test_torch_cuda.py and
+chip_smoke.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from ivfadc_tpu.ops import cell_rank as j_rank
+from ivfadc_tpu.ops import coarse_scan as j_coarse
+from ivfadc_tpu.ops import pallas_scan as j_scan
+from ivfadc_tpu.ops import topk as j_topk
+from ivfadc_tpu_torch.ops import cell_rank as t_rank
+from ivfadc_tpu_torch.ops import coarse_scan as t_coarse
+from ivfadc_tpu_torch.ops import dense_scan as t_scan
+from ivfadc_tpu_torch.ops import topk as t_topk
+
+
+def _bf16_as_f32(x):
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+# ----------------------------------------------------------- coarse probe
+@pytest.mark.parametrize("apply_rot", [False, True])
+@pytest.mark.parametrize("include_base", [False, True])
+def test_coarse_probe_vbase_matches_jax(apply_rot, include_base):
+    rng = np.random.RandomState(0)
+    B, d, kc, w = 64, 128, 128, 8
+    q = rng.randn(B, d).astype(np.float32)
+    c = rng.randn(kc, d).astype(np.float32)
+    rot = np.linalg.qr(rng.randn(d, d))[0].astype(np.float32)
+    jc, jd, jv, jb = j_coarse.coarse_probe_vbase(
+        jnp.asarray(q), jnp.asarray(c), w, jnp.asarray(rot), apply_rot,
+        include_base, interpret=True)
+    tc, td, tv, tb = t_coarse.coarse_probe_vbase(
+        torch.from_numpy(q), torch.from_numpy(c), w, torch.from_numpy(rot),
+        apply_rot, include_base)
+    jc, jd, jb = np.asarray(jc), np.asarray(jd), np.asarray(jb)
+    tc, td, tb = tc.numpy(), td.numpy(), tb.numpy()
+    # f32 scores summed in another order: cells may differ only where two
+    # centroids tie to within a few ulps (none do at this seed)
+    same = jc == tc
+    assert same.mean() >= 0.999
+    np.testing.assert_allclose(td, jd, rtol=1e-5, atol=1e-4)
+    # v = bf16(-2 r): exact without a rotation; with one the f32 rotation
+    # matmul sums in another order, so allow one bf16 ulp (2^-8 relative)
+    jv32, tv32 = _bf16_as_f32(jv)[same], tv.float().numpy()[same]
+    if apply_rot:
+        np.testing.assert_allclose(tv32, jv32, rtol=2 ** -7, atol=1e-6)
+    else:
+        np.testing.assert_array_equal(tv32, jv32)
+    # |r|^2 (+ cdist): f32 sums of 128 terms in another order
+    np.testing.assert_allclose(tb[same], jb[same], rtol=1e-5, atol=1e-4)
+
+
+# ------------------------------------------------------------- cell ranks
+@pytest.mark.parametrize("kc", [300, 4096])
+def test_cell_ranks_match_jax(kc):
+    rng = np.random.RandomState(kc)
+    P = 3000
+    # skewed cells: a few hot cells plus a uniform tail
+    cells = np.where(rng.rand(P) < 0.3, rng.randint(0, 5, P),
+                     rng.randint(0, kc, P)).astype(np.int32)
+    jr, jn = j_rank.cell_ranks(jnp.asarray(cells), kc=kc, interpret=True)
+    tr, tn = t_rank.cell_ranks(torch.from_numpy(cells), kc=kc)
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+    np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+
+
+# ------------------------------------------------------------ grouped scan
+def _scan_inputs(rng, integer: bool, chunk: int):
+    kc, d, B, w = 8, 128, 16, 4
+    caps = np.full(kc, 512)
+    offsets = np.concatenate([[0], np.cumsum(caps[:-1])]).astype(np.int32)
+    # cell sizes include an empty cell and cells larger than the chunk
+    sizes = np.array([0, 5, 128, 130, 300, 511, 1, 257], np.int32)
+    rows = int(caps.sum()) + chunk + 128          # guard past the last cell
+    rows = -(-rows // 128) * 128
+    cells = rng.randint(0, kc, (B, w)).astype(np.int32)
+    ids2d = rng.permutation(rows).astype(np.int32).reshape(-1, 128)
+    if integer:
+        # every product and sum below is an integer < 2^24: exact in f32 in
+        # any summation order, so the two packages must agree bit for bit
+        decoded = rng.randint(-3, 4, (rows, d)).astype(np.int8)
+        scale = np.ones(d, np.float32)
+        v = rng.randint(-4, 5, (B, w, d)).astype(np.float32)
+        base = rng.randint(0, 100, (B, w)).astype(np.float32)
+        norms = rng.randint(0, 50, rows).astype(np.float32)
+    else:
+        decoded = rng.randint(-127, 128, (rows, d)).astype(np.int8)
+        scale = (0.01 + 0.02 * rng.rand(d)).astype(np.float32)
+        v = rng.randn(B, w, d).astype(np.float32)
+        base = (10 + rng.rand(B, w)).astype(np.float32)
+        norms = (5 + rng.rand(rows)).astype(np.float32)
+    v = np.array(jnp.asarray(v, jnp.bfloat16).astype(jnp.float32))
+    return dict(cells=cells, offsets=offsets, sizes=sizes, v=v, base=base,
+                decoded=decoded, scale=scale, ids2d=ids2d,
+                norms2d=norms.reshape(-1, 128), kc=kc)
+
+
+@pytest.mark.parametrize("nf,chunk,pb,integer", [
+    (128, 128, 8, True), (128, 128, 16, True), (128, 256, 8, True),
+    (128, 256, 16, True), (256, 256, 8, True), (256, 256, 16, True),
+    (128, 256, 8, False), (256, 256, 16, False)])
+def test_grouped_dense_scan_matches_jax(nf, chunk, pb, integer):
+    rng = np.random.RandomState(nf + chunk + pb)
+    a = _scan_inputs(rng, integer, chunk)
+    kw = dict(kc=a["kc"], k_out=10, chunk=chunk, norm_coef=1.0, pb=pb,
+              merge="fold", nf=nf)
+    jd, jp = j_scan.grouped_dense_scan(
+        jnp.asarray(a["cells"]), jnp.asarray(a["offsets"]),
+        jnp.asarray(a["sizes"]), jnp.asarray(a["v"], jnp.bfloat16),
+        jnp.asarray(a["base"]), jnp.asarray(a["decoded"]),
+        jnp.asarray(a["scale"]), jnp.asarray(a["ids2d"]),
+        jnp.asarray(a["norms2d"]), interpret=True, **kw)
+    td, tp = t_scan.grouped_dense_scan(
+        torch.from_numpy(a["cells"]), torch.from_numpy(a["offsets"]),
+        torch.from_numpy(a["sizes"]),
+        torch.from_numpy(a["v"]).to(torch.bfloat16),
+        torch.from_numpy(a["base"]), torch.from_numpy(a["decoded"]),
+        torch.from_numpy(a["scale"]), torch.from_numpy(a["ids2d"]),
+        torch.from_numpy(a["norms2d"]), **kw)
+    jd, jp, td, tp = np.asarray(jd), np.asarray(jp), td.numpy(), tp.numpy()
+    assert td.shape == jd.shape == (16, 4, nf)
+    np.testing.assert_array_equal(np.isfinite(td), np.isfinite(jd))
+    if integer:
+        np.testing.assert_array_equal(td, jd)
+        np.testing.assert_array_equal(tp, jp)
+    else:
+        # bf16 x bf16 products summed in f32 in another order, and the
+        # interpret-mode kernel may keep the dequantized rows above bf16
+        # precision: measured differences up to 3e-4 relative on scores of
+        # magnitude 1..80, so hold them to 2e-3 (plus 1e-3 near zero)
+        fin = np.isfinite(jd)
+        np.testing.assert_allclose(td[fin], jd[fin], rtol=2e-3, atol=1e-3)
+        assert (tp == jp).mean() >= 0.99
+
+
+# ----------------------------------------------------------------- top-k
+@pytest.mark.parametrize("N", [256, 1024])
+@pytest.mark.parametrize("k", [1, 10, 128])
+def test_topk_lastdim_payload_matches_jax(N, k):
+    rng = np.random.RandomState(N + k)
+    B = 64
+    x = rng.randint(0, 50, (B, N)).astype(np.float32)       # many ties
+    # +inf tails: some rows keep fewer than k finite entries
+    tail = rng.randint(0, N, B)
+    tail[:8] = N - 3
+    x[np.arange(N)[None, :] >= tail[:, None]] = np.inf
+    p = rng.randint(0, 1 << 20, (B, N)).astype(np.int32)
+    jv, jp = j_topk.topk_lastdim_payload(jnp.asarray(x), jnp.asarray(p), k,
+                                         interpret=True)
+    tv, tp = t_topk.topk_lastdim_payload(torch.from_numpy(x),
+                                         torch.from_numpy(p), k)
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
