@@ -1,9 +1,14 @@
-// Fused coarse probe that also emits the scan inputs.
+// Coarse probes: exact top-w cells, alone or with the scan inputs.
 //
-// Replaces ivfadc_tpu/ops/coarse_scan.py::_coarse_vbase_kernel. For each
-// query: f32 scores ||c||^2 - 2 q.c against every centroid, w argmin passes
-// (lowest index wins ties, the winner is masked to +inf), and for each
-// winning cell c: v = bf16(-2 * rot(q - c)) and ||rot(q - c)||^2.
+// coarse_vbase_kernel replaces
+// ivfadc_tpu/ops/coarse_scan.py::_coarse_vbase_kernel. For each query: f32
+// scores ||c||^2 - 2 q.c against every centroid, w argmin passes (lowest
+// index wins ties, the winner is masked to +inf), and for each winning cell
+// c: v = bf16(-2 * rot(q - c)) and ||rot(q - c)||^2.
+// coarse_topw_kernel replaces ::_coarse_kernel: the same scores and passes,
+// emitting only the (B, w) winners (the LUT engine's and the unfused dense
+// probe's coarse search). Both share coarse_scores below, so they pick the
+// same cells bit for bit.
 //
 // Bound: the score matmul, B*kc*d FMAs (2.1 G at B=16384, kc=1024, d=128),
 // kept in exact f32 (fmaf, no TF32 or bf16) because the naive coarse
@@ -19,18 +24,14 @@
 constexpr int CT = 32;          // centroids per streamed tile
 constexpr int CS_THREADS = 256;
 
-__global__ void __launch_bounds__(CS_THREADS) coarse_vbase_kernel(
+// Stage the block's bq queries in `qs` and fill `sc` (bq, kc) with
+// ||c||^2 - 2 q.c, streaming the centroid table through `ct`. Ends at a
+// block barrier; returns the number of live queries of the block.
+__device__ __forceinline__ int coarse_scores(
     const float* __restrict__ q, const float* __restrict__ cents,
-    const float* __restrict__ cn, const float* __restrict__ rot, int B, int d,
-    int kc, int w, int bq, int apply_rot, float* __restrict__ vals,
-    int* __restrict__ cells, __nv_bfloat16* __restrict__ v,
-    float* __restrict__ rn) {
-  extern __shared__ float sm[];
+    const float* __restrict__ cn, int B, int d, int kc, int bq, float* qs,
+    float* ct, float* sc) {
   const int dp = d + 1;  // padded tile row: conflict-free column reads
-  float* qs = sm;                                   // bq * d
-  float* ct = qs + static_cast<size_t>(bq) * d;     // CT * dp
-  float* sc = ct + static_cast<size_t>(CT) * dp;    // bq * kc
-  float* rb = sc + static_cast<size_t>(bq) * kc;    // warps * 2 * d
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
   const int q0 = blockIdx.x * bq;
@@ -62,6 +63,53 @@ __global__ void __launch_bounds__(CS_THREADS) coarse_vbase_kernel(
     }
   }
   __syncthreads();
+  return nq;
+}
+
+__global__ void __launch_bounds__(CS_THREADS) coarse_topw_kernel(
+    const float* __restrict__ q, const float* __restrict__ cents,
+    const float* __restrict__ cn, int B, int d, int kc, int w, int bq,
+    float* __restrict__ vals, int* __restrict__ cells) {
+  extern __shared__ float sm[];
+  float* qs = sm;                                       // bq * d
+  float* ct = qs + static_cast<size_t>(bq) * d;         // CT * (d + 1)
+  float* sc = ct + static_cast<size_t>(CT) * (d + 1);   // bq * kc
+  const int nq = coarse_scores(q, cents, cn, B, d, kc, bq, qs, ct, sc);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, warps = blockDim.x >> 5;
+  for (int r = warp; r < nq; r += warps) {
+    float* srow = sc + static_cast<size_t>(r) * kc;
+    const size_t qi = static_cast<size_t>(blockIdx.x) * bq + r;
+    for (int j = 0; j < w; ++j) {
+      float m;
+      int a;
+      ivf_lane_argmin(srow, kc, lane, m, a);
+      ivf_warp_argmin(m, a);
+      if (lane == 0) {
+        vals[qi * w + j] = m;
+        cells[qi * w + j] = a;
+        srow[a] = IVF_INF;
+      }
+      __syncwarp();
+    }
+  }
+}
+
+__global__ void __launch_bounds__(CS_THREADS) coarse_vbase_kernel(
+    const float* __restrict__ q, const float* __restrict__ cents,
+    const float* __restrict__ cn, const float* __restrict__ rot, int B, int d,
+    int kc, int w, int bq, int apply_rot, float* __restrict__ vals,
+    int* __restrict__ cells, __nv_bfloat16* __restrict__ v,
+    float* __restrict__ rn) {
+  extern __shared__ float sm[];
+  float* qs = sm;                                       // bq * d
+  float* ct = qs + static_cast<size_t>(bq) * d;         // CT * (d + 1)
+  float* sc = ct + static_cast<size_t>(CT) * (d + 1);   // bq * kc
+  float* rb = sc + static_cast<size_t>(bq) * kc;        // warps * 2 * d
+  const int nq = coarse_scores(q, cents, cn, B, d, kc, bq, qs, ct, sc);
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int q0 = blockIdx.x * bq;
 
   const int warp = tid >> 5, lane = tid & 31, warps = nthr >> 5;
   float* rr = rb + static_cast<size_t>(warp) * 2 * d;  // q - c
@@ -110,22 +158,30 @@ __global__ void __launch_bounds__(CS_THREADS) coarse_vbase_kernel(
   }
 }
 
-static size_t coarse_smem(int bq, int d, int kc) {
-  return sizeof(float) * (static_cast<size_t>(bq) * d +
-                          static_cast<size_t>(CT) * (d + 1) +
-                          static_cast<size_t>(bq) * kc +
-                          static_cast<size_t>(CS_THREADS / 32) * 2 * d);
+// Shared memory of a block of bq queries; `scratch` adds the per-warp
+// residual rows of the v/base variant.
+static size_t coarse_smem(int bq, int d, int kc, bool scratch) {
+  return sizeof(float) *
+         (static_cast<size_t>(bq) * d + static_cast<size_t>(CT) * (d + 1) +
+          static_cast<size_t>(bq) * kc +
+          (scratch ? static_cast<size_t>(CS_THREADS / 32) * 2 * d : 0));
+}
+
+// Largest power-of-two query block (<= 16) that fits; 0 when none does.
+static int coarse_pick_bq(int d, int kc, bool scratch) {
+  const size_t limit = 200u << 10;
+  int bq = 16;
+  while (bq > 1 && coarse_smem(bq, d, kc, scratch) > limit) bq >>= 1;
+  return coarse_smem(bq, d, kc, scratch) > limit ? 0 : bq;
 }
 
 extern "C" int coarse_vbase(const void* q, const void* cents, const void* cn,
                             const void* rot, int B, int d, int kc, int w,
                             int apply_rot, void* vals, void* cells, void* v,
                             void* rn, void* stream) {
-  const size_t limit = 200u << 10;
-  int bq = 16;
-  while (bq > 1 && coarse_smem(bq, d, kc) > limit) bq >>= 1;
-  const size_t smem = coarse_smem(bq, d, kc);
-  if (smem > limit || w < 1 || w > kc) return cudaErrorInvalidValue;
+  const int bq = coarse_pick_bq(d, kc, true);
+  if (bq == 0 || w < 1 || w > kc) return cudaErrorInvalidValue;
+  const size_t smem = coarse_smem(bq, d, kc, true);
   int err =
       ivf_set_smem(reinterpret_cast<const void*>(coarse_vbase_kernel), smem);
   if (err) return err;
@@ -138,5 +194,24 @@ extern "C" int coarse_vbase(const void* q, const void* cents, const void* cn,
         kc, w, bq, apply_rot, static_cast<float*>(vals),
         static_cast<int*>(cells), static_cast<__nv_bfloat16*>(v),
         static_cast<float*>(rn));
+  return ivf_launch_status();
+}
+
+extern "C" int coarse_topw(const void* q, const void* cents, const void* cn,
+                           int B, int d, int kc, int w, void* vals,
+                           void* cells, void* stream) {
+  const int bq = coarse_pick_bq(d, kc, false);
+  if (bq == 0 || w < 1 || w > kc) return cudaErrorInvalidValue;
+  const size_t smem = coarse_smem(bq, d, kc, false);
+  int err =
+      ivf_set_smem(reinterpret_cast<const void*>(coarse_topw_kernel), smem);
+  if (err) return err;
+  const int blocks = (B + bq - 1) / bq;
+  if (blocks > 0)
+    coarse_topw_kernel<<<blocks, CS_THREADS, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(q), static_cast<const float*>(cents),
+        static_cast<const float*>(cn), B, d, kc, w, bq,
+        static_cast<float*>(vals), static_cast<int*>(cells));
   return ivf_launch_status();
 }

@@ -1,16 +1,23 @@
 """IVFADCIndex — the top-level index (port of `ivfadc_tpu/models/index.py`).
 
-This slice ports the build and the batched dense search:
+Ported so far: the build and every search route of a static index with
+the naive coarse quantizer.
 
   build:  coarse k-means -> residuals -> PQ training -> encode -> padded CSR
-  search: fused coarse probe (kernel 1) -> cell ranks (kernel 2) -> tile
-          placement -> grouped fold scan (kernel 3) -> top-k merge (kernel 4)
+  dense search, B*w >= 4*kc: fused coarse probe -> cell ranks -> tile
+          placement -> grouped fold scan -> top-k merge over id payloads
+  dense search, B*w < 4*kc (single queries included): fused coarse probe ->
+          per-probe fold scan -> top-k with indices -> slot positions -> ids
+  unfused probe (inner-product scores, non-euclidean coarse metrics): exact
+          top-w coarse search, then v / base in tensor code, then either scan
+  LUT search (scan_mode="lut", k > 128, "auto" off the GPU): coarse search
+          -> ADC tables -> window gather + table lookups -> k smallest
 
 Routes that are not ported yet raise NotImplementedError naming their
-ROADMAP item instead of silently taking another route: the small-batch
-path (B*w < 4*kc, which includes single-point search at realistic kc),
-k > 128, the LUT scan and metrics without a dot-product decomposition,
-the two-level coarse quantizer, and the JAX package's opt-in engines.
+ROADMAP item instead of silently taking another route: the two-level
+coarse quantizer, OPQ training, the gathered tiny-cell engine, the exact
+merge, the bf16 decoded cache, stores without 128-row cells on the grouped
+scan, and the JAX package's opt-in engines.
 """
 
 from __future__ import annotations
@@ -36,6 +43,11 @@ _PQ_TRAIN_AUTOCAP = 1 << 20
 # random streams of a build (ops.kmeans.make_generator)
 _STREAM_COARSE = 0
 _STREAM_PQ_SAMPLE = 1
+
+# elements of one (queries, w, window) temporary of the LUT scan; larger
+# batches are scanned in query blocks of this size (results do not change:
+# queries are independent)
+_LUT_BLOCK_ELEMS = 1 << 24
 
 # The JAX package's opt-in engines, selected there by environment variables;
 # none is ported, so asking for one fails instead of running the default.
@@ -109,22 +121,93 @@ def _train_components(xd: torch.Tensor, config: IVFADCConfig,
     return cres, residuals, quantizer
 
 
+def _pairwise_rows(metric: Metric, queries, cent):
+    """metric.pairwise of each query against its own w rows: queries (B, d),
+    cent (B, w, d) -> (B, w)."""
+    return torch.vmap(metric.pairwise)(queries[:, None, :], cent)[:, 0, :]
+
+
 def _dense_probe(cq, rotation, queries, *, w: int, metric: Metric,
                  include_base: bool, apply_rot: bool, residual_based: bool):
     """Coarse probe + scan-vector prep -> (cells (B,w), v (B,w,dq),
-    base (B,w), norm_coef). Only the fused branch is ported."""
-    if not (residual_based and metric.name in ("sqeuclidean", "euclidean")
+    base (B,w), norm_coef)."""
+    queries = queries.to(torch.float32)
+    B, d = queries.shape
+    dq = rotation.shape[0]                                # quantizer dim
+    if (residual_based and metric.name in ("sqeuclidean", "euclidean")
             and isinstance(cq, NaiveCoarseQuantizer)
-            and cq.metric.name in ("sqeuclidean", "euclidean")):
-        raise NotImplementedError(
-            f"dense search with quantization metric {metric.name!r} and "
-            f"coarse metric {cq.metric.name!r} needs the unfused coarse "
-            f"probe (ROADMAP B.7)")
-    from ivfadc_tpu_torch.ops.coarse_scan import coarse_probe_vbase
-    cells, _, v, base = coarse_probe_vbase(
-        queries.to(torch.float32), cq.centroids, w, rotation, apply_rot,
-        include_base)
-    return cells, v, base, 1.0
+            and cq.metric.name in ("sqeuclidean", "euclidean")
+            and w <= 128 and dq == d):
+        # fully fused coarse probe: cells / v / base from one kernel
+        from ivfadc_tpu_torch.ops.coarse_scan import coarse_probe_vbase
+        cells, _, v, base = coarse_probe_vbase(
+            queries, cq.centroids, w, rotation, apply_rot, include_base)
+        return cells, v, base, 1.0
+    cells, cdists = cq.search(queries, w)
+    cent = cq.centroids[cells.to(torch.int64)]            # (B, w, d)
+    if residual_based:
+        r = queries[:, None, :] - cent
+        if d != dq:                     # ragged-subspace zero padding
+            r = torch.nn.functional.pad(r, (0, dq - d))
+        if apply_rot:
+            r = r @ rotation
+        v = -2.0 * r
+        base = torch.sum(r * r, dim=-1)
+        if include_base:
+            base = base + cdists
+        norm_coef = 1.0
+    else:
+        # inner-product family: q.x_hat = q.c + q.decode, so the scan
+        # vector is the query itself and the coarse term (under the QUANT
+        # metric) is the base; no norm term
+        qv = queries
+        if d != dq:
+            qv = torch.nn.functional.pad(qv, (0, dq - d))
+        q = qv @ rotation if apply_rot else qv
+        v = (-q)[:, None, :].expand(B, w, dq)
+        base = _pairwise_rows(metric, queries, cent)
+        norm_coef = 0.0
+    # a quantizer may PAD probes past its candidate supply (cell 0 with an
+    # infinite distance): a finite recomputed base would re-scan cell 0 and
+    # duplicate its neighbours in the final top-k
+    base = torch.where(torch.isfinite(cdists), base, float("inf"))
+    return cells, v, base, norm_coef
+
+
+def _lut_search(cq, codebooks, rotation, view, queries, *, k: int, w: int,
+                window: int, metric: Metric, include_base: bool,
+                apply_rot: bool, residual_based: bool):
+    """LUT search: coarse probe -> ADC tables -> posting scan -> k smallest,
+    in query blocks that bound the scan's (queries, w, window) temporaries.
+    Returns raw (ids, dists); the caller applies `metric.finalize`."""
+    from ivfadc_tpu_torch.ops.adc import build_adc_tables, scan_postings
+    queries = queries.to(torch.float32)
+    d = queries.shape[1]
+    dq = rotation.shape[0]
+    block = max(1, _LUT_BLOCK_ELEMS // (w * window))
+    outs = []
+    for s in range(0, queries.shape[0], block):
+        q = queries[s:s + block]
+        cells, cdists = cq.search(q, w)                       # (b, w)
+        cent = cq.centroids[cells.to(torch.int64)]            # (b, w, d)
+        if residual_based:
+            vecs = q[:, None, :] - cent
+            base = cdists if include_base else torch.zeros_like(cdists)
+        else:
+            vecs = q[:, None, :].expand(q.shape[0], w, d)
+            base = _pairwise_rows(metric, q, cent)
+        base = torch.where(torch.isfinite(cdists), base, float("inf"))
+        if d != dq:                     # ragged-subspace zero padding
+            vecs = torch.nn.functional.pad(vecs, (0, dq - d))
+        if apply_rot:
+            vecs = vecs @ rotation
+        tables = build_adc_tables(metric, vecs, codebooks)    # (b, w, m, kq)
+        outs.append(scan_postings(
+            tables, base, cells, view["offsets"], view["sizes"],
+            view["codes"], view["ids"], k=k, window=window))
+    if len(outs) == 1:
+        return outs[0]
+    return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
 
 
 def _pad_to_k(out_ids, out_dists, k):
@@ -151,28 +234,59 @@ def _topk_ids(flat_d, flat_i, k):
     return _pad_to_k(out_ids, out_dists, k)
 
 
+def _topk_positions(flat_d, flat_p, k, cells, offsets, n_cand, ids):
+    """Top-k over fold candidate rows whose payloads are cell-relative
+    128-row block indices, resolving the winners to slot positions and
+    external ids -> ((B, k) ids, (B, k) dists)."""
+    from ivfadc_tpu_torch.ops.topk import topk_lastdim
+    k_eff = min(k, flat_d.shape[1])
+    out_dists, which = topk_lastdim(flat_d, k_eff)
+    which = which.to(torch.int64)
+    blk = torch.gather(flat_p, 1, which).to(torch.int64)
+    # re-attach the winning probe's cell offset (k values per query); the
+    # lane within its bank is the row within the block
+    probe = which // n_cand                                   # (B, k_eff)
+    start = torch.gather(offsets.to(torch.int64)[cells.to(torch.int64)], 1,
+                         probe)
+    pos = torch.where(blk >= 0, start + blk * 128 + which % 128, -1)
+    out_ids = torch.where(pos >= 0, ids[torch.clamp_min(pos, 0)], -1)
+    out_ids = torch.where(torch.isfinite(out_dists), out_ids, -1) \
+        .to(torch.int32)
+    return _pad_to_k(out_ids, out_dists, k)
+
+
 def _dense_finish(cells, v, base, dev, *, k, w, chunk, pb, nf, norm_coef):
-    """Grouped scan + merge: returns raw (ids, dists); the caller applies
-    `metric.finalize`. Only the grouped branch is ported."""
-    from ivfadc_tpu_torch.ops.dense_scan import grouped_dense_scan
+    """Scan + merge: returns raw (ids, dists); the caller applies
+    `metric.finalize`. Batches whose probes share cells (B*w >= 4*kc) take
+    the cell-grouped scan, smaller ones the per-probe scan."""
     B = cells.shape[0]
     kc_ = dev["offsets"].shape[0]
-    if B * w < 4 * kc_:
-        raise NotImplementedError(
-            f"B*w = {B * w} < 4*kc = {4 * kc_} takes the small-batch "
-            f"per-probe scan, not ported yet (ROADMAP A.5, B.5, B.6)")
-    if dev["ids2d"] is None:
-        raise NotImplementedError(
-            "stores without 128-row cell alignment need the position-payload "
-            "scan variant (ROADMAP B.8)")
-    out_d, out_p = grouped_dense_scan(
-        cells, dev["offsets"], dev["sizes"], v, base, dev["decoded"],
-        dev["scale"], dev["ids2d"], dev["norms2d"], kc=kc_,
-        k_out=min(k, 128), chunk=chunk, norm_coef=norm_coef, pb=pb,
-        merge="fold", nf=nf)
+    k_out = min(k, 128)
+    if B * w >= 4 * kc_:
+        from ivfadc_tpu_torch.ops.dense_scan import grouped_dense_scan
+        if dev["ids2d"] is None:
+            raise NotImplementedError(
+                "stores without 128-row cell alignment need the grouped "
+                "scan's position-payload variant (ROADMAP B.8)")
+        out_d, out_p = grouped_dense_scan(
+            cells, dev["offsets"], dev["sizes"], v, base, dev["decoded"],
+            dev["scale"], dev["ids2d"], dev["norms2d"], kc=kc_,
+            k_out=k_out, chunk=chunk, norm_coef=norm_coef, pb=pb,
+            merge="fold", nf=nf)
+        n_cand = out_d.shape[-1]
+        return _topk_ids(out_d.reshape(B, w * n_cand),
+                         out_p.reshape(B, w * n_cand), k)
+    # mostly-distinct cells: grouping would emit about one tile per probe
+    from ivfadc_tpu_torch.ops.dense_scan import dense_scan
+    cells64 = cells.to(torch.int64)
+    out_d, out_p = dense_scan(
+        dev["offsets"][cells64], dev["sizes"][cells64], v, base,
+        dev["decoded"], dev["scale"], k_out=k_out, chunk=chunk,
+        norm_coef=norm_coef, merge="fold", nf=nf)
     n_cand = out_d.shape[-1]
-    return _topk_ids(out_d.reshape(B, w * n_cand),
-                     out_p.reshape(B, w * n_cand), k)
+    return _topk_positions(out_d.reshape(B, w * n_cand),
+                           out_p.reshape(B, w * n_cand), k, cells,
+                           dev["offsets"], n_cand, dev["ids"])
 
 
 def _bucket_batch(b: int) -> int:
@@ -225,18 +339,21 @@ class IVFADCIndex:
     def build(cls, data, config: Optional[IVFADCConfig] = None, *,
               device=None, **kwargs) -> "IVFADCIndex":
         """Build the index from (n, d) row-major points (numpy array or
-        tensor) on `device`: by default the tensor's device, else "cuda"."""
+        tensor) on `device`. The default is "cuda"; a tensor that already
+        lives on a CUDA device keeps that device. Pass device="cpu" to
+        build on the CPU."""
         if config is None:
             config = IVFADCConfig(**kwargs)
         elif kwargs:
             raise TypeError("pass either a config or kwargs, not both")
         if isinstance(data, torch.Tensor):
-            dev = torch.device(device) if device is not None else data.device
             data_dtype = _np_dtype(data.dtype)
+            if device is None and data.device.type == "cuda":
+                device = data.device
         else:
             data = np.ascontiguousarray(data)
-            dev = torch.device(device if device is not None else "cuda")
             data_dtype = data.dtype
+        dev = torch.device(device if device is not None else "cuda")
         if data.ndim != 2:
             raise AssertionError("data must be a 2-D (n, d) array")
         n, d = data.shape
@@ -295,21 +412,34 @@ class IVFADCIndex:
         include_base = (self.config.score_mode == "reference"
                         or not self.quant_metric.residual_based)
         mode = self._resolve_scan_mode()
-        if mode != "dense":
-            raise NotImplementedError(
-                "the LUT scan is not ported yet (ROADMAP A.6); build with "
-                "scan_mode='dense' or search on a CUDA device")
-        if k > 128:
-            raise NotImplementedError(
-                f"k={k} > 128 routes to the exact LUT scan, not ported yet "
-                f"(ROADMAP A.6)")
+        if mode == "dense" and k > 128:
+            # the dense kernels keep at most 128 candidates per probe lane
+            # set; the LUT engine scores every probed posting, so any k is
+            # exact there
+            mode = "lut"
+        if mode == "dense":
+            out_ids, out_dists = self._dense_search(q, k, w, include_base)
+        else:
+            out_ids, out_dists = _lut_search(
+                self.coarse, self.quantizer.codebooks,
+                self.quantizer.rotation, self.store.device_view(), q, k=k,
+                w=w, window=self.store.window, metric=self.quant_metric,
+                include_base=include_base,
+                apply_rot=self.quantizer.method == "opq",
+                residual_based=self.quant_metric.residual_based)
+        out_dists = self.quant_metric.finalize(out_dists)
+        if Bp == B:
+            return out_ids, out_dists
+        return out_ids[:B], out_dists[:B]
+
+    def _dense_search(self, q, k: int, w: int, include_base: bool):
         if self._resolve_merge_mode() != "fold":
             raise NotImplementedError(
-                "scan_merge='exact' is a grouped-scan variant not ported yet "
+                "scan_merge='exact' is a scan-kernel variant not ported yet "
                 "(ROADMAP B.8)")
         if self._resolve_cache() != "int8":
             raise NotImplementedError(
-                "scan_cache='bf16' is a grouped-scan variant not ported yet "
+                "scan_cache='bf16' is a scan-kernel variant not ported yet "
                 "(ROADMAP B.8)")
         if self.config.scan_gather_win:
             raise NotImplementedError(
@@ -323,14 +453,10 @@ class IVFADCIndex:
             metric=self.quant_metric, include_base=include_base,
             apply_rot=self.quantizer.method == "opq",
             residual_based=self.quant_metric.residual_based)
-        out_ids, out_dists = _dense_finish(
+        return _dense_finish(
             cells, v, base, view, k=k, w=w, chunk=self._effective_chunk(),
             pb=self.config.scan_pb, nf=self.config.scan_fold_lanes,
             norm_coef=norm_coef)
-        out_dists = self.quant_metric.finalize(out_dists)
-        if Bp == B:
-            return out_ids, out_dists
-        return out_ids[:B], out_dists[:B]
 
     def _effective_chunk(self) -> int:
         """Scan chunk adapted to the cell-size distribution: the p95 cell
@@ -375,16 +501,20 @@ class IVFADCIndex:
         """Single point (d,) -> (ids, dists) trimmed to the valid (<= k)
         results. Batch (B, d) -> (list_of_ids, list_of_dists). Ids are
         0-based, dtype = config.index_dtype."""
-        pts = points.cpu().numpy() if isinstance(points, torch.Tensor) \
-            else np.asarray(points)
+        if isinstance(points, torch.Tensor):    # stays on its device
+            pts = points
+            out_dtype = _np_dtype(pts.dtype) if pts.dtype.is_floating_point \
+                else np.dtype(np.float32)
+        else:
+            pts = np.asarray(points)
+            out_dtype = pts.dtype if np.issubdtype(pts.dtype, np.floating) \
+                else np.float32
         single = pts.ndim == 1
         if single:
             pts = pts[None, :]
         if pts.shape[1] != self.dim:
             raise AssertionError(
                 f"query dimension {pts.shape[1]} != index dimension {self.dim}")
-        out_dtype = pts.dtype if np.issubdtype(pts.dtype, np.floating) \
-            else np.float32
         ids, dists = self._device_search(pts, k, w)
         ids = ids.cpu().numpy()
         dists = dists.cpu().numpy()

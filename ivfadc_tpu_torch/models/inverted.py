@@ -11,6 +11,7 @@ which the first sizes[c] slots are live. After a build the flat arrays live
 on the index's device and the host copy is made on first use (save,
 introspection); after a load they start on the host.
 
+`device_view` holds what the LUT search reads (codes, ids, offsets, sizes);
 `device_view_dense` derives what the dense search reads: the int8 decoded
 residual cache (guard-padded past every cell, feature dim padded to a
 128-multiple), its per-column scale, and the ids and cached row norms in
@@ -84,6 +85,7 @@ class PostingStore:
         self._ids_h = ids            # (total_cap,) int64 host | None
         self._codes_dev = codes_dev  # device arrays from build_device
         self._ids_dev = ids_dev
+        self._device: Optional[Dict] = None
         self._device_dense: Optional[Dict] = None
 
     # ---- host views (hydrated from the device on first use) ----
@@ -175,6 +177,27 @@ class PostingStore:
             return self._ids_dev
         return torch.as_tensor(self.ids.astype(np.int32), device=self.device)
 
+    def _csr_on_device(self) -> Dict:
+        return dict(
+            offsets=torch.as_tensor(self.offsets.astype(np.int32),
+                                    device=self.device),
+            sizes=torch.as_tensor(self.sizes.astype(np.int32),
+                                  device=self.device))
+
+    def device_view(self) -> Dict:
+        """Cached arrays for the LUT search: the flat codes and ids, row
+        counts padded to the bucket (-1 ids), and the CSR offsets/sizes."""
+        if self._device is None:
+            codes = self._codes_on_device()
+            ids = self._ids_on_device()
+            pad = self._bucket_rows(codes.shape[0]) - codes.shape[0]
+            if pad:
+                codes = torch.nn.functional.pad(codes, (0, 0, 0, pad))
+                ids = torch.nn.functional.pad(ids, (0, pad), value=-1)
+            self._device = dict(codes=codes, ids=ids,
+                                **self._csr_on_device())
+        return self._device
+
     def device_view_dense(self, quantizer, chunk: int,
                           cache: str = "int8") -> Dict:
         """Cached arrays for the dense scan: resident int8 decoded residuals
@@ -206,10 +229,6 @@ class PostingStore:
                 ids2d = ids.reshape(-1, _LANE)
                 norms2d = _row_norms(decoded, scale).reshape(-1, _LANE)
             self._device_dense = dict(
-                offsets=torch.as_tensor(self.offsets.astype(np.int32),
-                                        device=self.device),
-                sizes=torch.as_tensor(self.sizes.astype(np.int32),
-                                      device=self.device),
                 decoded=decoded, ids=ids, ids2d=ids2d, norms2d=norms2d,
-                scale=scale)
+                scale=scale, **self._csr_on_device())
         return self._device_dense

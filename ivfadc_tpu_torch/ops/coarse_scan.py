@@ -1,14 +1,14 @@
-"""Fused coarse probe: top-w cells plus the dense scan's inputs.
+"""Fused coarse probes: exact top-w cells, alone or with the dense scan's
+inputs.
 
-Port of `ivfadc_tpu/ops/coarse_scan.py::coarse_probe_vbase` (the v1
-engine). The CUDA kernel is `csrc/coarse_scan.cu`; `coarse_vbase_plain` is
-the same function as plain tensor code. Scores are exact f32 (the naive
-coarse quantizer is contractually the exact brute-force scan). The per-query
-`||q||^2` term is rank-constant and added back outside the kernel, as in
-the JAX package.
+Port of `ivfadc_tpu/ops/coarse_scan.py`: `coarse_probe_vbase` (the v1
+engine) and `coarse_topw`. The CUDA kernels are in `csrc/coarse_scan.cu`;
+`coarse_vbase_plain` and `coarse_topw_plain` are the same functions as
+plain tensor code. Scores are exact f32 (the naive coarse quantizer is
+contractually the exact brute-force scan). The per-query `||q||^2` term is
+rank-constant and added back outside the kernels, as in the JAX package.
 
-`coarse_topw` (the exact top-w probe without v/base) and the v2 engine are
-not ported yet.
+The v2 engine is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,6 +21,10 @@ KERNEL = _build.Kernel("coarse_scan", "coarse_vbase",
                        [_build.P, _build.P, _build.P, _build.P, _build.I,
                         _build.I, _build.I, _build.I, _build.I, _build.P,
                         _build.P, _build.P, _build.P, _build.P])
+TOPW_KERNEL = _build.Kernel("coarse_scan", "coarse_topw",
+                            [_build.P, _build.P, _build.P, _build.I,
+                             _build.I, _build.I, _build.I, _build.P,
+                             _build.P, _build.P])
 
 
 def coarse_vbase_plain(q32, c32, cn, rot, w: int, apply_rot: bool):
@@ -91,3 +95,47 @@ def coarse_probe_vbase(queries, centroids, w: int, rotation,
     cdists = torch.clamp_min(vals + qn, 0.0)
     base = rn + cdists if include_base else rn
     return cells, cdists, v, base
+
+
+def coarse_topw_plain(q32, c32, cn, w: int):
+    """Plain version of the top-w kernel -> (vals (B,w) f32 scores without
+    ||q||^2, cells (B,w) i32): w argmin passes, lowest index on ties."""
+    B = q32.shape[0]
+    scores = cn[None, :] - 2.0 * (q32 @ c32.T)
+    rows = torch.arange(B, device=q32.device)
+    vals, cells = [], []
+    for _ in range(w):
+        a = torch.argmin(scores, dim=1)          # first index of the minimum
+        vals.append(scores[rows, a])
+        cells.append(a.to(torch.int32))
+        scores[rows, a] = float("inf")
+    return torch.stack(vals, 1), torch.stack(cells, 1)
+
+
+def coarse_topw(queries, centroids, w: int):
+    """Exact brute-force squared-euclidean top-w cells without materializing
+    the (B, kc) matrix in device memory. queries (B, d), centroids (kc, d)
+    -> (cells (B, w) i32, sqdists (B, w) f32 ascending). Unlike the JAX
+    wrapper it never returns None: the kernel takes every d and kc, for
+    1 <= w <= min(kc, 128). CPU tensors run the plain version, CUDA tensors
+    launch the kernel."""
+    B, d = queries.shape
+    kc = centroids.shape[0]
+    if not 1 <= w <= min(kc, 128):
+        raise NotImplementedError(
+            f"the fused coarse probe takes 1 <= w <= min(kc, 128), got w={w}")
+    q32 = queries.to(torch.float32).contiguous()
+    c32 = centroids.to(torch.float32).contiguous()
+    if c32.device != q32.device:
+        raise ValueError("coarse_topw inputs must be on one device")
+    cn = torch.sum(c32 * c32, dim=1)
+    if q32.device.type == "cpu":
+        vals, cells = coarse_topw_plain(q32, c32, cn, w)
+    else:
+        vals = torch.empty((B, w), dtype=torch.float32, device=q32.device)
+        cells = torch.empty((B, w), dtype=torch.int32, device=q32.device)
+        TOPW_KERNEL(q32.data_ptr(), c32.data_ptr(), cn.data_ptr(), B, d, kc,
+                    w, vals.data_ptr(), cells.data_ptr(),
+                    _build.stream_ptr(q32.device))
+    qn = torch.sum(q32 * q32, dim=1, keepdim=True)
+    return cells, torch.clamp_min(vals + qn, 0.0)

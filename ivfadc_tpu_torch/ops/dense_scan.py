@@ -1,4 +1,5 @@
-"""Cell-grouped dense posting scan (port of `ivfadc_tpu/ops/pallas_scan.py`).
+"""Dense posting scans (port of `ivfadc_tpu/ops/pallas_scan.py`): the
+cell-grouped scan of large batches and the per-probe scan of small ones.
 
 The B*w probes of a search batch are grouped by probed cell into tiles of
 pb probes of ONE cell, so each cell's decoded rows are read once per tile
@@ -15,10 +16,15 @@ and `_grouped_call`'s output row gather. The scan kernel itself is
 `csrc/dense_scan.cu`; `grouped_scan_plain` is the same function as plain
 tensor code.
 
-Not ported yet: `dense_scan` (the per-probe small-batch kernel), the
-grouped kernel's other variants (bf16 cache, in-kernel norms, exact merge,
-position payloads, in-kernel extraction), `grouped_dense_scan_qc`, and the
-sort-based prep for kc > MAX_KC.
+`dense_scan` is the per-probe scan of batches too small to share cells
+(B*w < 4*kc, single queries included): one kernel launch over all probes
+(`csrc/probe_scan.cu`, `probe_scan_plain`), fold merge with cell-relative
+block-index payloads, row norms computed in the kernel.
+
+Not ported yet: the kernels' other variants (bf16 cache, exact merge, and
+for the grouped kernel in-kernel norms, position payloads and in-kernel
+extraction), `grouped_dense_scan_qc`, and the sort-based prep for
+kc > MAX_KC.
 """
 
 from __future__ import annotations
@@ -33,6 +39,9 @@ _CAND = 128          # lanes per fold bank (rows per group)
 KERNEL = _build.Kernel("dense_scan", "grouped_scan",
                        [_build.P] * 8 + [_build.I] * 4 + [_build.F]
                        + [_build.P] * 3)
+PROBE_KERNEL = _build.Kernel("probe_scan", "probe_scan",
+                             [_build.P] * 6 + [_build.I] * 3 + [_build.F]
+                             + [_build.P] * 3)
 
 
 def grouped_scan_plain(tile_start, tile_size, v_tiles, base_tiles, decoded,
@@ -205,3 +214,96 @@ def place_tiles(cells, offsets, sizes, v, base, *, kc: int, pb: int):
     base_pad = torch.cat([base.reshape(P, 1).to(torch.float32),
                           torch.full((1, 1), float("inf"), device=dev)])
     return tile_start, tile_size, v_pad[inv_row], base_pad[inv_row], row
+
+
+def probe_scan_plain(starts, sizes, base, v, decoded, scale, *, nf: int,
+                     norm_coef: float):
+    """Plain version of the per-probe scan kernel -> (out_d (P, nf) f32,
+    out_p (P, nf) i32 cell-relative 128-row block indices). starts / sizes /
+    base (P,), v (P, d) bf16, decoded (rows, d) int8, scale (d,). Walks
+    every probe's cell in 128-row groups with the kernel's arithmetic order
+    (see csrc/probe_scan.cu)."""
+    dev = v.device
+    P = starts.shape[0]
+    nbank = nf // _CAND
+    vf = v.to(torch.bfloat16).to(torch.float32)
+    bf = base.to(torch.float32)
+    sc = scale.to(torch.bfloat16).to(torch.float32)
+    starts = starts.to(torch.int64)
+    sizes = sizes.to(torch.int64)
+    out_d = torch.full((P, nf), float("inf"), dtype=torch.float32, device=dev)
+    out_p = torch.full((P, nf), -1, dtype=torch.int32, device=dev)
+    ngroups = (sizes + _CAND - 1) // _CAND
+    lane = torch.arange(_CAND, device=dev)
+    for G in range(int(ngroups.max()) if P else 0):
+        act = torch.nonzero(ngroups > G).reshape(-1)
+        pos = G * _CAND + lane
+        valid = pos[None, :] < sizes[act, None]                 # (A, 128)
+        rowidx = torch.where(valid, starts[act, None] + pos[None, :], 0)
+        rows = (decoded[rowidx].to(torch.float32) * sc) \
+            .to(torch.bfloat16).to(torch.float32)               # (A, 128, d)
+        s = torch.bmm(rows, vf[act, :, None])[:, :, 0]          # (A, 128)
+        if norm_coef != 0.0:
+            sq = (rows * rows).to(torch.bfloat16).to(torch.float32)
+            s = s + norm_coef * torch.sum(sq, dim=-1)
+        s = s + bf[act, None]
+        s = torch.where(valid, s, float("inf"))
+        b = slice((G % nbank) * _CAND, (G % nbank + 1) * _CAND)
+        cur_d = out_d[act, b]
+        upd = s < cur_d
+        out_d[act, b] = torch.where(upd, s, cur_d)
+        out_p[act, b] = torch.where(upd, G, out_p[act, b])
+    return out_d, out_p
+
+
+def dense_scan(starts, sizes, v, base, decoded, scale=None, *, k_out: int,
+               chunk: int, norm_coef: float = 1.0, merge: str = "fold",
+               nf: int = _CAND):
+    """Scan the probed cells one probe at a time, production variant.
+
+    starts / sizes (B, w) i32 slot ranges of the probed cells; v (B, w, d);
+    base (B, w) f32; decoded (rows, d_pad) int8 with d_pad a 128-multiple
+    >= d (v is zero-padded up to it here); scale (d_pad,) f32. Returns
+    (dists (B, w, nf) f32 with +inf padding, blocks (B, w, nf) i32: the
+    cell-relative 128-row block index of each lane's best row, -1 padding).
+    `k_out` and `chunk` are kept for the JAX signature: fold results do not
+    depend on them (nf | chunk). CPU tensors run the plain version; CUDA
+    tensors launch the kernel."""
+    if merge != "fold":
+        raise NotImplementedError(
+            "only the fold merge of the per-probe scan is ported "
+            "(merge='exact': ROADMAP B.8)")
+    if decoded.dtype != torch.int8 or scale is None:
+        raise NotImplementedError(
+            "only the int8 decoded cache is ported (bf16 cache: ROADMAP B.8)")
+    if nf % _CAND or chunk % nf:
+        raise ValueError(f"nf must be a 128-multiple dividing chunk, "
+                         f"got nf={nf}, chunk={chunk}")
+    d_dec = decoded.shape[-1]
+    if v.shape[-1] != d_dec:
+        v = torch.nn.functional.pad(v, (0, d_dec - v.shape[-1]))
+    B, w, d = v.shape
+    P = B * w
+    dev = v.device
+    args = [starts.reshape(P).to(torch.int32),
+            sizes.reshape(P).to(torch.int32),
+            base.reshape(P).to(torch.float32),
+            v.reshape(P, d).to(torch.bfloat16), decoded,
+            scale.to(torch.bfloat16).to(torch.float32)]
+    if dev.type == "cpu":
+        out_d, out_p = probe_scan_plain(*args, nf=nf, norm_coef=norm_coef)
+        return out_d.reshape(B, w, nf), out_p.reshape(B, w, nf)
+    if d % 128:
+        raise ValueError(f"the decoded cache's feature dim must be a "
+                         f"128-multiple, got {d}")
+    args = [a.contiguous() for a in args]
+    for a in args:
+        if a.device != dev:
+            raise ValueError("dense scan inputs must be on one device")
+        if a.data_ptr() % 16:
+            raise ValueError("dense scan inputs must be 16-byte aligned")
+    out_d = torch.empty((P, nf), dtype=torch.float32, device=dev)
+    out_p = torch.empty((P, nf), dtype=torch.int32, device=dev)
+    PROBE_KERNEL(*(a.data_ptr() for a in args), P, d, nf, float(norm_coef),
+                 out_d.data_ptr(), out_p.data_ptr(), _build.stream_ptr(dev))
+    return out_d.reshape(B, w, nf), out_p.reshape(B, w, nf)

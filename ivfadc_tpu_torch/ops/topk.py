@@ -1,12 +1,11 @@
-"""Smallest-k along the last dim with an int32 payload.
+"""Smallest-k along the last dim, with an int32 payload or the indices.
 
-Port of `ivfadc_tpu/ops/topk.py::topk_lastdim_payload`, the dense search's
-final merge. The CUDA kernel is `csrc/topk.cu`; `topk_lastdim_payload_plain`
-is the same function written as plain tensor code (k min-extract passes,
-the lowest index winning ties, the winner masked to +inf).
-
-`topk_lastdim` (the payload-free kernel of the coarse fallback and the
-small-batch path) is not ported yet.
+Port of `ivfadc_tpu/ops/topk.py`: `topk_lastdim_payload` is the grouped
+dense search's final merge, `topk_lastdim` the small-batch merge over
+position payloads and the coarse quantizer's pairwise fallback. The CUDA
+kernels are in `csrc/topk.cu`; the `*_plain` functions are the same
+functions written as plain tensor code (k min-extract passes, the lowest
+index winning ties, the winner masked to +inf).
 """
 
 from __future__ import annotations
@@ -18,6 +17,12 @@ from ivfadc_tpu_torch import _build
 KERNEL = _build.Kernel("topk", "topk_payload",
                        [_build.P, _build.P, _build.P, _build.P,
                         _build.I, _build.I, _build.I, _build.P])
+INDEX_KERNEL = _build.Kernel("topk", "topk_index",
+                             [_build.P, _build.P, _build.P,
+                              _build.I, _build.I, _build.I, _build.P])
+
+# longest row the kernels stage in shared memory (f32 elements)
+MAX_N = 49152
 
 
 def topk_lastdim_payload_plain(x: torch.Tensor, payload: torch.Tensor,
@@ -60,3 +65,47 @@ def topk_lastdim_payload(x: torch.Tensor, payload: torch.Tensor, k: int):
     KERNEL(x.data_ptr(), payload.data_ptr(), vals.data_ptr(),
            pays.data_ptr(), B, N, k, _build.stream_ptr(x.device))
     return vals, pays
+
+
+def topk_lastdim_plain(x: torch.Tensor, k: int):
+    """Plain version of the index kernel: same passes, same tie and +inf
+    rules -> (vals (B, k) f32 ascending, idx (B, k) i32)."""
+    xs = x.to(torch.float32).clone()
+    B = xs.shape[0]
+    rows = torch.arange(B, device=xs.device)
+    vals = torch.empty((B, k), dtype=torch.float32, device=xs.device)
+    idx = torch.empty((B, k), dtype=torch.int32, device=xs.device)
+    for j in range(k):
+        a = torch.argmin(xs, dim=1)          # first index of the minimum
+        vals[:, j] = xs[rows, a]
+        idx[:, j] = a.to(torch.int32)
+        xs[rows, a] = float("inf")
+    return vals, idx
+
+
+def topk_lastdim(x: torch.Tensor, k: int):
+    """Smallest-k of x (B, N) along the last dim -> (vals (B, k) f32
+    ascending, idx (B, k) i32), equal values in index order. When a row
+    holds fewer than k finite entries the +inf tail's indices may repeat:
+    callers mask by isfinite(vals).
+
+    k <= 128 on rows of at most 49152 entries is the kernel's range (CPU
+    tensors run its plain version, CUDA tensors launch it). Beyond it,
+    where the JAX package leaves its kernel for a sort as well, a stable
+    sort gives the same values and tie order (its +inf tail holds distinct
+    indices)."""
+    B, N = x.shape
+    if not 1 <= k <= N:
+        raise ValueError(f"k must be in [1, N], got k={k}, N={N}")
+    x = x.to(torch.float32)
+    if k > 128 or N > MAX_N:
+        vals, idx = torch.sort(x, dim=1, stable=True)
+        return vals[:, :k].contiguous(), idx[:, :k].to(torch.int32)
+    if x.device.type == "cpu":
+        return topk_lastdim_plain(x, k)
+    x = x.contiguous()
+    vals = torch.empty((B, k), dtype=torch.float32, device=x.device)
+    idx = torch.empty((B, k), dtype=torch.int32, device=x.device)
+    INDEX_KERNEL(x.data_ptr(), vals.data_ptr(), idx.data_ptr(), B, N, k,
+                 _build.stream_ptr(x.device))
+    return vals, idx

@@ -198,31 +198,31 @@ def _variant(index, **changes):
 
 
 @pytest.mark.parametrize("case", [
-    "small_batch", "k_over_128", "lut", "auto_on_cpu", "non_dot_metric",
-    "exact_merge", "bf16_cache", "qc_vbase", "extract"])
+    "exact_merge", "exact_merge_small_batch", "bf16_cache",
+    "bf16_cache_small_batch", "gather_win", "qc_vbase", "extract",
+    "coarse_v2", "rank_v2", "kernel_norms", "approx_merge"])
 def test_unported_routes_raise(case, port_index, queries, monkeypatch):
-    idx, q, k, w = port_index, queries, K, W
-    if case == "small_batch":            # B*w < 4*kc
+    # the routes that work are held to the JAX package in
+    # tests/test_torch_routes.py; these name their ROADMAP item instead
+    idx, q = port_index, queries
+    if case.endswith("_small_batch"):    # B*w < 4*kc: the per-probe scan
         q = queries[:8]
-    elif case == "k_over_128":
-        k = 129
-    elif case == "lut":
-        idx = _variant(port_index, scan_mode="lut")
-    elif case == "auto_on_cpu":
-        idx = _variant(port_index, scan_mode="auto")
-    elif case == "non_dot_metric":
-        idx = _variant(port_index, scan_mode="auto",
-                       quantization_metric="cityblock")
-    elif case == "exact_merge":
+    if case.startswith("exact_merge"):
         idx = _variant(port_index, scan_merge="exact")
-    elif case == "bf16_cache":
+    elif case.startswith("bf16_cache"):
         idx = _variant(port_index, scan_cache="bf16")
-    elif case == "qc_vbase":
-        monkeypatch.setenv("IVFADC_VBASE", "qc")
-    elif case == "extract":
-        monkeypatch.setenv("IVFADC_EXTRACT", "1")
-    with pytest.raises(NotImplementedError):
-        idx.search_padded(q, k, w=w)
+    elif case == "gather_win":
+        idx = _variant(port_index, scan_gather_win=64)
+    else:
+        var, val = {"qc_vbase": ("IVFADC_VBASE", "qc"),
+                    "extract": ("IVFADC_EXTRACT", "1"),
+                    "coarse_v2": ("IVFADC_COARSE_ENGINE", "v2"),
+                    "rank_v2": ("IVFADC_RANK_ENGINE", "v2"),
+                    "kernel_norms": ("IVFADC_NORMS", "kernel"),
+                    "approx_merge": ("IVFADC_MERGE_TOPK", "approx")}[case]
+        monkeypatch.setenv(var, val)
+    with pytest.raises(NotImplementedError, match="ROADMAP|not ported"):
+        idx.search_padded(q, K, w=W)
 
 
 def test_unported_build_parts_raise(data, port_index):
@@ -244,14 +244,20 @@ def test_unported_build_parts_raise(data, port_index):
             torch.zeros((256, 128), dtype=torch.int8), torch.ones(128),
             torch.zeros((2, 128), dtype=torch.int32), torch.zeros((2, 128)),
             kc=5000, k_out=10, chunk=128, pb=8)
-    with pytest.raises(NotImplementedError):
-        port_index.coarse.search(torch.zeros((8, 128)), 4)
+    with pytest.raises(NotImplementedError):      # 8-row cells, grouped scan
+        loose = IVFADCIndex.build(data[:2048], device="cpu", kc=16, m=8,
+                                  k=16, cell_align=8, scan_mode="dense",
+                                  coarse_maxiter=2, quantization_maxiter=2)
+        loose.search_padded(data[:64], 5, w=4)
 
 
 def test_import_loads_no_jax():
-    code = ("import sys, ivfadc_tpu_torch, ivfadc_tpu_torch.convert, "
-            "ivfadc_tpu_torch.utils.persistence, "
-            "ivfadc_tpu_torch.utils.evaluation\n"
+    # every module of the package, found by walking it
+    code = ("import sys, pkgutil, importlib, ivfadc_tpu_torch\n"
+            "mods = [m.name for m in pkgutil.walk_packages("
+            "ivfadc_tpu_torch.__path__, 'ivfadc_tpu_torch.')]\n"
+            "assert 'ivfadc_tpu_torch.ops.adc' in mods, mods\n"
+            "for m in mods: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', "
             "'ivfadc_tpu') or m.startswith(('jax.', 'jaxlib.', "
             "'ivfadc_tpu.'))]\n"
