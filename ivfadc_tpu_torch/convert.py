@@ -12,7 +12,8 @@ import numpy as np
 import torch
 
 from ivfadc_tpu_torch.config import IVFADCConfig
-from ivfadc_tpu_torch.models.coarse import NaiveCoarseQuantizer
+from ivfadc_tpu_torch.models.coarse import (NaiveCoarseQuantizer,
+                                            TwoLevelCoarseQuantizer)
 from ivfadc_tpu_torch.models.index import IVFADCIndex
 from ivfadc_tpu_torch.models.inverted import PostingStore
 from ivfadc_tpu_torch.ops.metrics import get_metric
@@ -20,15 +21,13 @@ from ivfadc_tpu_torch.ops.pq import ProductQuantizer
 
 ARRAY_KEYS = ("centroids", "codebooks", "rotation", "offsets", "caps",
               "sizes", "codes", "ids")
+# a two-level coarse quantizer adds "group_centers" and "group_members"
+# (and `n_probe_groups` in meta)
 
 
 def index_from_arrays(arrays: dict, meta: dict, device) -> IVFADCIndex:
     """arrays: the format-v1 arrays (ARRAY_KEYS) as numpy; meta: the header
     (config dict, dim, data_dtype, coarse_kind, quantizer_method)."""
-    if meta.get("coarse_kind", "naive") != "naive":
-        raise NotImplementedError(
-            f"coarse quantizer {meta['coarse_kind']!r} (two-level) is not "
-            f"ported yet (ROADMAP A.10)")
     dev = torch.device(device)
     config = IVFADCConfig.from_dict(meta["config"])
 
@@ -36,8 +35,14 @@ def index_from_arrays(arrays: dict, meta: dict, device) -> IVFADCIndex:
         return torch.as_tensor(np.array(arrays[key], np.float32),
                                device=dev)
 
-    coarse = NaiveCoarseQuantizer(f32("centroids"),
-                                  get_metric(config.coarse_metric))
+    cmetric = get_metric(config.coarse_metric)
+    if meta.get("coarse_kind", "naive") == "two_level":
+        coarse = TwoLevelCoarseQuantizer.create(
+            np.array(arrays["centroids"], np.float32),
+            arrays["group_centers"], arrays["group_members"], cmetric,
+            int(meta["n_probe_groups"]), device=dev)
+    else:
+        coarse = NaiveCoarseQuantizer(f32("centroids"), cmetric)
     quantizer = ProductQuantizer(f32("codebooks"), f32("rotation"),
                                  meta["quantizer_method"])
     codes = np.array(arrays["codes"])
@@ -53,7 +58,7 @@ def index_from_arrays(arrays: dict, meta: dict, device) -> IVFADCIndex:
 
 def from_reference(jax_index, device) -> IVFADCIndex:
     """A port index holding the same parameters as a live `ivfadc_tpu`
-    index (naive coarse quantizer)."""
+    index (either coarse quantizer)."""
     arrays = {
         "centroids": np.asarray(jax_index.coarse.centroids),
         "codebooks": np.asarray(jax_index.quantizer.codebooks),
@@ -71,4 +76,8 @@ def from_reference(jax_index, device) -> IVFADCIndex:
         "coarse_kind": jax_index.coarse.kind,
         "quantizer_method": jax_index.quantizer.method,
     }
+    if jax_index.coarse.kind == "two_level":
+        meta["n_probe_groups"] = int(jax_index.coarse.n_probe_groups)
+        arrays["group_centers"] = np.asarray(jax_index.coarse.group_centers)
+        arrays["group_members"] = np.asarray(jax_index.coarse.members)
     return index_from_arrays(arrays, meta, device)

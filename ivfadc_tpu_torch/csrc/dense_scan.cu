@@ -1,16 +1,26 @@
 // Cell-grouped dense posting scan with a fold merge.
 //
-// Replaces ivfadc_tpu/ops/pallas_scan.py::_grouped_scan_kernel in its
-// production variant: fold merge, emitted external ids (ids2d), cached row
-// norms (norms2d), int8 decoded cache with a per-column scale. Each tile
-// (one block) holds up to pb probes of ONE cell; the block walks the cell's
-// live rows in 128-row groups, in increasing order, and for probe p and
-// group row l computes, in this order (the JAX kernel's arithmetic):
+// Replaces ivfadc_tpu/ops/pallas_scan.py::_grouped_scan_kernel in two
+// variants, both with fold merge, emitted external ids (ids2d) and the int8
+// decoded cache with a per-column scale: cached row norms (norms2d; entry
+// point grouped_scan) and row norms computed in the kernel (entry point
+// grouped_scan_knorm). Each tile (one block) holds up to pb probes of ONE
+// cell; the block walks the cell's live rows in 128-row groups, in
+// increasing order, and for probe p and group row l computes, in this
+// order (the JAX kernel's arithmetic):
 //   row  = bf16(float(int8) * float(bf16(scale)))        (per column)
-//   s    = sum_k float(v[p][k]) * float(row[k])          (f32, exact products)
-//   s    = s + base[p];  s = +inf past the cell size;  s = s + norm[row]
+//   dot  = sum_k float(v[p][k]) * float(row[k])          (f32, exact products)
+// cached norms:
+//   s    = dot + base[p];  s = +inf past the cell size;  s = s + coef*norm[row]
+// in-kernel norms (another order, as in the JAX kernel's branch):
+//   norm = sum_k float(bf16(row[k] * row[k]))            (bf16 squares, f32 sum)
+//   s    = (dot + coef * norm) + base[p]                 (coef == 0: dot + base)
+//   s    = +inf past the cell size
+// then in both:
 //   fold: group G writes bank G % (nf/128), lane l, strict '<', payload =
 //         the row's external id; buffers start at +inf / -1.
+// A staged group's norms are computed once, two threads a row, and shared
+// by the tile's pb probes.
 // Walking 128-row groups instead of the TPU's DMA chunks changes nothing:
 // chunk % nf == 0, so a row's bank is the same either way. Rows at or past
 // the cell size are never read. Tiles of size 0 write +inf / -1.
@@ -31,6 +41,7 @@ constexpr int RS = KT + 2;        // staged row stride (bf16): conflict-free
 constexpr int GS_THREADS = 256;   // 8 probe rows x 32 row lanes
 constexpr int MAX_PB = 64;
 
+template <bool KNORM>
 __global__ void __launch_bounds__(GS_THREADS) grouped_scan_kernel(
     const int* __restrict__ tstart, const int* __restrict__ tsize,
     const __nv_bfloat16* __restrict__ v_tiles,
@@ -44,6 +55,7 @@ __global__ void __launch_bounds__(GS_THREADS) grouped_scan_kernel(
   __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(
       bufp + static_cast<size_t>(pb) * nf);                     // pb * KT
   __nv_bfloat16* rs = vs + static_cast<size_t>(pb) * KT;        // GROUP * RS
+  __shared__ float nrm_s[GROUP];   // KNORM: the staged group's row norms
 
   const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
   const int t = blockIdx.x;
@@ -51,6 +63,7 @@ __global__ void __launch_bounds__(GS_THREADS) grouped_scan_kernel(
   const int np = pb >> 3;          // probe rows per thread (ty + 8 * i)
   const int nbank = nf / GROUP;
   const int nk = d / KT;
+  const bool use_norm = KNORM && norm_coef != 0.f;
 
   for (int i = tid; i < pb * nf; i += GS_THREADS) {
     bufd[i] = IVF_INF;
@@ -72,6 +85,7 @@ __global__ void __launch_bounds__(GS_THREADS) grouped_scan_kernel(
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    float nacc = 0.f;              // KNORM: this thread's half of a row norm
 
     for (int kb = 0; kb < nk; ++kb) {
       const int k0 = kb * KT;
@@ -105,6 +119,23 @@ __global__ void __launch_bounds__(GS_THREADS) grouped_scan_kernel(
         }
       }
       __syncthreads();
+      if (use_norm) {
+        // thread (row r, half h) sums the squares of words [16h, 16h + 16)
+        // and [32 + 16h, 48 + 16h) of its row: a warp's 16 rows x 2 halves
+        // touch 32 distinct banks at every step
+        const __nv_bfloat162* rw = reinterpret_cast<const __nv_bfloat162*>(
+            rs + static_cast<size_t>(tid >> 1) * RS);
+        const int h16 = (tid & 1) * 16;
+#pragma unroll
+        for (int part = 0; part < 2; ++part)
+          for (int wd = 0; wd < 16; ++wd) {
+            const float2 r2 = __bfloat1622float2(rw[part * 32 + h16 + wd]);
+            nacc = __fadd_rn(nacc, __bfloat162float(__float2bfloat16_rn(
+                                       __fmul_rn(r2.x, r2.x))));
+            nacc = __fadd_rn(nacc, __bfloat162float(__float2bfloat16_rn(
+                                       __fmul_rn(r2.y, r2.y))));
+          }
+      }
       for (int kk = 0; kk < KT; ++kk) {
         float rv[4], vv[8];
 #pragma unroll
@@ -123,19 +154,37 @@ __global__ void __launch_bounds__(GS_THREADS) grouped_scan_kernel(
       }
     }
 
+    if (use_norm) {
+      const float other = __shfl_xor_sync(IVF_FULL_MASK, nacc, 1);
+      if ((tid & 1) == 0) nrm_s[tid >> 1] = __fadd_rn(nacc, other);
+      __syncthreads();  // next written after the next group's two barriers
+    }
     const int bank = G % nbank;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int r = tx + 32 * j;
       const bool valid = r < nvalid;
       const int id = valid ? ids[row0 + r] : -1;
-      const float nr = valid ? norms[row0 + r] : 0.f;
+      float nr = 0.f;
+      if (KNORM) {
+        if (use_norm) nr = nrm_s[r];
+      } else {
+        nr = valid ? norms[row0 + r] : 0.f;
+      }
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         if (i < np) {
-          float s = __fadd_rn(acc[i][j], basev[i]);
-          s = valid ? s : IVF_INF;
-          s = __fadd_rn(s, __fmul_rn(norm_coef, nr));
+          float s;
+          if (KNORM) {
+            s = use_norm ? __fadd_rn(acc[i][j], __fmul_rn(norm_coef, nr))
+                         : acc[i][j];
+            s = __fadd_rn(s, basev[i]);
+            s = valid ? s : IVF_INF;
+          } else {
+            s = __fadd_rn(acc[i][j], basev[i]);
+            s = valid ? s : IVF_INF;
+            s = __fadd_rn(s, __fmul_rn(norm_coef, nr));
+          }
           const int slot = (ty + 8 * i) * nf + bank * GROUP + r;
           if (s < bufd[slot]) {
             bufd[slot] = s;
@@ -154,25 +203,26 @@ __global__ void __launch_bounds__(GS_THREADS) grouped_scan_kernel(
   }
 }
 
-extern "C" int grouped_scan(const void* tstart, const void* tsize,
-                            const void* v_tiles, const void* base_tiles,
-                            const void* decoded, const void* scale,
-                            const void* ids, const void* norms, int T, int d,
-                            int pb, int nf, float norm_coef, void* out_d,
-                            void* out_p, void* stream) {
+template <bool KNORM>
+static int launch_grouped_scan(const void* tstart, const void* tsize,
+                               const void* v_tiles, const void* base_tiles,
+                               const void* decoded, const void* scale,
+                               const void* ids, const void* norms, int T,
+                               int d, int pb, int nf, float norm_coef,
+                               void* out_d, void* out_p, void* stream) {
   if (pb <= 0 || pb % 8 || pb > MAX_PB || nf <= 0 || nf % GROUP ||
       d <= 0 || d % KT)
     return cudaErrorInvalidValue;
   const size_t smem = static_cast<size_t>(pb) * nf * 8 +
                       static_cast<size_t>(pb) * KT * 2 +
                       static_cast<size_t>(GROUP) * RS * 2;
-  if (smem > 227u * 1024u) return cudaErrorInvalidValue;
-  int err =
-      ivf_set_smem(reinterpret_cast<const void*>(grouped_scan_kernel), smem);
+  if (smem > 226u * 1024u) return cudaErrorInvalidValue;
+  int err = ivf_set_smem(
+      reinterpret_cast<const void*>(grouped_scan_kernel<KNORM>), smem);
   if (err) return err;
   if (T > 0)
-    grouped_scan_kernel<<<T, GS_THREADS, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
+    grouped_scan_kernel<KNORM><<<T, GS_THREADS, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(tstart), static_cast<const int*>(tsize),
         static_cast<const __nv_bfloat16*>(v_tiles),
         static_cast<const float*>(base_tiles),
@@ -180,4 +230,27 @@ extern "C" int grouped_scan(const void* tstart, const void* tsize,
         static_cast<const int*>(ids), static_cast<const float*>(norms), d, pb,
         nf, norm_coef, static_cast<float*>(out_d), static_cast<int*>(out_p));
   return ivf_launch_status();
+}
+
+extern "C" int grouped_scan(const void* tstart, const void* tsize,
+                            const void* v_tiles, const void* base_tiles,
+                            const void* decoded, const void* scale,
+                            const void* ids, const void* norms, int T, int d,
+                            int pb, int nf, float norm_coef, void* out_d,
+                            void* out_p, void* stream) {
+  return launch_grouped_scan<false>(tstart, tsize, v_tiles, base_tiles,
+                                    decoded, scale, ids, norms, T, d, pb, nf,
+                                    norm_coef, out_d, out_p, stream);
+}
+
+// The variant that computes the row norms itself: no norms stream.
+extern "C" int grouped_scan_knorm(const void* tstart, const void* tsize,
+                                  const void* v_tiles, const void* base_tiles,
+                                  const void* decoded, const void* scale,
+                                  const void* ids, int T, int d, int pb,
+                                  int nf, float norm_coef, void* out_d,
+                                  void* out_p, void* stream) {
+  return launch_grouped_scan<true>(tstart, tsize, v_tiles, base_tiles,
+                                   decoded, scale, ids, nullptr, T, d, pb, nf,
+                                   norm_coef, out_d, out_p, stream);
 }

@@ -1,23 +1,26 @@
 """IVFADCIndex — the top-level index (port of `ivfadc_tpu/models/index.py`).
 
-Ported so far: the build and every search route of a static index with
-the naive coarse quantizer.
+Ported so far: the build and every search route of a static index, with
+the naive or the two-level coarse quantizer.
 
-  build:  coarse k-means -> residuals -> PQ training -> encode -> padded CSR
+  build:  coarse k-means (k-means|| seeding past 4096 cells) -> residuals
+          -> PQ training -> encode -> padded CSR -> coarse quantizer
   dense search, B*w >= 4*kc: fused coarse probe -> cell ranks -> tile
           placement -> grouped fold scan -> top-k merge over id payloads
   dense search, B*w < 4*kc (single queries included): fused coarse probe ->
           per-probe fold scan -> top-k with indices -> slot positions -> ids
-  unfused probe (inner-product scores, non-euclidean coarse metrics): exact
-          top-w coarse search, then v / base in tensor code, then either scan
+  unfused probe (inner-product scores, non-euclidean coarse metrics, the
+          two-level coarse quantizer): the quantizer's own top-w search,
+          then v / base in tensor code, then either scan
   LUT search (scan_mode="lut", k > 128, "auto" off the GPU): coarse search
           -> ADC tables -> window gather + table lookups -> k smallest
 
 Routes that are not ported yet raise NotImplementedError naming their
-ROADMAP item instead of silently taking another route: the two-level
-coarse quantizer, OPQ training, the gathered tiny-cell engine, the exact
-merge, the bf16 decoded cache, stores without 128-row cells on the grouped
-scan, and the JAX package's opt-in engines.
+ROADMAP item instead of silently taking another route: OPQ training, the
+gathered tiny-cell engine, the exact merge, the bf16 decoded cache, stores
+without 128-row cells on the grouped scan (which large-kc indexes reach
+only at B*w >= 4*kc), and the JAX package's opt-in engines other than
+IVFADC_NORMS.
 """
 
 from __future__ import annotations
@@ -32,9 +35,12 @@ import torch
 
 from ivfadc_tpu_torch.config import IVFADCConfig, device_id_cap
 from ivfadc_tpu_torch.models.coarse import (NaiveCoarseQuantizer,
-                                            make_coarse_quantizer)
+                                            make_coarse_quantizer,
+                                            pairwise_rows)
 from ivfadc_tpu_torch.models.inverted import PostingStore
 from ivfadc_tpu_torch.ops import pq as pq_ops
+from ivfadc_tpu_torch.ops.coarse_scan import coarse_probe_vbase
+from ivfadc_tpu_torch.ops.kmeans import kmeans, make_generator
 from ivfadc_tpu_torch.ops.metrics import Metric, get_metric
 
 # auto-cap for PQ codebook training when quantization_sample is unset (0)
@@ -43,21 +49,22 @@ _PQ_TRAIN_AUTOCAP = 1 << 20
 # random streams of a build (ops.kmeans.make_generator)
 _STREAM_COARSE = 0
 _STREAM_PQ_SAMPLE = 1
+_STREAM_COARSE_GROUPS = 2
 
 # elements of one (queries, w, window) temporary of the LUT scan; larger
 # batches are scanned in query blocks of this size (results do not change:
 # queries are independent)
 _LUT_BLOCK_ELEMS = 1 << 24
 
-# The JAX package's opt-in engines, selected there by environment variables;
-# none is ported, so asking for one fails instead of running the default.
+# The JAX package's opt-in engines, selected there by environment variables.
+# These are not ported, so asking for one fails instead of running the
+# default. (IVFADC_NORMS is honoured: `PostingStore.device_view_dense`.)
 _UNPORTED_ENGINES = {
     "IVFADC_VBASE": ("place", "qc: in-kernel v/base grouped scan, ROADMAP B.9"),
     "IVFADC_EXTRACT": ("0", "in-kernel extraction variant, ROADMAP B.8"),
     "IVFADC_COARSE_ENGINE": ("v1", "v2 coarse probe, ROADMAP B.10"),
     "IVFADC_RANK_ENGINE": ("v1", "v2 cell ranks, ROADMAP B.11"),
     "IVFADC_MERGE_TOPK": ("pallas", "approximate merge top-k"),
-    "IVFADC_NORMS": ("cache", "in-kernel row norms, ROADMAP B.8"),
 }
 
 
@@ -89,8 +96,6 @@ def _train_components(xd: torch.Tensor, config: IVFADCConfig,
                       cmetric: Metric, qmetric: Metric, timer: _PhaseTimer):
     """Coarse k-means + residual-quantizer training on device data `xd`.
     Returns (kmeans result, residuals (n, d), quantizer)."""
-    from ivfadc_tpu_torch.ops.kmeans import kmeans, make_generator
-
     n = xd.shape[0]
     if config.kc > n:
         raise AssertionError(
@@ -121,12 +126,6 @@ def _train_components(xd: torch.Tensor, config: IVFADCConfig,
     return cres, residuals, quantizer
 
 
-def _pairwise_rows(metric: Metric, queries, cent):
-    """metric.pairwise of each query against its own w rows: queries (B, d),
-    cent (B, w, d) -> (B, w)."""
-    return torch.vmap(metric.pairwise)(queries[:, None, :], cent)[:, 0, :]
-
-
 def _dense_probe(cq, rotation, queries, *, w: int, metric: Metric,
                  include_base: bool, apply_rot: bool, residual_based: bool):
     """Coarse probe + scan-vector prep -> (cells (B,w), v (B,w,dq),
@@ -139,7 +138,6 @@ def _dense_probe(cq, rotation, queries, *, w: int, metric: Metric,
             and cq.metric.name in ("sqeuclidean", "euclidean")
             and w <= 128 and dq == d):
         # fully fused coarse probe: cells / v / base from one kernel
-        from ivfadc_tpu_torch.ops.coarse_scan import coarse_probe_vbase
         cells, _, v, base = coarse_probe_vbase(
             queries, cq.centroids, w, rotation, apply_rot, include_base)
         return cells, v, base, 1.0
@@ -165,7 +163,7 @@ def _dense_probe(cq, rotation, queries, *, w: int, metric: Metric,
             qv = torch.nn.functional.pad(qv, (0, dq - d))
         q = qv @ rotation if apply_rot else qv
         v = (-q)[:, None, :].expand(B, w, dq)
-        base = _pairwise_rows(metric, queries, cent)
+        base = pairwise_rows(metric, queries, cent)
         norm_coef = 0.0
     # a quantizer may PAD probes past its candidate supply (cell 0 with an
     # infinite distance): a finite recomputed base would re-scan cell 0 and
@@ -195,7 +193,7 @@ def _lut_search(cq, codebooks, rotation, view, queries, *, k: int, w: int,
             base = cdists if include_base else torch.zeros_like(cdists)
         else:
             vecs = q[:, None, :].expand(q.shape[0], w, d)
-            base = _pairwise_rows(metric, q, cent)
+            base = pairwise_rows(metric, q, cent)
         base = torch.where(torch.isfinite(cdists), base, float("inf"))
         if d != dq:                     # ragged-subspace zero padding
             vecs = torch.nn.functional.pad(vecs, (0, dq - d))
@@ -316,7 +314,7 @@ class IVFADCIndex:
     def __init__(self, config: IVFADCConfig, coarse, quantizer, store,
                  data_dtype, dim: int):
         self.config = config
-        self.coarse = coarse                  # NaiveCoarseQuantizer
+        self.coarse = coarse                  # Naive- / TwoLevelCoarseQuantizer
         self.quantizer = quantizer            # ProductQuantizer
         self.store = store                    # PostingStore
         self.data_dtype = np.dtype(data_dtype)
@@ -358,10 +356,6 @@ class IVFADCIndex:
             raise AssertionError("data must be a 2-D (n, d) array")
         n, d = data.shape
         config.validate_for_data(n, d)
-        if config.coarse_quantizer != "naive":
-            raise NotImplementedError(
-                f"coarse quantizer {config.coarse_quantizer!r} (two-level) "
-                f"is not ported yet (ROADMAP A.10)")
         if config.quantization_method != "pq":
             raise NotImplementedError(
                 "OPQ training is not ported yet (ROADMAP A.7)")
@@ -376,14 +370,20 @@ class IVFADCIndex:
             del residuals, xd
         with timer.phase("build_lists"):
             # 128-row cell alignment lets the grouped scan read posting ids
-            # in (rows/128, 128) layout and emit external ids
+            # in (rows/128, 128) layout and emit external ids; huge-kc
+            # indexes serve the per-probe scan and keep the tight 8 rows
             align = config.cell_align or (128 if config.kc <= 16384 else 8)
             store = PostingStore.build_device(cres.assignments, codes,
                                               config.kc,
                                               slack=config.cell_slack,
                                               align=align)
-        coarse = make_coarse_quantizer(config.coarse_quantizer, cres.centers,
-                                       cmetric)
+        with timer.phase("coarse_quantizer"):
+            coarse = make_coarse_quantizer(
+                config.coarse_quantizer, cres.centers, cmetric,
+                generator=make_generator(config.seed, _STREAM_COARSE_GROUPS,
+                                         dev),
+                n_groups=config.coarse_n_groups,
+                n_probe_groups=config.coarse_probe_groups)
         idx = cls(config, coarse, quantizer, store, data_dtype, d)
         idx.build_timings = timer.timings
         return idx

@@ -21,6 +21,7 @@ logs are not ported yet.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -205,7 +206,9 @@ class PostingStore:
         cell and zero-padded on the feature dim to a 128-multiple (zero
         features change neither dot products nor norms); ids, and — for
         128-row aligned stores — ids2d and the cached row norms norms2d in
-        (rows/128, 128) layout."""
+        (rows/128, 128) layout. IVFADC_NORMS set to anything but "cache"
+        leaves norms2d out (None): the grouped scan then computes the row
+        norms in its kernel."""
         from ivfadc_tpu_torch.ops import pq as pq_ops
         if cache != "int8":
             raise NotImplementedError(
@@ -224,11 +227,16 @@ class PostingStore:
             scale = torch.nn.functional.pad(scale, (0, d_pad), value=1.0)
             ids = torch.nn.functional.pad(self._ids_on_device(), (0, guard),
                                           value=-1)
-            ids2d = norms2d = None
+            ids2d = None
             if self.align % _LANE == 0 and ids.shape[0] % _LANE == 0:
                 ids2d = ids.reshape(-1, _LANE)
-                norms2d = _row_norms(decoded, scale).reshape(-1, _LANE)
             self._device_dense = dict(
-                decoded=decoded, ids=ids, ids2d=ids2d, norms2d=norms2d,
+                decoded=decoded, ids=ids, ids2d=ids2d, norms2d=None,
                 scale=scale, **self._csr_on_device())
-        return self._device_dense
+        view = self._device_dense
+        if os.environ.get("IVFADC_NORMS", "cache") != "cache":
+            return {**view, "norms2d": None}
+        if view["norms2d"] is None and view["ids2d"] is not None:
+            view["norms2d"] = _row_norms(view["decoded"], view["scale"]) \
+                .reshape(-1, _LANE)
+        return view

@@ -76,7 +76,7 @@ def coarse_probe_vbase(queries, centroids, w: int, rotation,
     Returns (cells (B,w) i32, cdists (B,w) f32, v (B,w,d) bf16,
     base (B,w) f32), v = -2 * rot(q - c), base = |rot(q - c)|^2 (+ cdist
     when include_base). Unlike the JAX wrapper it never returns None: the
-    kernel takes every shape of the dense path."""
+    kernel streams the centroid table in chunks and takes every kc."""
     B, d = queries.shape
     kc = centroids.shape[0]
     if apply_rot and rotation.shape[0] != d:
@@ -115,10 +115,10 @@ def coarse_topw_plain(q32, c32, cn, w: int):
 def coarse_topw(queries, centroids, w: int):
     """Exact brute-force squared-euclidean top-w cells without materializing
     the (B, kc) matrix in device memory. queries (B, d), centroids (kc, d)
-    -> (cells (B, w) i32, sqdists (B, w) f32 ascending). Unlike the JAX
-    wrapper it never returns None: the kernel takes every d and kc, for
-    1 <= w <= min(kc, 128). CPU tensors run the plain version, CUDA tensors
-    launch the kernel."""
+    -> (cells (B, w) i32, sqdists (B, w) f32 ascending), for 1 <= w <=
+    min(kc, 128). Unlike the JAX wrapper it never returns None: the kernel
+    streams the centroid table in chunks and takes every kc. CPU tensors
+    run the plain version, CUDA tensors launch the kernel."""
     B, d = queries.shape
     kc = centroids.shape[0]
     if not 1 <= w <= min(kc, 128):

@@ -8,11 +8,14 @@ and score all of the tile's probes:
   score(q, x) = base' + v . r_hat + ||r_hat||^2,   v = -2 r,  base' = |r|^2
                                                    (+ coarse distance)
 
-This module holds the production variant of the JAX package's grouped scan
-(`grouped_dense_scan` with fold merge, emitted external ids, cached row
-norms and the int8 decoded cache): the counting-rank prep (`cell_ranks`,
+This module holds two variants of the JAX package's grouped scan
+(`grouped_dense_scan` with fold merge, emitted external ids and the int8
+decoded cache): with cached row norms (`norms2d`, the posting scan's
+default) and with the row norms computed in the kernel (`norms2d=None`:
+the two-level coarse quantizer's stage 2, and the posting scan under
+IVFADC_NORMS=off). Both share the counting-rank prep (`cell_ranks`,
 `_tile_map`, the `inv_row` placement with its zero v-row and +inf base-row)
-and `_grouped_call`'s output row gather. The scan kernel itself is
+and `_grouped_call`'s output row gather. The scan kernels are in
 `csrc/dense_scan.cu`; `grouped_scan_plain` is the same function as plain
 tensor code.
 
@@ -22,9 +25,8 @@ tensor code.
 block-index payloads, row norms computed in the kernel.
 
 Not ported yet: the kernels' other variants (bf16 cache, exact merge, and
-for the grouped kernel in-kernel norms, position payloads and in-kernel
-extraction), `grouped_dense_scan_qc`, and the sort-based prep for
-kc > MAX_KC.
+for the grouped kernel position payloads and in-kernel extraction),
+`grouped_dense_scan_qc`, and the sort-based prep for kc > MAX_KC.
 """
 
 from __future__ import annotations
@@ -39,6 +41,9 @@ _CAND = 128          # lanes per fold bank (rows per group)
 KERNEL = _build.Kernel("dense_scan", "grouped_scan",
                        [_build.P] * 8 + [_build.I] * 4 + [_build.F]
                        + [_build.P] * 3)
+NORMS_KERNEL = _build.Kernel("dense_scan", "grouped_scan_knorm",
+                             [_build.P] * 7 + [_build.I] * 4 + [_build.F]
+                             + [_build.P] * 3)
 PROBE_KERNEL = _build.Kernel("probe_scan", "probe_scan",
                              [_build.P] * 6 + [_build.I] * 3 + [_build.F]
                              + [_build.P] * 3)
@@ -47,9 +52,11 @@ PROBE_KERNEL = _build.Kernel("probe_scan", "probe_scan",
 def grouped_scan_plain(tile_start, tile_size, v_tiles, base_tiles, decoded,
                        scale, ids2d, norms2d, *, pb: int, nf: int,
                        norm_coef: float):
-    """Plain version of the scan kernel -> (out_d (T*pb, nf) f32,
+    """Plain version of the scan kernels -> (out_d (T*pb, nf) f32,
     out_p (T*pb, nf) i32). Walks every tile's cell in 128-row groups with
-    the kernel's arithmetic order (see csrc/dense_scan.cu)."""
+    the kernels' arithmetic order (see csrc/dense_scan.cu): cached norms
+    join after the size mask; with `norms2d=None` the norms are f32 sums
+    of the rows' bf16-rounded squares and join before the base."""
     dev = v_tiles.device
     T = tile_start.shape[0]
     d = v_tiles.shape[1]
@@ -57,7 +64,7 @@ def grouped_scan_plain(tile_start, tile_size, v_tiles, base_tiles, decoded,
     vt = v_tiles.to(torch.bfloat16).to(torch.float32).reshape(T, pb, d)
     bt = base_tiles.to(torch.float32).reshape(T, pb, 1)
     ids = ids2d.reshape(-1)
-    nrm = norms2d.reshape(-1)
+    nrm = None if norms2d is None else norms2d.reshape(-1)
     sc = scale.to(torch.bfloat16).to(torch.float32)
     starts = tile_start.to(torch.int64)
     sizes = tile_size.to(torch.int64)
@@ -74,9 +81,14 @@ def grouped_scan_plain(tile_start, tile_size, v_tiles, base_tiles, decoded,
         rows = (decoded[rowidx].to(torch.float32) * sc) \
             .to(torch.bfloat16).to(torch.float32)               # (A, 128, d)
         s = torch.bmm(vt[act], rows.transpose(1, 2))            # (A, pb, 128)
+        if nrm is None and norm_coef != 0.0:
+            sq = (rows * rows).to(torch.bfloat16).to(torch.float32)
+            s = s + norm_coef * torch.sum(sq, dim=-1)[:, None, :]
         s = s + bt[act]
         s = torch.where(valid[:, None, :], s, float("inf"))
-        s = s + norm_coef * torch.where(valid, nrm[rowidx], 0.0)[:, None, :]
+        if nrm is not None:
+            s = s + norm_coef * torch.where(valid, nrm[rowidx],
+                                            0.0)[:, None, :]
         pay = torch.where(valid, ids[rowidx], -1).to(torch.int32)
         b = slice((G % nbank) * _CAND, (G % nbank + 1) * _CAND)
         cur_d = out_d[act, :, b]
@@ -93,7 +105,8 @@ def grouped_scan(tile_start, tile_size, v_tiles, base_tiles, decoded, scale,
     """The scan kernel's wrapper. tile_start/tile_size (T,) i32 (cell row
     range per tile, 128-row aligned starts), v_tiles (T*pb, d) bf16,
     base_tiles (T*pb, 1) f32, decoded (rows, d) int8, scale (d,) f32,
-    ids2d / norms2d (rows/128, 128) i32 / f32. CPU tensors run the plain
+    ids2d / norms2d (rows/128, 128) i32 / f32; `norms2d=None` selects the
+    variant that computes the row norms itself. CPU tensors run the plain
     version; CUDA tensors launch the kernel."""
     if nf % _CAND or pb % 8 or not 8 <= pb <= 64:
         raise ValueError(f"grouped scan needs nf % 128 == 0 and pb in "
@@ -115,7 +128,9 @@ def grouped_scan(tile_start, tile_size, v_tiles, base_tiles, decoded, scale,
     args = [tile_start.to(torch.int32), tile_size.to(torch.int32),
             v_tiles.to(torch.bfloat16), base_tiles.to(torch.float32),
             decoded, scale.to(torch.bfloat16).to(torch.float32),
-            ids2d.to(torch.int32), norms2d.to(torch.float32)]
+            ids2d.to(torch.int32)]
+    if norms2d is not None:
+        args.append(norms2d.to(torch.float32))
     args = [a.contiguous() for a in args]
     for a in args:
         if a.device != dev:
@@ -124,7 +139,8 @@ def grouped_scan(tile_start, tile_size, v_tiles, base_tiles, decoded, scale,
             raise ValueError("grouped scan inputs must be 16-byte aligned")
     out_d = torch.empty((T * pb, nf), dtype=torch.float32, device=dev)
     out_p = torch.empty((T * pb, nf), dtype=torch.int32, device=dev)
-    KERNEL(*(a.data_ptr() for a in args), T, d, pb, nf, float(norm_coef),
+    kernel = NORMS_KERNEL if norms2d is None else KERNEL
+    kernel(*(a.data_ptr() for a in args), T, d, pb, nf, float(norm_coef),
            out_d.data_ptr(), out_p.data_ptr(), _build.stream_ptr(dev))
     return out_d, out_p
 
@@ -151,20 +167,22 @@ def grouped_dense_scan(cells, offsets, sizes, v, base, decoded, scale=None,
                        ids2d=None, norms2d=None, *, kc: int, k_out: int,
                        chunk: int, norm_coef: float = 1.0, pb: int = 16,
                        merge: str = "fold", nf: int = _CAND):
-    """Cell-major grouped scan, production variant.
+    """Cell-major grouped scan, fold merge with emitted ids.
 
     cells (B, w) i32; offsets/sizes (kc,) i32; v (B, w, d) bf16; base (B, w)
     f32; decoded (rows, d_pad) int8 with d_pad a 128-multiple >= d (v is
     zero-padded up to it here); scale (d_pad,) f32; ids2d / norms2d the
     posting ids and cached ||r_hat||^2 in (rows/128, 128) layout (cells
-    128-row aligned). Returns (cand_d (B, w, nf) f32, cand_p (B, w, nf) i32
-    EXTERNAL ids) in the original probe order. `k_out` and `chunk` are kept
-    for the JAX signature: fold results do not depend on them (nf | chunk).
+    128-row aligned); without norms2d the kernel computes the row norms
+    from the dequantized rows. Returns (cand_d (B, w, nf) f32, cand_p
+    (B, w, nf) i32 EXTERNAL ids) in the original probe order. `k_out` and
+    `chunk` are kept for the JAX signature: fold results do not depend on
+    them (nf | chunk).
     """
-    if merge != "fold" or ids2d is None or norms2d is None:
+    if merge != "fold" or ids2d is None:
         raise NotImplementedError(
-            "only the fold + emitted-ids + cached-norms grouped scan is "
-            "ported (other variants: ROADMAP B.8)")
+            "only the fold + emitted-ids grouped scan is ported (other "
+            "variants: ROADMAP B.8)")
     if decoded.dtype != torch.int8 or scale is None:
         raise NotImplementedError(
             "only the int8 decoded cache is ported (bf16 cache: ROADMAP B.8)")

@@ -1,12 +1,23 @@
 """Batched k-means (port of `ivfadc_tpu/ops/kmeans.py`).
 
 Plain tensor code, as in the JAX package (no kernel there either):
-  * assignment = one `||x||^2 + ||c||^2 - 2 x c^T` matmul + argmin per block
-    of points, so the (n, k) distance matrix is never materialized;
-  * centroid update = one-hot matmul (block, k)^T @ (block, d) — on a GPU
-    this also keeps builds deterministic, where a scatter-add of floats
-    (`index_add_`) would sum in an order that changes from run to run;
+  * assignment = one distance matmul + argmin per block of points, so the
+    (n, k) distance matrix is never materialized; under the euclidean
+    metrics the block's matrix is `||c||^2 - 2 x c^T` straight out of the
+    matmul and `||x||^2` joins the winners only;
+  * centroid update = a segment sum over the points sorted by cell (stable
+    sort, sums taken in sorted order), where the JAX package multiplies by
+    a (block, k) one-hot: the one-hot costs as many operations again as
+    the distances and, at k = 2^18, 1 GB a block, and is about half as fast
+    on the card already at k = 1024 (`utils/lloyd_timing.py` times both). No
+    scatter-add of floats (`index_add_`), which on a GPU sums in an order
+    that changes from run to run;
   * k-means++ seeding = a loop of rank-1 distance updates + D^2 sampling;
+    beyond `_PP_MAX_K` centers k-means|| (a few rounds, each drawing a
+    batch of seeds at once);
+  * D^2 sampling is Gumbel-max, `argmax(log w + gumbel)`: exact sampling
+    proportional to w without a prefix sum (a float `cumsum` on a GPU is
+    not reproducible from run to run);
   * empty clusters are re-seeded each iteration at far-away points.
 
 Every function takes a leading subspace axis internally, so PQ training
@@ -30,7 +41,7 @@ class KMeansResult(NamedTuple):
     assignments: torch.Tensor   # (n,) int32
 
 
-# beyond this k, the JAX package seeds with k-means|| (not ported yet)
+# beyond this k, "k-means++" seeding runs as k-means|| (_kmeans_parallel)
 _PP_MAX_K = 4096
 
 
@@ -64,6 +75,25 @@ def _pad_blocks(x, block: int):
     return xp.reshape(m, nb, block, d), mask.reshape(nb, block)
 
 
+def _d2_weights(mind):
+    """D^2 sampling weights from min-distances (..., n), shifted by the
+    (non-positive) minimum first so that metrics with negative "distances"
+    keep their ordering."""
+    return torch.clamp_min(
+        mind - torch.clamp_max(mind.min(dim=-1, keepdim=True).values, 0.0),
+        0.0)
+
+
+def _gumbel_keys(gens: Sequence[torch.Generator], w):
+    """Keys whose argmax (top-j) is a draw (j draws without replacement)
+    proportional to the weights w (m, n): log w + Gumbel noise, one noise
+    stream per subspace; zero-weight points get -inf."""
+    u = torch.stack([torch.rand(w.shape[1], generator=g, device=w.device)
+                     for g in gens])
+    keys = torch.log(torch.clamp_min(w, 1e-30)) - torch.log(-torch.log(u))
+    return torch.where(w > 0, keys, -float("inf"))
+
+
 def _kmeans_plus_plus(gens: Sequence[torch.Generator], x, k: int,
                       metric: Metric):
     """k-means++ seeding of each subspace: x (m, n, d) -> (m, k, d)."""
@@ -75,27 +105,15 @@ def _kmeans_plus_plus(gens: Sequence[torch.Generator], x, k: int,
         return torch.stack([torch.randint(0, n, (), generator=g, device=dev)
                             for g in gens])
 
-    def uniform():
-        return torch.stack([torch.rand((), generator=g, device=dev)
-                            for g in gens])
-
     first = x[rows, uniform_idx()]                         # (m, d)
     centers = torch.zeros((m, k, d), dtype=torch.float32, device=dev)
     centers[:, 0] = first
     mind = _pairwise(metric, x, first[:, None, :])[:, :, 0]
     for j in range(1, k):
-        # D^2 weights, shifted by the (non-positive) minimum first so that
-        # metrics with negative "distances" keep their ordering
-        w = torch.clamp_min(
-            mind - torch.clamp_max(mind.min(dim=1, keepdim=True).values, 0.0),
-            0.0)
-        cum = torch.cumsum(w, dim=1)
-        total = cum[:, -1]
-        u = uniform() * torch.clamp_min(total, 1e-30)
-        idx = torch.searchsorted(cum, u[:, None]).reshape(m)
-        idx = torch.clamp(idx, 0, n - 1)
+        w = _d2_weights(mind)
+        idx = torch.argmax(_gumbel_keys(gens, w), dim=1)
         # degenerate guard: no residual mass left -> uniform pick
-        idx = torch.where(total > 0, idx, uniform_idx())
+        idx = torch.where(torch.any(w > 0, dim=1), idx, uniform_idx())
         c = x[rows, idx]
         centers[:, j] = c
         mind = torch.minimum(mind, _pairwise(metric, x, c[:, None, :])[:, :, 0])
@@ -108,28 +126,102 @@ def kmeans_plus_plus(gen: torch.Generator, x, k: int,
     return _kmeans_plus_plus([gen], x.to(torch.float32)[None], k, metric)[0]
 
 
-def _assign_pass(x_blocks, mask, centers, metric: Metric):
+def _nearest(metric: Metric, xb, centers):
+    """Nearest center of each point: xb (m, b, d), centers (m, k, d) ->
+    (argmin (m, b) i64, first minimum; min distance (m, b) f32). Under the
+    euclidean metrics the (b, k) matrix is written once, as ||c||^2 - 2 x.c
+    out of the matmul, and ||x||^2 joins the winners only: the distances of
+    `_pairwise` up to f32 rounding, for a fraction of the memory traffic."""
+    if metric.name not in ("sqeuclidean", "euclidean"):
+        dist = _pairwise(metric, xb, centers)               # (m, b, k)
+        a = torch.argmin(dist, dim=2)
+        return a, torch.gather(dist, 2, a[:, :, None])[:, :, 0]
+    cn = torch.sum(centers * centers, dim=-1)[:, None, :]
+    part = torch.baddbmm(cn, xb, centers.transpose(1, 2), alpha=-2.0)
+    a = torch.argmin(part, dim=2)
+    md = torch.gather(part, 2, a[:, :, None])[:, :, 0]
+    return a, torch.clamp_min(md + torch.sum(xb * xb, dim=-1), 0.0)
+
+
+def _kmeans_parallel(gen: torch.Generator, x, k: int, rounds: int, m_r: int,
+                     block: int, metric: Metric):
+    """k-means||-style seeding (after Bahmani et al., VLDB'12): `rounds`
+    rounds each draw `m_r` seeds by D^2-weighted sampling WITHOUT
+    replacement (Gumbel-top-m_r: one top-k per round, no sequential
+    draws), and the running min-distance updates against each round's
+    whole batch in blocked matmul passes. The k seeds are the pooled draws
+    themselves. Already-chosen points have distance 0 => weight 0 => are
+    never redrawn. x (n, d) f32 -> (k, d)."""
+    n, d = x.shape
+    dev = x.device
+    first = x[torch.randint(0, n, (), generator=gen, device=dev)]
+    mind = _pairwise(metric, x[None], first[None, None, :])[0, :, 0]
+    cand = torch.zeros((1 + rounds * m_r, d), dtype=torch.float32, device=dev)
+    cand[0] = first
+    for j in range(rounds):
+        keys = _gumbel_keys([gen], _d2_weights(mind)[None])[0]
+        new_c = x[torch.topk(keys, m_r).indices]
+        cand[1 + j * m_r:1 + (j + 1) * m_r] = new_c
+        dmin = torch.cat([
+            _nearest(metric, x[None, s:s + block], new_c[None])[1][0]
+            for s in range(0, n, block)])
+        mind = torch.minimum(mind, dmin)
+    return cand[:k]
+
+
+def kmeans_parallel(gen: torch.Generator, x, k: int,
+                    metric: Metric = SQEUCLIDEAN, *, rounds: int = 16,
+                    block: int = 16384):
+    """k-means|| seeding: (n, d) -> (k, d) float32 seeds, each a data
+    point. Cost: `rounds` blocked (n x k/rounds) matmul passes and one
+    n-wide top-k per round."""
+    n = x.shape[0]
+    if n < k:
+        raise AssertionError(
+            f"k-means|| needs at least k={k} points to seed from, got {n}")
+    rounds = max(1, min(rounds, k))
+    m_r = min(-(-k // rounds), n)      # pool 1 + rounds*m_r >= k
+    block = max(256, min(block, (1 << 28) // max(m_r, 1)))
+    return _kmeans_parallel(gen, x.to(torch.float32), k, rounds, m_r, block,
+                            metric)
+
+
+def _segment_sums(x, assignments, k: int):
+    """Per-cell sums of x (n, d) under assignments (n,) i64 -> (sums (k, d),
+    counts (k,) f32): a stable sort by cell, then each cell's rows summed
+    in sorted (= original) order. No float atomics, so the same inputs give
+    the same bits in every run."""
+    order = torch.argsort(assignments, stable=True)
+    counts = torch.bincount(assignments, minlength=k)
+    sums = torch.segment_reduce(x[order], "sum", lengths=counts, axis=0,
+                                unsafe=True)
+    return sums, counts.to(torch.float32)
+
+
+def _assign_pass(x_blocks, mask, centers, metric: Metric,
+                 with_sums: bool = True):
     """One streamed pass over (m, nb, block, d) points: per-point argmin/min
-    plus accumulated one-hot sums -> (assignments (m, nb, block) i64,
-    mindists (m, nb, block) f32, sums (m, k, d) f32, counts (m, k) f32)."""
+    plus the per-cell sums -> (assignments (m, nb, block) i64, mindists
+    (m, nb, block) f32, sums (m, k, d) f32, counts (m, k) f32; sums and
+    counts are None without `with_sums`). The sums are one sorted segment
+    sum per subspace after the pass."""
     m, nb, block, d = x_blocks.shape
     k = centers.shape[1]
-    sums = torch.zeros((m, k, d), dtype=torch.float32, device=centers.device)
-    counts = torch.zeros((m, k), dtype=torch.float32, device=centers.device)
     assigns, mindists = [], []
     for b in range(nb):
-        xb = x_blocks[:, b]
-        dist = _pairwise(metric, xb, centers)               # (m, block, k)
-        a = torch.argmin(dist, dim=2)                       # first minimum
-        md = torch.gather(dist, 2, a[:, :, None])[:, :, 0]
-        onehot = torch.nn.functional.one_hot(a, k).to(torch.float32) \
-            * mask[b][None, :, None]
-        sums = sums + torch.bmm(onehot.transpose(1, 2), xb)
-        counts = counts + torch.sum(onehot, dim=1)
+        a, md = _nearest(metric, x_blocks[:, b], centers)
         # padded points are never picked as re-seed targets
         mindists.append(torch.where(mask[b][None, :] > 0, md, -float("inf")))
         assigns.append(a)
-    return torch.stack(assigns, 1), torch.stack(mindists, 1), sums, counts
+    assigns = torch.stack(assigns, 1)
+    if not with_sums:
+        return assigns, torch.stack(mindists, 1), None, None
+    n = int(mask.sum().item())             # the padding follows the points
+    flat_x, flat_a = x_blocks.reshape(m, -1, d), assigns.reshape(m, -1)
+    per = [_segment_sums(flat_x[i, :n], flat_a[i, :n], k) for i in range(m)]
+    return (assigns, torch.stack(mindists, 1),
+            torch.stack([p[0] for p in per]),
+            torch.stack([p[1] for p in per]))
 
 
 def _lloyd_update(x_blocks, mask, flat_x, centers, metric: Metric):
@@ -164,7 +256,8 @@ def _lloyd(x, init_centers, maxiter: int, block: int, metric: Metric):
     centers = init_centers
     for _ in range(maxiter):
         centers = _lloyd_update(x_blocks, mask, flat_x, centers, metric)
-    assigns, _, _, _ = _assign_pass(x_blocks, mask, centers, metric)
+    assigns = _assign_pass(x_blocks, mask, centers, metric,
+                           with_sums=False)[0]
     return centers, assigns.reshape(m, -1)[:, :n].to(torch.int32)
 
 
@@ -173,7 +266,9 @@ def kmeans(gen: torch.Generator, x, k: int, *, maxiter: int = 25,
            pp_sample: int = 0) -> KMeansResult:
     """Lloyd k-means. `x` is (n, d); returns float32 centers + int32
     assignments. `pp_sample > 0` runs the k-means++ seeding on a uniform
-    subsample of at most that many points (0 = all points)."""
+    subsample of at most that many points (0 = all points); beyond
+    _PP_MAX_K centers the seeding is k-means|| on at least min(n, 2k)
+    points."""
     n, d = x.shape
     if k > n:
         raise AssertionError(f"k={k} must be <= number of points {n}")
@@ -182,18 +277,26 @@ def kmeans(gen: torch.Generator, x, k: int, *, maxiter: int = 25,
             f"metric {metric.name!r} does not support k-means training")
     x = x.to(torch.float32)
     block = min(block, max(256, n))
-    # the assignment step materializes (block, k) distances and a (block, k)
-    # one-hot — cap their footprint (~1 GB f32) for huge-k builds
+    # the assignment step materializes (block, k) distances — cap their
+    # footprint (~1 GB f32) for huge-k builds
     block = max(256, min(block, (1 << 28) // max(k, 1)))
-    if k > _PP_MAX_K:
-        raise NotImplementedError(
-            f"k={k} > {_PP_MAX_K} seeds with k-means||, which is not "
-            f"ported yet (ROADMAP A.7)")
+    # k-means++ is a k-step sequential loop: fine to a few thousand centers;
+    # past the cutoff seeding switches to k-means||, the same D^2-weighted
+    # spread as a handful of batched rounds
+    parallel = k > _PP_MAX_K
     xs = x
     if pp_sample and pp_sample < n:
-        sel = torch.randperm(n, generator=gen, device=x.device)[:pp_sample]
-        xs = x[sel]
-    init_centers = kmeans_plus_plus(gen, xs, k, metric)
+        # k-means|| draws k DISTINCT seeds: the sample must hold
+        # comfortably more than k points
+        eff_sample = max(pp_sample, min(n, 2 * k)) if parallel else pp_sample
+        if eff_sample < n:
+            sel = torch.randperm(n, generator=gen,
+                                 device=x.device)[:eff_sample]
+            xs = x[sel]
+    if parallel:
+        init_centers = kmeans_parallel(gen, xs, k, metric, block=block)
+    else:
+        init_centers = kmeans_plus_plus(gen, xs, k, metric)
     centers, assigns = _lloyd(x[None], init_centers[None], maxiter, block,
                               metric)
     return KMeansResult(centers[0], assigns[0])

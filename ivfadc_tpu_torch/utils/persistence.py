@@ -2,7 +2,9 @@
 
 A plain `.npz` archive of named arrays plus a JSON header in `__meta__`:
 the same file layout as the JAX package, so each package reads the
-other's files. No code runs on load.
+other's files. A two-level coarse quantizer adds its grouping
+(`group_centers`, `group_members`, `n_probe_groups`); its scan arrays are
+derived again on load. No code runs on load.
 """
 
 from __future__ import annotations
@@ -16,8 +18,6 @@ FORMAT_VERSION = 1
 
 
 def save_index(path: str, index) -> None:
-    if index.coarse.kind != "naive":
-        raise NotImplementedError("only naive-coarse indexes are ported")
     meta = {
         "format_version": FORMAT_VERSION,
         "config": index.config.to_dict(),
@@ -35,9 +35,13 @@ def save_index(path: str, index) -> None:
         "sizes": index.store.sizes,
         "codes": index.store.codes,
         "ids": index.store.ids,
-        "__meta__": np.frombuffer(json.dumps(meta).encode("utf-8"),
-                                  dtype=np.uint8),
     }
+    if index.coarse.kind == "two_level":
+        meta["n_probe_groups"] = index.coarse.n_probe_groups
+        arrays["group_centers"] = index.coarse.group_centers.cpu().numpy()
+        arrays["group_members"] = index.coarse.members.cpu().numpy()
+    arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode("utf-8"),
+                                       dtype=np.uint8)
     # atomic write (temp + rename): a crash mid-save leaves the old file
     tmp = f"{path}.tmp.{os.getpid()}"
     try:

@@ -13,6 +13,10 @@ import torch
 
 from ivfadc_tpu_torch.ops import cell_rank, coarse_scan, dense_scan, topk
 
+# the suite runs several workers on a few cores, beside the JAX package's
+# multi-device CPU tests: keep torch's intra-op pool small
+torch.set_num_threads(2)
+
 
 @pytest.fixture
 def dev():
@@ -48,8 +52,8 @@ def test_cell_rank_kernel_exact(dev, kc):
     assert torch.equal(kr.cpu(), pr) and torch.equal(kn.cpu(), pn)
 
 
-def _scan_inputs(rng, integer: bool):
-    kc, d, B, w, chunk = 8, 128, 16, 4, 256
+def _scan_inputs(rng, integer: bool, d: int = 128):
+    kc, B, w, chunk = 8, 16, 4, 256
     caps = np.full(kc, 512)
     offsets = np.concatenate([[0], np.cumsum(caps[:-1])]).astype(np.int32)
     sizes = np.array([0, 5, 128, 130, 300, 511, 1, 257], np.int32)
@@ -86,6 +90,37 @@ def test_grouped_scan_kernel(dev, pb, nf, integer):
     assert dense_scan.KERNEL.launches == n0 + 1
     pd, pp = dense_scan.grouped_dense_scan(*args, pb=pb, nf=nf, **kw)
     assert dense_scan.KERNEL.launches == n0 + 1      # plain path: no launch
+    if integer:             # integer-valued: every f32 sum exact -> equal
+        assert torch.equal(kd.cpu(), pd) and torch.equal(kp.cpu(), pp)
+    else:                   # f32 sums in another order
+        fin = torch.isfinite(pd)
+        assert torch.equal(torch.isfinite(kd.cpu()), fin)
+        torch.testing.assert_close(kd.cpu()[fin], pd[fin], rtol=1e-5,
+                                   atol=1e-4)
+        assert (kp.cpu() == pp).float().mean() >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pb,nf,d", [(8, 128, 128), (16, 256, 256),
+                                     (64, 128, 128)])
+@pytest.mark.parametrize("norm_coef", [1.0, 0.0])
+@pytest.mark.parametrize("integer", [True, False])
+def test_grouped_scan_knorm_kernel(dev, pb, nf, d, norm_coef, integer):
+    # the variant that computes the row norms itself (no norms2d); the cell
+    # sizes include an empty cell (tiles of size 0) and groups that are not
+    # 128-multiples (5, 130, 300, 511, 1, 257 rows)
+    args, kw = _scan_inputs(np.random.RandomState(pb + nf), integer, d=d)
+    args[8] = None
+    kw["norm_coef"] = norm_coef
+    n0 = (dense_scan.NORMS_KERNEL.launches, dense_scan.KERNEL.launches)
+    kd, kp = dense_scan.grouped_dense_scan(
+        *[a if a is None else a.to(dev) for a in args], pb=pb, nf=nf, **kw)
+    assert (dense_scan.NORMS_KERNEL.launches,
+            dense_scan.KERNEL.launches) == (n0[0] + 1, n0[1])
+    pd, pp = dense_scan.grouped_dense_scan(*args, pb=pb, nf=nf, **kw)
+    assert dense_scan.NORMS_KERNEL.launches == n0[0] + 1   # plain: no launch
+    empty = args[0] == 0                                    # cell 0 is empty
+    assert torch.isinf(pd[empty]).all() and (pp[empty] == -1).all()
     if integer:             # integer-valued: every f32 sum exact -> equal
         assert torch.equal(kd.cpu(), pd) and torch.equal(kp.cpu(), pp)
     else:                   # f32 sums in another order
@@ -182,8 +217,13 @@ def test_probe_scan_kernel(dev, nf, norm_coef, integer):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,d,kc,w", [(256, 128, 1024, 8), (8, 128, 1024, 8),
-                                      (33, 96, 100, 5), (16, 128, 256, 128)])
+                                      (33, 96, 100, 5), (16, 128, 256, 128),
+                                      (40, 96, 10000, 32),
+                                      (24, 128, 9000, 16),
+                                      (17, 32, 70000, 128)])
 def test_coarse_topw_kernel(dev, B, d, kc, w):
+    # kc > 1024: the table is scored in chunks of 1024 centroids, merged
+    # into a running top-w
     rng = np.random.RandomState(B + kc)
     q = torch.from_numpy(rng.randn(B, d).astype(np.float32))
     c = torch.from_numpy(rng.randn(kc, d).astype(np.float32))
@@ -198,6 +238,31 @@ def test_coarse_topw_kernel(dev, B, d, kc, w):
             q.to(dev), c.to(dev), min(w, 128), torch.eye(d, device=dev),
             False, True)[0]
         assert torch.equal(fcells, kcells)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kc,w", [(9001, 64), (4096, 128), (12288, 1)])
+def test_coarse_kernels_break_ties_by_index_across_chunks(dev, kc, w):
+    # integer-valued inputs: every score is exact and most tie, within a
+    # chunk of 1024 centroids and across chunks, so both kernels must
+    # return the plain version's cells (lowest index first) bit for bit
+    rng = np.random.RandomState(kc)
+    B, d = 37, 16
+    q = torch.from_numpy(rng.randint(-2, 3, (B, d)).astype(np.float32))
+    c = torch.from_numpy(rng.randint(-2, 3, (kc, d)).astype(np.float32))
+    cn = torch.sum(c * c, dim=1)
+    pvals, pcells = coarse_scan.coarse_topw_plain(q, c, cn, w)
+    kcells, kd = coarse_scan.coarse_topw(q.to(dev), c.to(dev), w)
+    assert torch.equal(kcells.cpu(), pcells)
+    qn = torch.sum(q * q, dim=1, keepdim=True)
+    assert torch.equal(kd.cpu(), torch.clamp_min(pvals + qn, 0.0))
+    n0 = coarse_scan.KERNEL.launches
+    fvals, fcells, fv, frn = coarse_scan.coarse_vbase(
+        q.to(dev), c.to(dev), cn.to(dev), torch.eye(d, device=dev), w, False)
+    assert coarse_scan.KERNEL.launches == n0 + 1
+    pv = coarse_scan.coarse_vbase_plain(q, c, cn, torch.eye(d), w, False)
+    assert torch.equal(fvals.cpu(), pv[0]) and torch.equal(fcells.cpu(), pv[1])
+    assert torch.equal(fv.cpu(), pv[2]) and torch.equal(frn.cpu(), pv[3])
 
 
 @pytest.mark.cuda
@@ -217,3 +282,28 @@ def test_build_defaults_to_the_card_and_serves_small_batches(dev):
     # the same index on the CPU answers through the plain versions
     cpu = IVFADCIndex.build(data, device="cpu", scan_mode="dense", **kw)
     assert cpu.device.type == "cpu"
+
+
+@pytest.mark.cuda
+def test_build_is_reproducible_across_processes(dev):
+    # two builds in this process and one in a fresh process give one digest
+    import os
+    import subprocess
+    import sys
+    from ivfadc_tpu_torch import IVFADCIndex
+    from ivfadc_tpu_torch.utils.datasets import synthetic_clustered
+    from ivfadc_tpu_torch.utils.repro import index_digest
+    data = synthetic_clustered(100000, 64, seed=0)
+    kw = dict(kc=256, m=8, k=64, seed=0, kmeanspp_sample=16384)
+    here = [index_digest(IVFADCIndex.build(data, **kw)) for _ in range(2)]
+    assert here[0] == here[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("from ivfadc_tpu_torch import IVFADCIndex\n"
+            "from ivfadc_tpu_torch.utils.datasets import synthetic_clustered\n"
+            "from ivfadc_tpu_torch.utils.repro import index_digest\n"
+            f"kw = {kw!r}\n"
+            "data = synthetic_clustered(100000, 64, seed=0)\n"
+            "print(index_digest(IVFADCIndex.build(data, **kw)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, check=True,
+                         capture_output=True, text=True, timeout=600)
+    assert out.stdout.strip().splitlines()[-1] == here[0]

@@ -21,10 +21,13 @@ from ivfadc_tpu_torch import IVFADCConfig, IVFADCIndex, load_ivfadc_index
 from ivfadc_tpu_torch import config as t_config
 from ivfadc_tpu_torch.convert import from_reference
 from ivfadc_tpu_torch.ops import dense_scan as t_scan
-from ivfadc_tpu_torch.ops import kmeans as t_kmeans
 from ivfadc_tpu_torch.ops import pq as t_pq
 from ivfadc_tpu_torch.utils.datasets import synthetic_clustered
 from ivfadc_tpu_torch.utils.evaluation import brute_force_topk, recall_at_r
+
+# the suite runs several workers on a few cores, beside the JAX package's
+# multi-device CPU tests: keep torch's intra-op pool small
+torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD = dict(kc=128, m=8, k=16, seed=0, scan_mode="dense")
@@ -200,7 +203,7 @@ def _variant(index, **changes):
 @pytest.mark.parametrize("case", [
     "exact_merge", "exact_merge_small_batch", "bf16_cache",
     "bf16_cache_small_batch", "gather_win", "qc_vbase", "extract",
-    "coarse_v2", "rank_v2", "kernel_norms", "approx_merge"])
+    "coarse_v2", "rank_v2", "approx_merge"])
 def test_unported_routes_raise(case, port_index, queries, monkeypatch):
     # the routes that work are held to the JAX package in
     # tests/test_torch_routes.py; these name their ROADMAP item instead
@@ -218,7 +221,6 @@ def test_unported_routes_raise(case, port_index, queries, monkeypatch):
                     "extract": ("IVFADC_EXTRACT", "1"),
                     "coarse_v2": ("IVFADC_COARSE_ENGINE", "v2"),
                     "rank_v2": ("IVFADC_RANK_ENGINE", "v2"),
-                    "kernel_norms": ("IVFADC_NORMS", "kernel"),
                     "approx_merge": ("IVFADC_MERGE_TOPK", "approx")}[case]
         monkeypatch.setenv(var, val)
     with pytest.raises(NotImplementedError, match="ROADMAP|not ported"):
@@ -228,15 +230,15 @@ def test_unported_routes_raise(case, port_index, queries, monkeypatch):
 def test_unported_build_parts_raise(data, port_index):
     with pytest.raises(NotImplementedError):
         IVFADCIndex.build(data[:512], device="cpu", kc=16, m=8, k=16,
-                          coarse_quantizer="two_level")
-    with pytest.raises(NotImplementedError):
-        IVFADCIndex.build(data[:512], device="cpu", kc=16, m=8, k=16,
                           quantization_method="opq")
     with pytest.raises(NotImplementedError):
         t_pq.train_quantizer(0, torch.zeros(64, 8), m=2, k=4, method="opq")
-    with pytest.raises(NotImplementedError):      # k-means|| seeding
-        t_kmeans.kmeans(t_kmeans.make_generator(0, 0, "cpu"),
-                        torch.zeros(5000, 2), 4097)
+    with pytest.raises(NotImplementedError):      # no emitted ids
+        t_scan.grouped_dense_scan(
+            torch.zeros((8, 1), dtype=torch.int32), None, None,
+            torch.zeros((8, 1, 128)), torch.zeros((8, 1)),
+            torch.zeros((256, 128), dtype=torch.int8), torch.ones(128),
+            None, None, kc=4, k_out=10, chunk=128, pb=8)
     with pytest.raises(NotImplementedError):      # sort-based prep, kc > 4096
         t_scan.grouped_dense_scan(
             torch.zeros((8, 1), dtype=torch.int32), None, None,
@@ -256,7 +258,10 @@ def test_import_loads_no_jax():
     code = ("import sys, pkgutil, importlib, ivfadc_tpu_torch\n"
             "mods = [m.name for m in pkgutil.walk_packages("
             "ivfadc_tpu_torch.__path__, 'ivfadc_tpu_torch.')]\n"
-            "assert 'ivfadc_tpu_torch.ops.adc' in mods, mods\n"
+            "assert {'ivfadc_tpu_torch.ops.adc', "
+            "'ivfadc_tpu_torch.models.coarse', "
+            "'ivfadc_tpu_torch.utils.repro', "
+            "'ivfadc_tpu_torch.utils.lloyd_timing'} <= set(mods), mods\n"
             "for m in mods: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', "
             "'ivfadc_tpu') or m.startswith(('jax.', 'jaxlib.', "
@@ -266,6 +271,16 @@ def test_import_loads_no_jax():
     env["PYTHONPATH"] = REPO
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
                    env=env, timeout=120)
+    # the smoke script stands beside the package and imports neither
+    import ast
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module or "" for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom)]
+    assert not [n for n in names
+                if n.split(".")[0] in ("jax", "jaxlib", "ivfadc_tpu")], names
 
 
 @pytest.mark.parametrize("variant", [

@@ -29,6 +29,10 @@ from ivfadc_tpu_torch.ops.metrics import get_metric
 from ivfadc_tpu_torch.utils.datasets import synthetic_clustered
 from ivfadc_tpu_torch.utils.evaluation import brute_force_topk, recall_at_r
 
+# the suite runs several workers on a few cores, beside the JAX package's
+# multi-device CPU tests: keep torch's intra-op pool small
+torch.set_num_threads(2)
+
 N, D, KC = 3000, 128, 64
 K, W = 10, 8
 
@@ -260,3 +264,41 @@ def test_build_device_default_is_cuda(data):
     _, gt = brute_force_topk(data[:600], data[:32], 1)
     found, _ = idx.search_padded(data[:32], 1, w=8)
     assert recall_at_r(found, gt, 1) >= 0.8
+
+
+# ------------------------------------ grouped scan with in-kernel row norms
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product"])
+def test_norms_off_route_matches_jax(data, queries, metric, monkeypatch):
+    # IVFADC_NORMS=off leaves the cached norms out of the dense view in
+    # both packages: the grouped scan (B*w = 512 >= 4*kc) then computes the
+    # row norms in its kernel (inner product: no norm term at all)
+    from ivfadc_tpu_torch.ops import dense_scan
+    monkeypatch.setenv("IVFADC_NORMS", "off")
+    jidx = JaxIndex.build(data, kc=KC, m=8, k=16, seed=0, scan_mode="dense",
+                          quantization_metric=metric, coarse_maxiter=5,
+                          quantization_maxiter=5)
+    tidx = from_reference(jidx, "cpu")
+    seen = []
+    real = dense_scan.grouped_scan
+
+    def spy(*args, **kw):
+        seen.append(args[7])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(dense_scan, "grouped_scan", spy)
+    ji, jd = jidx.search_padded(queries, K, w=W)
+    ti, td = tidx.search_padded(queries, K, w=W)
+    assert seen == [None]                   # no norms stream reached the scan
+    view = jidx.store.device_view_dense(jidx.quantizer,
+                                        jidx.config.scan_chunk, cache="int8")
+    assert view["norms2d"] is None
+    # bf16 squares kept in f32 by the interpret-mode kernel: as on the
+    # per-probe path, ids agree on >= 97% and distances to 1e-3 relative
+    _agreement(ti, td, ji, jd, ids_min=0.97, rtol=1e-3)
+    # back on the default, the port's view holds the cached norms again
+    monkeypatch.delenv("IVFADC_NORMS")
+    assert tidx.store.device_view_dense(
+        tidx.quantizer, tidx.config.scan_chunk)["norms2d"] is not None
+    ci, _ = tidx.search_padded(queries, K, w=W)
+    assert seen[-1] is not None
+    assert np.mean([len(set(a) & set(b)) / K for a, b in zip(ci, ti)]) >= 0.95

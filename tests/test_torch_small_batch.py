@@ -20,6 +20,10 @@ from ivfadc_tpu_torch.ops import coarse_scan as t_coarse
 from ivfadc_tpu_torch.ops import dense_scan as t_scan
 from ivfadc_tpu_torch.ops import topk as t_topk
 
+# the suite runs several workers on a few cores, beside the JAX package's
+# multi-device CPU tests: keep torch's intra-op pool small
+torch.set_num_threads(2)
+
 
 # ---------------------------------------------------------- per-probe scan
 def _probe_inputs(rng, kind: str, chunk: int):
@@ -193,3 +197,35 @@ def test_coarse_topw_equals_fused_probe_cells():
     assert torch.equal(cells, fc) and torch.equal(dists, fd)
     with pytest.raises(NotImplementedError):
         t_coarse.coarse_topw(q, c, 129)
+
+
+def test_naive_coarse_takes_any_kc_through_the_probe_wrappers(monkeypatch):
+    # no shape sends a euclidean naive-coarse search around the probe
+    # wrappers: a table far past one shared-memory score row (kc = 50000)
+    # goes through coarse_topw / coarse_probe_vbase like a small one
+    from ivfadc_tpu_torch.models import index as t_index
+    from ivfadc_tpu_torch.models.coarse import NaiveCoarseQuantizer
+    from ivfadc_tpu_torch.ops.metrics import get_metric
+    rng = np.random.RandomState(6)
+    q = torch.from_numpy(rng.randn(4, 8).astype(np.float32))
+    c = torch.from_numpy(rng.randn(50000, 8).astype(np.float32))
+    calls = []
+    real_topw, real_vbase = t_coarse.coarse_topw, t_index.coarse_probe_vbase
+    monkeypatch.setattr(t_coarse, "coarse_topw", lambda *a, **k: (
+        calls.append("topw"), real_topw(*a, **k))[1])
+    monkeypatch.setattr(t_index, "coarse_probe_vbase", lambda *a, **k: (
+        calls.append("vbase"), real_vbase(*a, **k))[1])
+    metric = get_metric("sqeuclidean")
+    cq = NaiveCoarseQuantizer(c, metric)
+    cells, dists = cq.search(q, 16)
+    exact = torch.cdist(q.double(), c.double()) ** 2
+    want = torch.argsort(exact, dim=1, stable=True)[:, :16]
+    assert torch.equal(cells.to(torch.int64), want)
+    np.testing.assert_allclose(dists.numpy(),
+                               torch.gather(exact, 1, want).numpy(),
+                               rtol=1e-4, atol=1e-4)
+    fcells = t_index._dense_probe(
+        cq, torch.eye(8), q, w=16, metric=metric, include_base=True,
+        apply_rot=False, residual_based=True)[0]
+    assert torch.equal(fcells, cells)
+    assert calls == ["topw", "vbase"]
