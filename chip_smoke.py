@@ -9,16 +9,19 @@ phases, printing one JSON line per phase; any failure raises (exit != 0):
   setup    card name and power limit, versions, kernel build time
   build    IVFADCIndex.build at the SIFT1M shape (n=1M, d=128, kc=1024,
            m=8, k=256, pq, seed 0, kmeanspp_sample=65536) on cuda
-  kernels  kernels 1-7 against their plain PyTorch versions on their
-           paths' own inputs (kernel 8a: in the two_level phase, and here
-           on kernel 3's tiles). At B=16384 queries, w=8: coarse probe,
-           cell ranks, grouped fold scan (plus an integer-valued case that
-           must be bit-exact) and the top-k merge. At B=256, w=8 (2048
-           probes): per-probe fold scan (plus a bit-exact integer case),
-           top-k with indices on that scan's candidate rows, exact top-w
-           probe (also against the fused probe's cells). For each: kernel
-           time, plain time, the time of the nearest PyTorch library call
-           where there is one, and the card's bound for the same work
+  kernels  kernels 1-7 and the scan variants 8a-8e against their plain
+           PyTorch versions on their paths' own inputs (8a and 8b: in the
+           two_level phase, and here on kernel 3's tiles). At B=16384
+           queries, w=8: coarse probe, cell ranks, grouped fold scan, its
+           exact-merge, extraction (k=10), bf16-cache and pos8 variants
+           (each with an integer-valued case that must be bit-exact; exact
+           merge: sorted top-10 distances agree, untied payloads equal) and
+           the top-k merge. At B=256, w=8 (2048 probes): per-probe fold
+           scan and its exact-merge and bf16 variants, top-k with indices
+           on that scan's candidate rows, exact top-w probe (also against
+           the fused probe's cells). For each: kernel time, plain time, the
+           time of the nearest PyTorch library call where there is one, and
+           the card's bound for the same work
   search   with every launch count zeroed: search_padded of 1000 queries,
            recall@10 against brute force and against the NumPy oracle of
            the reference algorithm, QPS over back-to-back B=16384 batches
@@ -39,6 +42,16 @@ phases, printing one JSON line per phase; any failure raises (exit != 0):
            product: exact top-w probe, then the per-probe scan (B=16) and
            the grouped scan (B=4096); recall against brute-force inner
            product, dense routes against the LUT route
+  variants counts zeroed before each part: scan_cache="bf16" (grouped,
+           also under IVFADC_NORMS=off, and small batches; recall@10 within
+           0.01 of the oracle, top-10 overlap with the int8 routes >= 0.9),
+           scan_merge="exact" (grouped and small batches; recall within
+           0.01, distances never above the fold routes' of the same
+           arithmetic, tie-aware overlap >= 0.99 with a 1024-lane fold,
+           which loses almost no neighbour to lane collisions, and >= 0.95
+           with the default 128-lane fold) and
+           IVFADC_EXTRACT=1 on the grouped route (distances bit-equal to
+           IVFADC_NORMS=off's, ids equal but at exact ties); batch ms each
   persist  save -> load(device="cuda") -> identical search_padded output;
            the same file loaded on the CPU (kernels' plain versions) agrees
   profile  device time per kernel and idle share over three B=16384
@@ -56,7 +69,15 @@ phases, printing one JSON line per phase; any failure raises (exit != 0):
            against brute force and against the same index under the naive
            coarse quantizer (counts zeroed: kernels 7 and 1 must launch),
            overlap with the LUT engine, a single search,
-           save -> load, batch time, QPS, the coarse share and idle share
+           save -> load, batch time, QPS, the coarse share and idle share;
+           then stage 2 under IVFADC_EXTRACT=1 (kernel 8e at g=512, gp=32:
+           the buffered route's cells but at ties); then one batch of 32768
+           queries (B*w = 4*kc: sort-based tile prep -> grouped scan with
+           pos8 block payloads, kernel 8b, launched once -> top-k), held to
+           the same queries in 8 per-probe batches (tie-aware overlap
+           >= 0.999, distances within 1e-3, recall within 0.005), 8b
+           against its plain version on every 128th tile, batch ms, QPS,
+           peak device memory, device time per kernel and idle share
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the rest of the repository beside it, the script fails.
@@ -85,6 +106,7 @@ B_SMALL = 256                       # largest small-batch size: 2048 probes
 N2, KC2 = 200_000, 256              # the inner-product index
 # the large-kc index (the shape of benchmarks/deep1b_shape.py)
 N3, D3, KC3, M3, W3, NQ3 = 2_000_000, 96, 1 << 18, 16, 32, 4096
+NQ3_BIG = 32768                     # B*w = 4*kc: the grouped posting scan
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense rates): device
 # memory bytes/s, f32 FLOP/s outside the tensor cores, bf16 FLOP/s.
@@ -133,6 +155,79 @@ def cuda_ms(fn, reps: int = 5, inner: int = 1) -> float:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def close_scan(kern, plain, what: str, min_agree: float = 0.999):
+    """A scan kernel's (scores, payloads) against its plain version's on
+    real data: the same +inf pattern, scores to 1e-5 relative (bf16
+    products summed in f32 in another order; scores ~1e2), payloads equal
+    on >= min_agree. Returns (max abs error, payload agreement)."""
+    import torch
+    kd, kp = kern
+    pd, pp = plain
+    fin = torch.isfinite(pd)
+    check(torch.equal(torch.isfinite(kd), fin), f"{what}: +inf pattern")
+    torch.testing.assert_close(kd[fin], pd[fin], rtol=1e-5, atol=1e-3)
+    agree = (kp == pp).float().mean().item()
+    check(agree >= min_agree, f"{what}: payloads agree on {agree:.5f}")
+    return (kd[fin] - pd[fin]).abs().max().item(), agree
+
+
+def exact_topk(kern, plain, k: int, what: str):
+    """Exact-merge buffers against the plain version's on real data: per
+    probe the sorted k smallest distances agree (1e-5 relative: another
+    f32 summation order) and their payloads are equal wherever the
+    distance is not tied (within 1e-3) with a neighbour. Returns (max abs
+    error, payload agreement over the untied places)."""
+    import torch
+    kd, kp = (a.reshape(-1, a.shape[-1]) for a in kern)
+    pd, pp = (a.reshape(-1, a.shape[-1]) for a in plain)
+    ks, ki = torch.sort(kd, dim=1)
+    ps, pi = torch.sort(pd, dim=1)
+    ks, ps = ks[:, :k], ps[:, :k]
+    fin = torch.isfinite(ps)
+    check(torch.equal(torch.isfinite(ks), fin), f"{what}: +inf pattern")
+    torch.testing.assert_close(ks[fin], ps[fin], rtol=1e-5, atol=1e-3)
+    kpay = torch.gather(kp, 1, ki[:, :k])
+    ppay = torch.gather(pp, 1, pi[:, :k])
+    gap = torch.diff(ps, dim=1).abs() <= 1e-3
+    tied = torch.zeros_like(fin)
+    tied[:, 1:] |= gap
+    tied[:, :-1] |= gap
+    live = fin & ~tied
+    agree = (kpay == ppay)[live].float().mean().item()
+    check(agree >= 0.999, f"{what}: untied payloads agree on {agree:.5f}")
+    return (ks[fin] - ps[fin]).abs().max().item(), agree
+
+
+def tie_overlap(ids_a, d_a, ids_b, d_b) -> float:
+    """Top-k overlap of result a with result b that also counts an id of a
+    whose distance ties b's k-th distance (to 1e-4 relative): points with
+    one PQ code in one cell score alike, and two routes may keep different
+    ones of them at the k-th place."""
+    hits = []
+    for ia, da, ib, db in zip(ids_a, d_a, ids_b, d_b):
+        hit = np.isin(ia, ib)
+        tied = np.abs(da - db[-1]) <= 1e-4 * abs(db[-1])
+        hits.append((hit | tied).mean())
+    return float(np.mean(hits))
+
+
+def ties_only(ids_a, d_a, ids_b, d_b) -> int:
+    """Two top-k results with bit-equal distances whose ids may differ only
+    among exactly tied distances: per row, every distance below the row's
+    last holds the same set of ids in both. Returns the rows whose ids
+    differ (at ties)."""
+    check(np.array_equal(d_a, d_b), "distances differ")
+    rows = 0
+    for ia, da, ib in zip(ids_a, d_a, ids_b):
+        if np.array_equal(ia, ib):
+            continue
+        rows += 1
+        for val in np.unique(da[da < da[-1]]):
+            check(set(ia[da == val]) == set(ib[da == val]),
+                  f"ids differ at an untied distance {val}")
+    return rows
 
 
 def phase_kernels(index, queries):
@@ -283,6 +378,101 @@ def phase_kernels(index, queries):
                 2.0 * D * probe_rows + 2.0 * D * int(
                     (tsize.to(torch.int64)).sum().item()), PEAK_BF16))
 
+    # 8b at these tiles, without the id stream: pos8 block-index payloads
+    # (the variant large-kc batches run, checked at their own shape in the
+    # two_level phase): here the integer-valued case, bit for bit
+    pos_args = int_args[:6] + (None, None)
+    ki = dense_scan.grouped_scan(*pos_args, **kw, pos8=True)
+    pi = dense_scan.grouped_scan_plain(*pos_args, **kw, pos8=True)
+    check(ki[1].dtype == torch.int8 and torch.equal(ki[0], pi[0])
+          and torch.equal(ki[1], pi[1]),
+          "integer-valued pos8 grouped scan is not bit-exact")
+    pos8_int_blocks = int(ki[1].max().item())
+
+    # 8d: the exact merge on these tiles (in-kernel norms, slot payloads)
+    ekw = dict(pb=pb, nf=128, norm_coef=1.0, merge="exact", k_out=TOPK)
+    ex_args = scan_args[:6] + (None, None)
+    ek = dense_scan.grouped_scan(*ex_args, **ekw)
+    ep = dense_scan.grouped_scan_plain(*ex_args, **ekw)
+    ex_err, ex_agree = exact_topk(ek, ep, TOPK, "exact grouped scan")
+    ki = dense_scan.grouped_scan(*pos_args, **ekw)
+    pi = dense_scan.grouped_scan_plain(*pos_args, **ekw)
+    check(torch.equal(ki[0], pi[0]) and torch.equal(ki[1], pi[1]),
+          "integer-valued exact grouped scan is not bit-exact")
+    tile_rows = int(tsize.to(torch.int64).sum().item())
+    records["grouped_scan_exact"] = dict(
+        source="ivfadc_tpu_torch/csrc/dense_scan.cu",
+        replaces="ivfadc_tpu/ops/pallas_scan.py:355", max_abs_err=ex_err,
+        topk_payloads_agree=ex_agree, integer_case_bit_exact=True,
+        ms=cuda_ms(lambda: dense_scan.grouped_scan(*ex_args, **ekw)),
+        plain_ms=cuda_ms(lambda: dense_scan.grouped_scan_plain(
+            *ex_args, **ekw), reps=3),
+        library_ms=None,
+        **bound(cell_rows * D + live_tiles * pb * (2 * D + 4)
+                + 8 * tsize.numel() + ek[0].numel() * 8,
+                2.0 * D * (probe_rows + tile_rows), PEAK_BF16))
+    del ek, ep
+
+    # 8e: in-kernel extraction at k = 10 (ids2d, in-kernel norms): each
+    # probe's 10 best leave the kernel. Integer-valued: bit for bit
+    xkw = dict(kw, extract_k=TOPK)
+    xk = dense_scan.grouped_scan(*knorm_args, **xkw)
+    xp = dense_scan.grouped_scan_plain(*knorm_args, **xkw)
+    x_err, x_agree = close_scan(xk, xp, "extraction")
+    ki = dense_scan.grouped_scan(*int_args[:7], None, **xkw)
+    pi = dense_scan.grouped_scan_plain(*int_args[:7], None, **xkw)
+    check(torch.equal(ki[0], pi[0]) and torch.equal(ki[1], pi[1]),
+          "integer-valued extraction is not bit-exact")
+    records["grouped_scan_extract"] = dict(
+        source="ivfadc_tpu_torch/csrc/dense_scan.cu",
+        replaces="ivfadc_tpu/ops/pallas_scan.py:372", max_abs_err=x_err,
+        ids_agree=x_agree, integer_case_bit_exact=True, k=TOPK,
+        ms=cuda_ms(lambda: dense_scan.grouped_scan(*knorm_args, **xkw)),
+        plain_ms=cuda_ms(lambda: dense_scan.grouped_scan_plain(
+            *knorm_args, **xkw), reps=3),
+        library_ms=None,
+        **bound(cell_rows * (D + 4) + live_tiles * pb * (2 * D + 4)
+                + 8 * tsize.numel() + xk[0].numel() * 8,
+                2.0 * D * (probe_rows + tile_rows), PEAK_BF16))
+    del xk, xp
+
+    # 8c: the bf16 cache (rows read as they are) through kernel 3's and
+    # 8a's variants, on the same tiles; integer-valued bf16 rows bit for bit
+    bview = index.store.device_view_dense(index.quantizer,
+                                          index.config.scan_chunk,
+                                          cache="bf16")
+    b_args = (tstart, tsize, v_t, b_t, bview["decoded"], None,
+              bview["ids2d"], bview["norms2d"])
+    dec_b = dec_i.to(torch.bfloat16)
+    for name, args_b, int_b, nbytes, nops in (
+            ("grouped_scan_bf16", b_args,
+             (tstart, tsize, v_i, b_i, dec_b, None, view["ids2d"], n_i),
+             cell_rows * (2 * D + 8), 2.0 * D * probe_rows),
+            ("grouped_scan_knorm_bf16", b_args[:7] + (None,),
+             (tstart, tsize, v_i, b_i, dec_b, None, view["ids2d"], None),
+             cell_rows * (2 * D + 4), 2.0 * D * (probe_rows + tile_rows))):
+        bk = dense_scan.grouped_scan(*args_b, **kw)
+        bp = dense_scan.grouped_scan_plain(*args_b, **kw)
+        b_err, b_agree = close_scan(bk, bp, name)
+        ki = dense_scan.grouped_scan(*int_b, **kw)
+        pi = dense_scan.grouped_scan_plain(*int_b, **kw)
+        check(torch.equal(ki[0], pi[0]) and torch.equal(ki[1], pi[1]),
+              f"integer-valued {name} is not bit-exact")
+        records[name] = dict(
+            source="ivfadc_tpu_torch/csrc/dense_scan.cu",
+            replaces="ivfadc_tpu/ops/pallas_scan.py:299", max_abs_err=b_err,
+            ids_agree=b_agree, integer_case_bit_exact=True,
+            ms=cuda_ms(lambda: dense_scan.grouped_scan(*args_b, **kw)),
+            plain_ms=cuda_ms(lambda: dense_scan.grouped_scan_plain(
+                *args_b, **kw), reps=3),
+            library_ms=None,
+            **bound(nbytes + live_tiles * pb * (2 * D + 4)
+                    + 8 * tsize.numel() + bk[0].numel() * 8, nops,
+                    PEAK_BF16))
+        del bk, bp
+    records["grouped_scan_pos8@sift1m_integer"] = dict(
+        integer_case_bit_exact=True, max_block=pos8_int_blocks)
+
     # 4. top-k merge of the scan's candidates (ties and +inf included):
     # exact, payloads too.
     flat_d = kd[row].reshape(BATCH, W * nf)
@@ -301,13 +491,14 @@ def phase_kernels(index, queries):
             flat_p, 1, torch.topk(flat_d, TOPK, dim=1, largest=False)[1])),
         **bound(8 * flat_d.numel() + 8 * BATCH * TOPK,
                 float(flat_d.numel()) * TOPK, PEAK_F32))
-    records.update(phase_kernels_small(index, queries))
+    records.update(phase_kernels_small(index, queries, bview))
     return records
 
 
-def phase_kernels_small(index, queries):
-    """Kernels 5-7 against their plain versions on the small-batch path's
-    own inputs at B=256, w=8 (2048 probes)."""
+def phase_kernels_small(index, queries, bview):
+    """Kernels 5-7 and kernel 5's exact-merge and bf16 variants against
+    their plain versions on the small-batch path's own inputs at B=256,
+    w=8 (2048 probes); `bview` is the bf16 dense view."""
     import torch
     from ivfadc_tpu_torch.ops import coarse_scan, dense_scan, topk
 
@@ -407,6 +598,64 @@ def phase_kernels_small(index, queries):
         **bound(cell_rows * D + P * (2 * D + 12) + P * nf * 8,
                 4.0 * D * probe_rows, PEAK_BF16))
 
+    # 8d per probe: the exact merge (slot payloads); 8c per probe: the bf16
+    # cache. Integer-valued inputs bit for bit
+    ekw = dict(kw, merge="exact", nf=128)
+    ek = dense_scan.dense_scan(starts, sizes, v_q, base_q, view["decoded"],
+                               view["scale"], norm_coef=1.0, **ekw)
+    ep = dense_scan.probe_scan_plain(*plain_args, nf=128, norm_coef=1.0,
+                                     merge="exact", k_out=TOPK)
+    ex_err, ex_agree = exact_topk(ek, ep, TOPK, "exact probe scan")
+    ki = dense_scan.dense_scan(starts, sizes, v_i, b_i, dec_i, ones,
+                               norm_coef=1.0, **ekw)
+    pi = dense_scan.probe_scan_plain(
+        starts.reshape(P), sizes.reshape(P), b_i.reshape(P),
+        v_i.reshape(P, D), dec_i, ones, nf=128, norm_coef=1.0,
+        merge="exact", k_out=TOPK)
+    check(torch.equal(ki[0].reshape(P, 128), pi[0])
+          and torch.equal(ki[1].reshape(P, 128), pi[1]),
+          "integer-valued exact probe scan is not bit-exact")
+    records["probe_scan_exact"] = dict(
+        source="ivfadc_tpu_torch/csrc/probe_scan.cu",
+        replaces="ivfadc_tpu/ops/pallas_scan.py:153", max_abs_err=ex_err,
+        topk_payloads_agree=ex_agree, integer_case_bit_exact=True, probes=P,
+        ms=cuda_ms(lambda: dense_scan.dense_scan(
+            starts, sizes, v_q, base_q, view["decoded"], view["scale"],
+            norm_coef=1.0, **ekw)),
+        plain_ms=cuda_ms(lambda: dense_scan.probe_scan_plain(
+            *plain_args, nf=128, norm_coef=1.0, merge="exact", k_out=TOPK),
+            reps=3),
+        library_ms=None,
+        **bound(cell_rows * D + P * (2 * D + 12) + P * 128 * 8,
+                4.0 * D * probe_rows, PEAK_BF16))
+    b_plain = plain_args[:4] + (bview["decoded"], None)
+    bk = dense_scan.dense_scan(starts, sizes, v_q, base_q, bview["decoded"],
+                               None, norm_coef=1.0, **kw)
+    bp = dense_scan.probe_scan_plain(*b_plain, nf=nf, norm_coef=1.0)
+    b_err, b_agree = close_scan((bk[0].reshape(P, nf), bk[1].reshape(P, nf)),
+                                bp, "bf16 probe scan")
+    dec_b = dec_i.to(torch.bfloat16)
+    ki = dense_scan.dense_scan(starts, sizes, v_i, b_i, dec_b, None,
+                               norm_coef=1.0, **kw)
+    pi = dense_scan.probe_scan_plain(
+        starts.reshape(P), sizes.reshape(P), b_i.reshape(P),
+        v_i.reshape(P, D), dec_b, None, nf=nf, norm_coef=1.0)
+    check(torch.equal(ki[0].reshape(P, nf), pi[0])
+          and torch.equal(ki[1].reshape(P, nf), pi[1]),
+          "integer-valued bf16 probe scan is not bit-exact")
+    records["probe_scan_bf16"] = dict(
+        source="ivfadc_tpu_torch/csrc/probe_scan.cu",
+        replaces="ivfadc_tpu/ops/pallas_scan.py:117", max_abs_err=b_err,
+        blocks_agree=b_agree, integer_case_bit_exact=True, probes=P,
+        ms=cuda_ms(lambda: dense_scan.dense_scan(
+            starts, sizes, v_q, base_q, bview["decoded"], None,
+            norm_coef=1.0, **kw)),
+        plain_ms=cuda_ms(lambda: dense_scan.probe_scan_plain(
+            *b_plain, nf=nf, norm_coef=1.0), reps=3),
+        library_ms=None,
+        **bound(cell_rows * 2 * D + P * (2 * D + 12) + P * nf * 8,
+                4.0 * D * probe_rows, PEAK_BF16))
+
     # 6. top-k with indices on the scan's candidate rows (ties and +inf
     # included): exact
     flat_d = ksd.reshape(B_SMALL, W * nf)
@@ -424,6 +673,141 @@ def phase_kernels_small(index, queries):
         **bound(4 * flat_d.numel() + 8 * B_SMALL * TOPK,
                 float(flat_d.numel()) * TOPK, PEAK_F32))
     return records
+
+
+def phase_variants(index, qs, gt, ref, zero_counts, read_counts) -> dict:
+    """The scan variants through the index's entry points, counts zeroed
+    before each part: scan_cache="bf16" and scan_merge="exact" on the
+    grouped and the small-batch routes, IVFADC_EXTRACT=1 on the grouped
+    route. `ref` holds the routes already run on the same queries: ids
+    (grouped), s_ids (small batches), n_ids / n_dists (IVFADC_NORMS=off)
+    and the oracle's recall on the first N_ORACLE queries."""
+    import torch
+    from ivfadc_tpu_torch import IVFADCIndex
+    from ivfadc_tpu_torch.utils.evaluation import recall_at_r
+
+    def variant(**changes):
+        return IVFADCIndex(dataclasses.replace(index.config, **changes),
+                           index.coarse, index.quantizer, index.store,
+                           index.data_dtype, index.dim)
+
+    def small_batches(idx):
+        return np.concatenate([idx.search_padded(qs[s:s + B_SMALL], TOPK,
+                                                 w=W)[0]
+                               for s in range(0, N_SEARCH, B_SMALL)])
+
+    def overlap(a, b):
+        return float(np.mean([len(set(x) & set(y)) / TOPK
+                              for x, y in zip(a, b)]))
+
+    def recall(ids_):
+        r = recall_at_r(ids_[:N_ORACLE], gt[:N_ORACLE], TOPK)
+        check(abs(r - ref["recall_oracle"]) <= 0.01,
+              f"recall {r} vs oracle {ref['recall_oracle']}")
+        return r
+
+    def batch_ms(idx):
+        ts = []
+        for _ in range(4):                        # first: warm-up
+            t1 = time.perf_counter()
+            idx._device_search(ref["batch"], TOPK, W)
+            torch.cuda.synchronize()
+            ts.append(1e3 * (time.perf_counter() - t1))
+        return float(np.median(ts[1:]))
+
+    out = {}
+    # bf16 cache: grouped (cached norms, and IVFADC_NORMS=off), small batches
+    zero_counts()
+    bidx = variant(scan_cache="bf16")
+    b_ids, _ = bidx.search_padded(qs, TOPK, w=W)
+    b_small = small_batches(bidx)
+    os.environ["IVFADC_NORMS"] = "off"
+    try:
+        bn_ids, _ = bidx.search_padded(qs, TOPK, w=W)
+    finally:
+        del os.environ["IVFADC_NORMS"]
+    out["bf16"] = dict(launches=read_counts(
+        "variants_bf16", ["grouped_scan_bf16", "probe_scan_bf16",
+                          "grouped_scan_knorm_bf16"],
+        idle=["grouped_scan", "probe_scan", "grouped_scan_knorm"]))
+    out["bf16"].update(
+        recall_at_10_grouped=recall(b_ids),
+        recall_at_10_small_batch=recall(b_small),
+        top10_overlap_int8_grouped=overlap(b_ids, ref["ids"]),
+        top10_overlap_int8_small_batch=overlap(b_small, ref["s_ids"]),
+        top10_overlap_norms_off=overlap(bn_ids, ref["n_ids"]),
+        batch_ms_b16384=batch_ms(bidx))
+    for key in ("grouped", "small_batch"):
+        val = out["bf16"][f"top10_overlap_int8_{key}"]
+        check(val >= 0.9, f"bf16 / int8 {key} overlap {val}")
+    # exact merge: against the fold routes of the same arithmetic (in-kernel
+    # norms: IVFADC_NORMS=off grouped, and the small batches). The exact
+    # top-k can only be closer; the default 128-lane fold loses neighbours
+    # that collide in a lane (cells of ~1000 rows: 8 rows a lane), a
+    # 1024-lane fold almost none, so that one is the referee
+    widx = variant(scan_fold_lanes=1024, scan_pb=16)
+    os.environ["IVFADC_NORMS"] = "off"
+    try:
+        w_ids, w_dists = widx.search_padded(qs, TOPK, w=W)
+    finally:
+        del os.environ["IVFADC_NORMS"]
+    ws_ids, ws_dists = map(np.concatenate, zip(*[
+        widx.search_padded(qs[s:s + B_SMALL], TOPK, w=W)
+        for s in range(0, N_SEARCH, B_SMALL)]))
+    zero_counts()
+    eidx = variant(scan_merge="exact")
+    os.environ["IVFADC_NORMS"] = "off"      # the fold route it is held to
+    try:
+        e_ids, e_dists = eidx.search_padded(qs, TOPK, w=W)
+    finally:
+        del os.environ["IVFADC_NORMS"]
+    e_small, e_sd = map(np.concatenate, zip(*[
+        eidx.search_padded(qs[s:s + B_SMALL], TOPK, w=W)
+        for s in range(0, N_SEARCH, B_SMALL)]))
+    check(bool((e_dists <= ref["n_dists"] + 1e-4).all()
+               and (e_sd <= ref["s_dists"] + 1e-4).all()),
+          "exact-merge distances above the fold's")
+    out["exact"] = dict(launches=read_counts(
+        "variants_exact", ["grouped_scan_exact", "probe_scan_exact",
+                           "topk_index"],
+        idle=["grouped_scan", "probe_scan", "grouped_scan_knorm",
+              "topk_payload"]))
+    out["exact"].update(
+        recall_at_10_grouped=recall(e_ids),
+        recall_at_10_small_batch=recall(e_small),
+        top10_overlap_fold_grouped=overlap(e_ids, ref["n_ids"]),
+        top10_overlap_fold_small_batch=overlap(e_small, ref["s_ids"]),
+        top10_overlap_fold_grouped_tie_aware=tie_overlap(
+            e_ids, e_dists, ref["n_ids"], ref["n_dists"]),
+        top10_overlap_fold_small_batch_tie_aware=tie_overlap(
+            e_small, e_sd, ref["s_ids"], ref["s_dists"]),
+        top10_overlap_fold1024_grouped_tie_aware=tie_overlap(
+            e_ids, e_dists, w_ids, w_dists),
+        top10_overlap_fold1024_small_batch_tie_aware=tie_overlap(
+            e_small, e_sd, ws_ids, ws_dists),
+        batch_ms_b16384=batch_ms(eidx))
+    for key in ("grouped", "small_batch"):
+        val = out["exact"][f"top10_overlap_fold1024_{key}_tie_aware"]
+        check(val >= 0.99, f"exact / 1024-lane fold {key} overlap {val}")
+        val = out["exact"][f"top10_overlap_fold_{key}_tie_aware"]
+        check(val >= 0.95, f"exact / fold {key} overlap {val}")
+    # extraction: exact against the buffered fold with the same in-kernel
+    # norms (IVFADC_NORMS=off): bit-equal distances, ids equal but at ties
+    zero_counts()
+    os.environ["IVFADC_EXTRACT"] = "1"
+    try:
+        x_ids, x_dists = index.search_padded(qs, TOPK, w=W)
+        out["extract"] = dict(launches=read_counts(
+            "variants_extract", ["grouped_scan_extract", "topk_payload"],
+            idle=["grouped_scan", "grouped_scan_knorm"]))
+        out["extract"]["batch_ms_b16384"] = batch_ms(index)
+    finally:
+        del os.environ["IVFADC_EXTRACT"]
+    out["extract"].update(
+        rows_differing_at_ties=ties_only(x_ids, x_dists, ref["n_ids"],
+                                         ref["n_dists"]),
+        distances_bit_equal_norms_off=True)
+    return out
 
 
 def phase_profile(search, calls: int) -> dict:
@@ -591,6 +975,26 @@ def phase_two_level(zero_counts, read_counts, posting: dict) -> dict:
                 + 8 * tsize.numel() + kd.numel() * 8,
                 2.0 * d_pad * (probe_rows + tile_rows), PEAK_BF16),
         posting_shape=posting)
+    # 8e at stage 2's tiles (IVFADC_EXTRACT=1): each group probe's W3 best
+    # leave the kernel; integer-valued, bit for bit
+    xkw = dict(kw, extract_k=W3)
+    xk = dense_scan.grouped_scan(*args, **xkw)
+    xp = dense_scan.grouped_scan_plain(*args, **xkw)
+    x_err, x_agree = close_scan(xk, xp, "stage-2 extraction")
+    xi = dense_scan.grouped_scan(*int_args, **xkw)
+    xq = dense_scan.grouped_scan_plain(*int_args, **xkw)
+    check(torch.equal(xi[0], xq[0]) and torch.equal(xi[1], xq[1]),
+          "integer-valued stage-2 extraction is not bit-exact")
+    extract_stage2 = dict(
+        groups=g, probe_groups=gp, k=W3, max_abs_err=x_err, ids_agree=x_agree,
+        integer_case_bit_exact=True,
+        ms=cuda_ms(lambda: dense_scan.grouped_scan(*args, **xkw)),
+        plain_ms=cuda_ms(lambda: dense_scan.grouped_scan_plain(*args, **xkw),
+                         reps=3),
+        **bound(group_rows * (d_pad + 4) + live_tiles * pb * (2 * d_pad + 4)
+                + 8 * tsize.numel() + xk[0].numel() * 8,
+                2.0 * d_pad * (probe_rows + tile_rows), PEAK_BF16))
+    del xk, xp, xi, xq
     # 4 at the stage-2 merge: (NQ3, gp * nf), k = W3
     flat_d = kd[row].reshape(NQ3, gp * nf)
     flat_p = kp[row].reshape(NQ3, gp * nf)
@@ -842,7 +1246,148 @@ def phase_two_level(zero_counts, read_counts, posting: dict) -> dict:
          launches_naive_checks=counts_naive,
          profile=prof, coarse_profile_top=prof_coarse["top"][:6],
          seconds=time.perf_counter() - t0)
-    return record
+
+    # ---- stage 2 under IVFADC_EXTRACT=1: the cells of the buffered route
+    # (bit-equal distances; ids may differ only at exact ties), counts zeroed
+    t0 = time.perf_counter()
+    zero_counts()
+    os.environ["IVFADC_EXTRACT"] = "1"
+    try:
+        x_ids, x_dists = index.search_padded(q, TOPK, w=W3)
+        counts_x = read_counts("two_level_extract", ["grouped_scan_extract",
+                                                     "probe_scan"],
+                               idle=["grouped_scan_knorm"])
+    finally:
+        del os.environ["IVFADC_EXTRACT"]
+    x_cells, x_d = cq.search(q, W3, extract=True)
+    cell_tie_rows = ties_only(x_cells.cpu().numpy(), x_d.cpu().numpy(),
+                              tl_cells.cpu().numpy(), tl_d.cpu().numpy())
+    search_tie_rows = ties_only(x_ids, x_dists, ids, dists)
+    emit("two_level_extract", launches=counts_x,
+         stage2_cells_rows_differing_at_ties=cell_tie_rows,
+         search_rows_differing_at_ties=search_tie_rows,
+         seconds=time.perf_counter() - t0)
+    del x_cells, x_d, tl_cells, tl_d
+
+    # ---- one batch of NQ3_BIG queries: B*w >= 4*kc, so the posting scan is
+    # the grouped one (sort-based tile prep -> 8b with pos8 payloads ->
+    # kernel 6), held to the per-probe route on the same queries
+    t0 = time.perf_counter()
+    check(NQ3_BIG * W3 >= 4 * KC3 > NQ3 * W3, "batch sizes and routes")
+    gq2 = torch.Generator(device=dev).manual_seed(3)
+    extra = NQ3_BIG - NQ3
+    qidx2 = torch.randint(0, N3, (extra,), generator=gq2, device=dev)
+    q_big = torch.cat([q, base[qidx2] + 0.05 * torch.randn(
+        (extra, D3), generator=gq2, device=dev)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    g_ids, g_dists = index.search_padded(q_big, TOPK, w=W3)
+    counts_g = read_counts("two_level_grouped", [
+        "grouped_scan_pos8", "grouped_scan_knorm", "cell_rank",
+        "topk_payload", "topk_index"],
+        idle=["probe_scan", "grouped_scan", "coarse_probe", "coarse_topw"])
+    check(counts_g["grouped_scan_pos8"] == 1, "8b launched once")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(g_ids.shape == (NQ3_BIG, TOPK) and np.isfinite(g_dists).all()
+          and (g_ids >= 0).all() and (g_ids < N3).all()
+          and bool((np.diff(g_dists, axis=1) >= 0).all()),
+          "grouped large-kc output")
+    p_ids, p_dists = zip(*[index.search_padded(q_big[s0:s0 + NQ3], TOPK,
+                                               w=W3)
+                           for s0 in range(0, NQ3_BIG, NQ3)])
+    p_ids, p_dists = np.concatenate(p_ids), np.concatenate(p_dists)
+    overlap_raw = float(np.mean([len(set(a) & set(b)) / TOPK
+                                 for a, b in zip(g_ids, p_ids)]))
+    overlap_pp = tie_overlap(g_ids, g_dists, p_ids, p_dists)
+    check(overlap_pp >= 0.999, f"grouped / per-probe overlap {overlap_pp}")
+    same = g_ids == p_ids
+    dist_diff = float(np.abs(g_dists - p_dists)[same].max())
+    check(dist_diff <= 1e-3, f"grouped / per-probe distances {dist_diff}")
+    recall_g = recall_at_r(g_ids[:NQ3], gt, TOPK)
+    check(abs(recall_g - recall) <= 0.005,
+          f"grouped recall {recall_g} vs per-probe {recall}")
+    times = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        index._device_search(q_big, TOPK, W3)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    big_ms = 1e3 * float(np.median(times))
+    prof_big = phase_profile(lambda i: index._device_search(q_big, TOPK, W3),
+                             2)
+    del p_ids, p_dists
+
+    # 8b against its plain version on the batch's own tiles: every tile's
+    # rows are written (empty slots too); the plain version on a strided
+    # sample of tiles, first to last
+    view = index.store.device_view_dense(index.quantizer,
+                                         index.config.scan_chunk)
+    cells_b, v_b, base_b, _ = _dense_probe(
+        cq, index.quantizer.rotation, q_big, w=W3, metric=index.quant_metric,
+        include_base=index.config.score_mode == "reference",
+        apply_rot=False, residual_based=True)
+    d_dec = view["decoded"].shape[1]
+    pbp, nfp = index.config.scan_pb, index.config.scan_fold_lanes
+    tstart, tsize, v_t, b_t, _ = dense_scan.place_tiles(
+        cells_b, view["offsets"], view["sizes"],
+        torch.nn.functional.pad(v_b, (0, d_dec - v_b.shape[-1])), base_b,
+        kc=KC3, pb=pbp)
+    del v_b
+    T = tstart.shape[0]
+    pargs = (tstart, tsize, v_t, b_t, view["decoded"], view["scale"], None,
+             None)
+    pkw = dict(pb=pbp, nf=nfp, norm_coef=1.0, pos8=True)
+    kd, kp = dense_scan.grouped_scan(*pargs, **pkw)
+    check(kp.dtype == torch.int8, "pos8 payloads")
+    sub = torch.unique(torch.cat([torch.arange(0, T, 128, device=dev),
+                                  torch.tensor([T - 1], device=dev)]))
+    sargs = (tstart[sub], tsize[sub],
+             v_t.reshape(T, pbp, d_dec)[sub].reshape(-1, d_dec),
+             b_t.reshape(T, pbp, 1)[sub].reshape(-1, 1), view["decoded"],
+             view["scale"], None, None)
+    pd, pp = dense_scan.grouped_scan_plain(*sargs, **pkw)
+    err8b, agree8b = close_scan(
+        (kd.reshape(T, pbp, nfp)[sub].reshape(-1, nfp),
+         kp.reshape(T, pbp, nfp)[sub].reshape(-1, nfp)), (pd, pp),
+        "8b grouped scan")
+    out_gb = (kd.numel() * 4 + kp.numel()) / 1e9
+    del kd, kp, pd, pp
+    sizes64 = view["sizes"].to(torch.int64)
+    live_tiles = int((tsize > 0).sum().item())
+    cell_rows = int(sizes64[torch.unique(cells_b)].sum().item())
+    probe_rows = int(sizes64[cells_b.to(torch.int64)].sum().item())
+    tile_rows = int(tsize.to(torch.int64).sum().item())
+    record8b = dict(
+        source="ivfadc_tpu_torch/csrc/dense_scan.cu",
+        replaces="ivfadc_tpu/ops/pallas_scan.py:347", max_abs_err=err8b,
+        blocks_agree=agree8b, batch=NQ3_BIG, w=W3, tiles=T,
+        live_tiles=live_tiles, slot_rows_written=T * pbp,
+        probes=NQ3_BIG * W3, plain_tiles=int(sub.numel()),
+        output_gb=out_gb,
+        ms=cuda_ms(lambda: dense_scan.grouped_scan(*pargs, **pkw), reps=3),
+        plain_ms=cuda_ms(lambda: dense_scan.grouped_scan_plain(*sargs,
+                                                               **pkw),
+                         reps=3),
+        library_ms=None,             # no single PyTorch call scans CSR cells
+        # every slot row's outputs are written (4 + 1 B a lane); v rows of
+        # live tiles and every base are read
+        **bound(cell_rows * d_dec + live_tiles * pbp * 2 * d_dec
+                + T * pbp * 4 + 8 * T + T * pbp * nfp * 5,
+                2.0 * d_dec * (probe_rows + tile_rows), PEAK_BF16))
+    del pargs, sargs, v_t, b_t, tstart, tsize
+    emit("two_level_grouped", queries=NQ3_BIG, w=W3, k=TOPK,
+         route="sort prep -> 8b pos8 -> kernel 6", launches=counts_g,
+         top10_overlap_per_probe_tie_aware=overlap_pp,
+         top10_overlap_per_probe=overlap_raw,
+         max_dist_diff_per_probe=dist_diff,
+         recall_at_10_first_4096=recall_g, recall_at_10_per_probe=recall,
+         batch_ms=big_ms, qps=NQ3_BIG / (big_ms / 1e3),
+         max_memory_allocated_gb=peak_gb, tiles=T, live_tiles=live_tiles,
+         device_idle_share=prof_big["device_idle_share"], profile=prof_big,
+         seconds=time.perf_counter() - t0)
+    return {"grouped_scan_knorm": record, "grouped_scan_pos8": record8b,
+            "grouped_scan_extract@stage2": extract_stage2}
 
 
 def main() -> int:
@@ -865,12 +1410,37 @@ def main() -> int:
                "probe_scan": dense_scan.PROBE_KERNEL,
                "topk_index": topk.INDEX_KERNEL,
                "coarse_topw": coarse_scan.TOPW_KERNEL,
-               "grouped_scan_knorm": dense_scan.NORMS_KERNEL}
+               "grouped_scan_knorm": dense_scan.NORMS_KERNEL,
+               "grouped_scan_pos8": dense_scan.GROUPED_KERNELS["pos8", "int8"],
+               "grouped_scan_bf16": dense_scan.GROUPED_KERNELS["ids", "bf16"],
+               "grouped_scan_knorm_bf16":
+                   dense_scan.GROUPED_KERNELS["knorm", "bf16"],
+               "probe_scan_bf16": dense_scan.PROBE_KERNELS["fold", "bf16"],
+               "grouped_scan_exact":
+                   dense_scan.GROUPED_KERNELS["exact", "int8"],
+               "probe_scan_exact": dense_scan.PROBE_KERNELS["exact", "int8"],
+               "grouped_scan_extract":
+                   dense_scan.GROUPED_KERNELS["extract", "int8"]}
     # the path whose run gives each kernel its launch count
     path_of = {"coarse_probe": "search", "cell_rank": "search",
                "grouped_scan": "search", "topk_payload": "search",
                "probe_scan": "small_batch", "topk_index": "small_batch",
-               "coarse_topw": "lut", "grouped_scan_knorm": "two_level"}
+               "coarse_topw": "lut", "grouped_scan_knorm": "two_level",
+               "grouped_scan_pos8": "two_level_grouped",
+               "grouped_scan_bf16": "variants_bf16",
+               "grouped_scan_knorm_bf16": "variants_bf16",
+               "probe_scan_bf16": "variants_bf16",
+               "grouped_scan_exact": "variants_exact",
+               "probe_scan_exact": "variants_exact",
+               "grouped_scan_extract": "variants_extract"}
+    # the TPU kernel table's row of each kernel (PERF.md)
+    row_of = {"coarse_probe": "1", "cell_rank": "2", "grouped_scan": "3",
+              "topk_payload": "4", "probe_scan": "5", "topk_index": "6",
+              "coarse_topw": "7", "grouped_scan_knorm": "8a",
+              "grouped_scan_pos8": "8b", "grouped_scan_bf16": "8c",
+              "grouped_scan_knorm_bf16": "8c", "probe_scan_bf16": "8c",
+              "grouped_scan_exact": "8d", "probe_scan_exact": "8d",
+              "grouped_scan_extract": "8e"}
     launches = {}
 
     def zero_counts():
@@ -1008,9 +1578,9 @@ def main() -> int:
               f"small-batch output at B={b}")
         small[b] = bi
     check(np.array_equal(one_i, small[8][0]), "B=1 and B=8 ids differ")
-    s_ids = np.concatenate([index.search_padded(qs[s:s + B_SMALL], TOPK,
-                                                w=W)[0]
-                            for s in range(0, N_SEARCH, B_SMALL)])
+    s_ids, s_dists = map(np.concatenate, zip(*[
+        index.search_padded(qs[s:s + B_SMALL], TOPK, w=W)
+        for s in range(0, N_SEARCH, B_SMALL)]))
     recall_small = recall_at_r(s_ids, gt, TOPK)
     overlap_small = float(np.mean([len(set(a) & set(b)) / TOPK
                                    for a, b in zip(s_ids, ids)]))
@@ -1070,6 +1640,15 @@ def main() -> int:
     emit("norms_off", recall_at_10=recall_norms, recall_cached_norms=recall,
          top10_overlap_cached_norms=overlap_norms, launches=counts,
          seconds=time.perf_counter() - t0)
+
+    # ---- the scan variants: bf16 cache, exact merge, extraction
+    t0 = time.perf_counter()
+    emit("variants", **phase_variants(
+        index, qs, gt, dict(ids=ids, s_ids=s_ids, s_dists=s_dists,
+                            n_ids=n_ids,
+                            n_dists=n_dists, recall_oracle=recall_oracle,
+                            batch=queries[:BATCH]),
+        zero_counts, read_counts), seconds=time.perf_counter() - t0)
 
     # ---- LUT engine: scan_mode="lut", and k > 128 under the default config
     t0 = time.perf_counter()
@@ -1199,8 +1778,13 @@ def main() -> int:
     del index, lut_index, loaded, on_cpu, oracle, base, queries, qs
     torch.cuda.empty_cache()
     posting = records.pop("grouped_scan_knorm@posting")
-    records["grouped_scan_knorm"] = phase_two_level(
-        zero_counts, read_counts, posting)
+    pos8_sift = records.pop("grouped_scan_pos8@sift1m_integer")
+    tl = phase_two_level(zero_counts, read_counts, posting)
+    records["grouped_scan_knorm"] = tl["grouped_scan_knorm"]
+    records["grouped_scan_pos8"] = dict(tl["grouped_scan_pos8"],
+                                        sift1m_tiles=pos8_sift)
+    records["grouped_scan_extract"]["stage2_shape"] = \
+        tl["grouped_scan_extract@stage2"]
 
     # launches: the count from the run of the kernel's own path
     print(json.dumps({"kernels": [
@@ -1210,7 +1794,7 @@ def main() -> int:
              max_abs_err=rec["max_abs_err"], ms=rec["ms"],
              plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
              bound_by=rec["bound_by"], library_ms=rec["library_ms"],
-             path=path_of[name],
+             path=path_of[name], table_row=row_of[name],
              launches_by_path={ph: c[name] for ph, c in launches.items()},
              **{k: v for k, v in rec.items()
                 if k not in ("source", "replaces", "max_abs_err", "ms",

@@ -56,9 +56,10 @@ def index_from_arrays(arrays: dict, meta: dict, device) -> IVFADCIndex:
                        np.dtype(meta["data_dtype"]), int(meta["dim"]))
 
 
-def from_reference(jax_index, device) -> IVFADCIndex:
+def from_reference(jax_index, device="cuda") -> IVFADCIndex:
     """A port index holding the same parameters as a live `ivfadc_tpu`
-    index (either coarse quantizer)."""
+    index (either coarse quantizer), on `device` (default: the card, as
+    every entry point of the port; pass "cpu" for the CPU)."""
     arrays = {
         "centroids": np.asarray(jax_index.coarse.centroids),
         "codebooks": np.asarray(jax_index.quantizer.codebooks),

@@ -1,14 +1,21 @@
-// Cell-grouped dense posting scan with a fold merge.
+// Cell-grouped dense posting scan.
 //
-// Replaces ivfadc_tpu/ops/pallas_scan.py::_grouped_scan_kernel in two
-// variants, both with fold merge, emitted external ids (ids2d) and the int8
-// decoded cache with a per-column scale: cached row norms (norms2d; entry
-// point grouped_scan) and row norms computed in the kernel (entry point
-// grouped_scan_knorm). Each tile (one block) holds up to pb probes of ONE
-// cell; the block walks the cell's live rows in 128-row groups, in
-// increasing order, and for probe p and group row l computes, in this
-// order (the JAX kernel's arithmetic):
-//   row  = bf16(float(int8) * float(bf16(scale)))        (per column)
+// Replaces ivfadc_tpu/ops/pallas_scan.py::_grouped_scan_kernel in every
+// variant the JAX package reaches, as template parameters of one kernel:
+//   ELEM     the decoded cache: int8 with a per-column scale, or bf16 rows
+//            read as they are (the TPU kernel's `int8` switch);
+//   KNORM    row norms from the cached norms2d stream, or computed here;
+//   PAY      the fold payload: external ids from the ids2d stream
+//            (emit_ids), or the candidate's 128-row block index within its
+//            cell (position payloads; PT = int8 for pos8, else int32); the
+//            exact merge stores absolute slots;
+//   EXACT    merge="exact" instead of the fold;
+//   EXTRACT  finish each tile with k_out min-extract passes (extract_k).
+// Each tile (one block) holds up to pb probes of ONE cell; the block walks
+// the cell's live rows in 128-row groups, in increasing order, and for
+// probe p and group row l computes, in this order (the JAX kernel's
+// arithmetic):
+//   row  = bf16(float(int8) * float(bf16(scale)))  (int8 cache; bf16: as is)
 //   dot  = sum_k float(v[p][k]) * float(row[k])          (f32, exact products)
 // cached norms:
 //   s    = dot + base[p];  s = +inf past the cell size;  s = s + coef*norm[row]
@@ -16,22 +23,43 @@
 //   norm = sum_k float(bf16(row[k] * row[k]))            (bf16 squares, f32 sum)
 //   s    = (dot + coef * norm) + base[p]                 (coef == 0: dot + base)
 //   s    = +inf past the cell size
-// then in both:
-//   fold: group G writes bank G % (nf/128), lane l, strict '<', payload =
-//         the row's external id; buffers start at +inf / -1.
+// then the merge:
+//   fold:  group G writes bank G % (nf/128), lane l, strict '<'; payload =
+//          the row's external id, or G (block index); buffers start at
+//          +inf / -1.
+//   exact: a 128-lane buffer per probe; after each group, up to k_out
+//          passes move the group's minimum (lowest row among ties) into
+//          the buffer's maximum lane (lowest lane among ties) when strictly
+//          smaller, payload = the absolute slot. The TPU runs its passes
+//          per DMA chunk; per 128-row group keeps the same guarantee (the
+//          buffer holds each probe's true top-k_out distances) without
+//          holding a chunk's scores. Ids kept at a tied distance may
+//          differ from the TPU's, as they differ between chunk sizes there.
+//   extract: after the fold, k_out passes each emit the buffer's minimum
+//          (the first lane among ties) with its id (-1 where the minimum
+//          is +inf) and mask that lane; output (pb, k_out) per tile
+//          instead of the TPU's packed 128-lane i32 row.
 // A staged group's norms are computed once, two threads a row, and shared
-// by the tile's pb probes.
-// Walking 128-row groups instead of the TPU's DMA chunks changes nothing:
-// chunk % nf == 0, so a row's bank is the same either way. Rows at or past
-// the cell size are never read. Tiles of size 0 write +inf / -1.
+// by the tile's pb probes. Probes whose base is +inf (the placement's empty
+// slots, padded probes) score +inf on every row whatever their dot
+// product, so their products are skipped; their buffers stay +inf / -1.
+// Walking 128-row groups instead of the TPU's DMA chunks changes nothing
+// for the fold: chunk % nf == 0, so a row's bank and block index are the
+// same either way. Rows at or past the cell size are never read; cell
+// starts need only 8-row (16-byte) alignment. Tiles of size 0 write +inf /
+// -1.
 //
-// Bound: device-memory reads of the cell rows (int8, 1 B/dim) plus the
-// per-group dot products (pb x 128 x d FMAs per group). Design: a row group
-// is staged once in shared memory (dequantized to bf16, 16-byte loads) and
-// feeds all pb probes of the tile; each thread keeps an 8x4 register tile
-// of scores; the nf-lane candidate buffers of the tile stay in shared
-// memory for the whole cell and reach device memory once. Plain CUDA-core
-// FMAs, no tensor cores: the first version is the exact one.
+// Bound: device-memory reads of the cell rows (int8: 1 B/dim, bf16: 2) and
+// the output rows (pb x nf x 8 B per tile; at huge kc, where most slots of
+// a tile are empty, those writes dominate) plus the per-group dot products
+// (live probes x 128 x d FMAs per group). Design: a row group is staged
+// once in shared memory (as bf16, 16-byte loads) and feeds all pb probes of
+// the tile; each thread keeps an 8x4 register tile of scores, the rows of
+// probes ty + 8i up to the last live one; the merges run in the warp that
+// owns a probe's scores (shuffles, no block barriers); the candidate
+// buffers of the tile stay in shared memory for the whole cell and reach
+// device memory once. Plain CUDA-core FMAs, no tensor cores: the first
+// version is the exact one.
 
 #include "common.cuh"
 
@@ -41,14 +69,39 @@ constexpr int RS = KT + 2;        // staged row stride (bf16): conflict-free
 constexpr int GS_THREADS = 256;   // 8 probe rows x 32 row lanes
 constexpr int MAX_PB = 64;
 
-template <bool KNORM>
+enum Payload { PAY_IDS = 0, PAY_BLOCK = 1, PAY_SLOT = 2 };
+
+// acc[i][j] += v[ty + 8i] . row[tx + 32j] over one staged feature step, for
+// the thread's first NI probe rows
+template <int NI>
+__device__ __forceinline__ void dot_step(float (&acc)[8][4],
+                                         const __nv_bfloat16* rs,
+                                         const __nv_bfloat16* vs, int tx,
+                                         int ty) {
+  for (int kk = 0; kk < KT; ++kk) {
+    float rv[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      rv[j] = __bfloat162float(rs[static_cast<size_t>(tx + 32 * j) * RS + kk]);
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const float vv =
+          __bfloat162float(vs[static_cast<size_t>(ty + 8 * i) * KT + kk]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(vv, rv[j], acc[i][j]);
+    }
+  }
+}
+
+template <typename ELEM, bool KNORM, int PAY, typename PT, bool EXACT,
+          bool EXTRACT>
 __global__ void __launch_bounds__(GS_THREADS) grouped_scan_kernel(
     const int* __restrict__ tstart, const int* __restrict__ tsize,
     const __nv_bfloat16* __restrict__ v_tiles,
-    const float* __restrict__ base_tiles, const int8_t* __restrict__ decoded,
+    const float* __restrict__ base_tiles, const ELEM* __restrict__ decoded,
     const float* __restrict__ scale, const int* __restrict__ ids,
-    const float* __restrict__ norms, int d, int pb, int nf, float norm_coef,
-    float* __restrict__ out_d, int* __restrict__ out_p) {
+    const float* __restrict__ norms, int d, int pb, int nf, int k_out,
+    float norm_coef, float* __restrict__ out_d, PT* __restrict__ out_p) {
   extern __shared__ __align__(16) unsigned char smraw[];
   float* bufd = reinterpret_cast<float*>(smraw);                // pb * nf
   int* bufp = reinterpret_cast<int*>(bufd + static_cast<size_t>(pb) * nf);
@@ -58,7 +111,7 @@ __global__ void __launch_bounds__(GS_THREADS) grouped_scan_kernel(
   __shared__ float nrm_s[GROUP];   // KNORM: the staged group's row norms
 
   const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
-  const int t = blockIdx.x;
+  const size_t t = blockIdx.x;
   const int start = tstart[t], size = tsize[t];
   const int np = pb >> 3;          // probe rows per thread (ty + 8 * i)
   const int nbank = nf / GROUP;
@@ -70,11 +123,13 @@ __global__ void __launch_bounds__(GS_THREADS) grouped_scan_kernel(
     bufp[i] = -1;
   }
   float basev[8];
+  int nlive = 0;                   // probe rows up to the last finite base
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-    basev[i] = i < np ? base_tiles[static_cast<size_t>(t) * pb + ty + 8 * i]
-                      : 0.f;
-  const __nv_bfloat16* vt = v_tiles + static_cast<size_t>(t) * pb * d;
+  for (int i = 0; i < 8; ++i) {
+    basev[i] = i < np ? base_tiles[t * pb + ty + 8 * i] : IVF_INF;
+    if (basev[i] < IVF_INF) nlive = i + 1;
+  }
+  const __nv_bfloat16* vt = v_tiles + t * pb * d;
   const int ngroups = (size + GROUP - 1) / GROUP;
 
   for (int G = 0; G < ngroups; ++G) {
@@ -98,26 +153,9 @@ __global__ void __launch_bounds__(GS_THREADS) grouped_scan_kernel(
                   vt + static_cast<size_t>(p) * d + k0)[s];
         }
       }
-      for (int i = tid; i < GROUP * (KT / 16); i += GS_THREADS) {
-        const int r = i / (KT / 16), s = i - r * (KT / 16);
-        __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(
-            rs + static_cast<size_t>(r) * RS + s * 16);
-        if (r < nvalid) {
-          const uint4 raw = reinterpret_cast<const uint4*>(
-              decoded + static_cast<size_t>(row0 + r) * d + k0)[s];
-          const int8_t* q8 = reinterpret_cast<const int8_t*>(&raw);
-          const float* sc = scale + k0 + s * 16;
-#pragma unroll
-          for (int e = 0; e < 16; e += 2)
-            dst[e / 2] = __floats2bfloat162_rn(
-                __fmul_rn(static_cast<float>(q8[e]), sc[e]),
-                __fmul_rn(static_cast<float>(q8[e + 1]), sc[e + 1]));
-        } else {
-#pragma unroll
-          for (int e = 0; e < 16; e += 2)
-            dst[e / 2] = __floats2bfloat162_rn(0.f, 0.f);
-        }
-      }
+      ivf_stage_rows<GROUP, KT, GS_THREADS>(rs, RS, decoded, scale,
+                                            static_cast<size_t>(row0), nvalid,
+                                            d, k0, tid);
       __syncthreads();
       if (use_norm) {
         // thread (row r, half h) sums the squares of words [16h, 16h + 16)
@@ -136,21 +174,16 @@ __global__ void __launch_bounds__(GS_THREADS) grouped_scan_kernel(
                                        __fmul_rn(r2.y, r2.y))));
           }
       }
-      for (int kk = 0; kk < KT; ++kk) {
-        float rv[4], vv[8];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          rv[j] = __bfloat162float(
-              rs[static_cast<size_t>(tx + 32 * j) * RS + kk]);
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          vv[i] = i < np ? __bfloat162float(
-                               vs[static_cast<size_t>(ty + 8 * i) * KT + kk])
-                         : 0.f;
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(vv[i], rv[j], acc[i][j]);
+      switch (nlive) {             // warp-uniform: one warp, one ty
+        case 1: dot_step<1>(acc, rs, vs, tx, ty); break;
+        case 2: dot_step<2>(acc, rs, vs, tx, ty); break;
+        case 3: dot_step<3>(acc, rs, vs, tx, ty); break;
+        case 4: dot_step<4>(acc, rs, vs, tx, ty); break;
+        case 5: dot_step<5>(acc, rs, vs, tx, ty); break;
+        case 6: dot_step<6>(acc, rs, vs, tx, ty); break;
+        case 7: dot_step<7>(acc, rs, vs, tx, ty); break;
+        case 8: dot_step<8>(acc, rs, vs, tx, ty); break;
+        default: break;
       }
     }
 
@@ -159,12 +192,11 @@ __global__ void __launch_bounds__(GS_THREADS) grouped_scan_kernel(
       if ((tid & 1) == 0) nrm_s[tid >> 1] = __fadd_rn(nacc, other);
       __syncthreads();  // next written after the next group's two barriers
     }
-    const int bank = G % nbank;
+    // scores, in place of the products
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int r = tx + 32 * j;
       const bool valid = r < nvalid;
-      const int id = valid ? ids[row0 + r] : -1;
       float nr = 0.f;
       if (KNORM) {
         if (use_norm) nr = nrm_s[r];
@@ -173,84 +205,150 @@ __global__ void __launch_bounds__(GS_THREADS) grouped_scan_kernel(
       }
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        if (i < np) {
-          float s;
-          if (KNORM) {
-            s = use_norm ? __fadd_rn(acc[i][j], __fmul_rn(norm_coef, nr))
-                         : acc[i][j];
-            s = __fadd_rn(s, basev[i]);
-            s = valid ? s : IVF_INF;
-          } else {
-            s = __fadd_rn(acc[i][j], basev[i]);
-            s = valid ? s : IVF_INF;
-            s = __fadd_rn(s, __fmul_rn(norm_coef, nr));
-          }
-          const int slot = (ty + 8 * i) * nf + bank * GROUP + r;
-          if (s < bufd[slot]) {
-            bufd[slot] = s;
-            bufp[slot] = id;
+        float s;
+        if (KNORM) {
+          s = use_norm ? __fadd_rn(acc[i][j], __fmul_rn(norm_coef, nr))
+                       : acc[i][j];
+          s = __fadd_rn(s, basev[i]);
+          s = valid ? s : IVF_INF;
+        } else {
+          s = __fadd_rn(acc[i][j], basev[i]);
+          s = valid ? s : IVF_INF;
+          s = __fadd_rn(s, __fmul_rn(norm_coef, nr));
+        }
+        acc[i][j] = s;
+      }
+    }
+    if (EXACT) {
+      // the warp holds all 128 rows of its probes ty + 8i
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (i < nlive) {
+          const int p = ty + 8 * i;
+          for (int pass = 0; pass < k_out; ++pass)
+            if (!ivf_exact_pass(acc[i], bufd + p * GROUP, bufp + p * GROUP,
+                                row0, tx))
+              break;
+        }
+      }
+    } else {
+      const int bank = G % nbank;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = tx + 32 * j;
+        int pay = G;                  // PAY_BLOCK
+        if (PAY == PAY_IDS) pay = r < nvalid ? ids[row0 + r] : -1;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (i < np) {
+            const int slot = (ty + 8 * i) * nf + bank * GROUP + r;
+            if (acc[i][j] < bufd[slot]) {
+              bufd[slot] = acc[i][j];
+              bufp[slot] = pay;
+            }
           }
         }
       }
     }
   }
   __syncthreads();
-  float* od = out_d + static_cast<size_t>(t) * pb * nf;
-  int* op = out_p + static_cast<size_t>(t) * pb * nf;
+  if (EXTRACT) {
+    float* od = out_d + t * pb * k_out;
+    PT* op = out_p + t * pb * k_out;
+    for (int i = 0; i < np; ++i) {
+      const int p = ty + 8 * i;
+      float* row = bufd + static_cast<size_t>(p) * nf;
+      for (int e = 0; e < k_out; ++e) {
+        float m;
+        int a;
+        ivf_lane_argmin(row, nf, tx, m, a);
+        ivf_warp_argmin(m, a);
+        if (tx == 0) {
+          od[p * k_out + e] = m;
+          op[p * k_out + e] =
+              static_cast<PT>(m == IVF_INF ? -1 : bufp[p * nf + a]);
+          row[a] = IVF_INF;
+        }
+        __syncwarp();
+      }
+    }
+    return;
+  }
+  float* od = out_d + t * pb * nf;
+  PT* op = out_p + t * pb * nf;
   for (int i = tid; i < pb * nf; i += GS_THREADS) {
     od[i] = bufd[i];
-    op[i] = bufp[i];
+    op[i] = static_cast<PT>(bufp[i]);
   }
 }
 
-template <bool KNORM>
+template <typename ELEM, bool KNORM, int PAY, typename PT, bool EXACT,
+          bool EXTRACT>
 static int launch_grouped_scan(const void* tstart, const void* tsize,
                                const void* v_tiles, const void* base_tiles,
                                const void* decoded, const void* scale,
                                const void* ids, const void* norms, int T,
-                               int d, int pb, int nf, float norm_coef,
-                               void* out_d, void* out_p, void* stream) {
+                               int d, int pb, int nf, int k_out,
+                               float norm_coef, void* out_d, void* out_p,
+                               void* stream) {
   if (pb <= 0 || pb % 8 || pb > MAX_PB || nf <= 0 || nf % GROUP ||
       d <= 0 || d % KT)
+    return cudaErrorInvalidValue;
+  if (EXACT && (nf != GROUP || k_out < 1 || k_out > GROUP))
+    return cudaErrorInvalidValue;
+  if (EXTRACT && (k_out < 1 || 2 * k_out > GROUP))
     return cudaErrorInvalidValue;
   const size_t smem = static_cast<size_t>(pb) * nf * 8 +
                       static_cast<size_t>(pb) * KT * 2 +
                       static_cast<size_t>(GROUP) * RS * 2;
   if (smem > 226u * 1024u) return cudaErrorInvalidValue;
   int err = ivf_set_smem(
-      reinterpret_cast<const void*>(grouped_scan_kernel<KNORM>), smem);
+      reinterpret_cast<const void*>(
+          grouped_scan_kernel<ELEM, KNORM, PAY, PT, EXACT, EXTRACT>),
+      smem);
   if (err) return err;
   if (T > 0)
-    grouped_scan_kernel<KNORM><<<T, GS_THREADS, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(
+    grouped_scan_kernel<ELEM, KNORM, PAY, PT, EXACT, EXTRACT>
+        <<<T, GS_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(tstart), static_cast<const int*>(tsize),
         static_cast<const __nv_bfloat16*>(v_tiles),
         static_cast<const float*>(base_tiles),
-        static_cast<const int8_t*>(decoded), static_cast<const float*>(scale),
+        static_cast<const ELEM*>(decoded), static_cast<const float*>(scale),
         static_cast<const int*>(ids), static_cast<const float*>(norms), d, pb,
-        nf, norm_coef, static_cast<float*>(out_d), static_cast<int*>(out_p));
+        nf, k_out, norm_coef, static_cast<float*>(out_d),
+        static_cast<PT*>(out_p));
   return ivf_launch_status();
 }
 
-extern "C" int grouped_scan(const void* tstart, const void* tsize,
-                            const void* v_tiles, const void* base_tiles,
-                            const void* decoded, const void* scale,
-                            const void* ids, const void* norms, int T, int d,
-                            int pb, int nf, float norm_coef, void* out_d,
-                            void* out_p, void* stream) {
-  return launch_grouped_scan<false>(tstart, tsize, v_tiles, base_tiles,
-                                    decoded, scale, ids, norms, T, d, pb, nf,
-                                    norm_coef, out_d, out_p, stream);
-}
+// One C entry point per variant the JAX package reaches, all with one
+// signature: the streams a variant does not read (scale for bf16 rows, ids
+// without PAY_IDS, norms with KNORM) may be null; k_out is read by the
+// exact merge and by extraction.
+#define GROUPED_ENTRY(NAME, ...)                                              \
+  extern "C" int NAME(const void* tstart, const void* tsize,                 \
+                      const void* v_tiles, const void* base_tiles,           \
+                      const void* decoded, const void* scale,                \
+                      const void* ids, const void* norms, int T, int d,      \
+                      int pb, int nf, int k_out, float norm_coef,            \
+                      void* out_d, void* out_p, void* stream) {              \
+    return launch_grouped_scan<__VA_ARGS__>(                                 \
+        tstart, tsize, v_tiles, base_tiles, decoded, scale, ids, norms, T,   \
+        d, pb, nf, k_out, norm_coef, out_d, out_p, stream);                  \
+  }
 
-// The variant that computes the row norms itself: no norms stream.
-extern "C" int grouped_scan_knorm(const void* tstart, const void* tsize,
-                                  const void* v_tiles, const void* base_tiles,
-                                  const void* decoded, const void* scale,
-                                  const void* ids, int T, int d, int pb,
-                                  int nf, float norm_coef, void* out_d,
-                                  void* out_p, void* stream) {
-  return launch_grouped_scan<true>(tstart, tsize, v_tiles, base_tiles,
-                                   decoded, scale, ids, nullptr, T, d, pb, nf,
-                                   norm_coef, out_d, out_p, stream);
-}
+#define GROUPED_ENTRIES(SUFFIX, ELEM)                                        \
+  GROUPED_ENTRY(grouped_scan##SUFFIX, ELEM, false, PAY_IDS, int, false,      \
+                false)                                                       \
+  GROUPED_ENTRY(grouped_scan_knorm##SUFFIX, ELEM, true, PAY_IDS, int, false, \
+                false)                                                       \
+  GROUPED_ENTRY(grouped_scan_pos8##SUFFIX, ELEM, true, PAY_BLOCK, int8_t,    \
+                false, false)                                                \
+  GROUPED_ENTRY(grouped_scan_pos##SUFFIX, ELEM, true, PAY_BLOCK, int, false, \
+                false)                                                       \
+  GROUPED_ENTRY(grouped_scan_exact##SUFFIX, ELEM, true, PAY_SLOT, int, true, \
+                false)                                                       \
+  GROUPED_ENTRY(grouped_scan_extract##SUFFIX, ELEM, true, PAY_IDS, int,      \
+                false, true)
+
+GROUPED_ENTRIES(, int8_t)
+GROUPED_ENTRIES(_bf16, __nv_bfloat16)

@@ -51,9 +51,11 @@ class NaiveCoarseQuantizer:
         return (f"NaiveCoarseQuantizer({self.metric.name}), "
                 f"{self.dim}×{self.kc} cluster centres")
 
-    def search(self, queries: torch.Tensor, w: int):
+    def search(self, queries: torch.Tensor, w: int, *,
+               extract: bool = False):
         """(B, d) queries -> (cells (B, w) int32, dists (B, w) f32
-        ascending; squared distances under both euclidean metrics)."""
+        ascending; squared distances under both euclidean metrics).
+        `extract` (IVFADC_EXTRACT) concerns the two-level quantizer only."""
         from ivfadc_tpu_torch.ops.coarse_scan import coarse_topw
         from ivfadc_tpu_torch.ops.topk import topk_lastdim
         if (self.metric.name in ("sqeuclidean", "euclidean")
@@ -168,9 +170,12 @@ class TwoLevelCoarseQuantizer:
                 f"{self.group_centers.shape[0]} groups "
                 f"(gp={self.n_probe_groups})")
 
-    def search(self, queries: torch.Tensor, w: int):
+    def search(self, queries: torch.Tensor, w: int, *,
+               extract: bool = False):
         """(B, d) queries -> (cells (B, w) int32, dists (B, w) f32
-        ascending). Fewer candidates than w: the tail is cell 0 at +inf."""
+        ascending). Fewer candidates than w: the tail is cell 0 at +inf.
+        `extract` (IVFADC_EXTRACT) runs the scan stage 2 with in-kernel
+        extraction."""
         from ivfadc_tpu_torch.ops.topk import topk_lastdim
         queries = queries.to(torch.float32)
         gp = min(self.n_probe_groups, self.group_centers.shape[0])
@@ -180,7 +185,7 @@ class TwoLevelCoarseQuantizer:
         # the (sq)euclidean pairwise; other metrics stay on the exact gather
         scan_ok = self.metric.name in ("sqeuclidean", "euclidean")
         if self.kc > self._GATHER_MAX and scan_ok:
-            return self._scan_stage2(queries, gids, gp, w)
+            return self._scan_stage2(queries, gids, gp, w, extract=extract)
         cand = self.members[gids.to(torch.int64)] \
             .reshape(queries.shape[0], -1)
         valid = cand >= 0
@@ -193,23 +198,34 @@ class TwoLevelCoarseQuantizer:
         return _pad_cells(torch.where(torch.isfinite(dists), cells, 0),
                           dists, w)
 
-    def _scan_stage2(self, queries, gids, gp: int, w: int):
+    def _scan_stage2(self, queries, gids, gp: int, w: int, *,
+                     extract: bool = False):
         """Stage 2 through the grouped scan (|q-c|^2 = |q|^2 - 2 q.c +
-        |c|^2 with bf16 products, f32 accumulation)."""
+        |c|^2 with bf16 products, f32 accumulation). `extract`: each group
+        probe's top-w leaves the kernel instead of its 128-lane buffer
+        (exact against the buffered route: every winner is in some probe's
+        top-w)."""
         from ivfadc_tpu_torch.ops.dense_scan import grouped_dense_scan
         from ivfadc_tpu_torch.ops.topk import topk_lastdim_payload
         B, d = queries.shape
         v = (-2.0 * queries)[:, None, :].expand(B, gp, d)
         base = torch.sum(queries * queries, dim=1)[:, None].expand(B, gp)
+        k_out = min(w, 128)
         out_d, out_p = grouped_dense_scan(
             gids, self.csr_offsets, self.csr_sizes, v, base, self.cent_scan,
             self.cent_scale, self.perm2d, None,
-            kc=self.group_centers.shape[0], k_out=min(w, 128), chunk=512,
-            norm_coef=1.0, pb=64, merge="fold", nf=128)
+            kc=self.group_centers.shape[0], k_out=k_out, chunk=512,
+            norm_coef=1.0, pb=64, merge="fold", nf=128,
+            extract_k=k_out if 2 * k_out <= 128 and extract else 0)
         nf = out_d.shape[-1]
         flat_d = out_d.reshape(B, gp * nf)
         flat_p = out_p.reshape(B, gp * nf)       # emitted CELL ids
         w_eff = min(w, gp * nf)
+        if flat_d.shape[1] % 128:
+            pad = 128 - flat_d.shape[1] % 128
+            flat_d = torch.nn.functional.pad(flat_d, (0, pad),
+                                             value=float("inf"))
+            flat_p = torch.nn.functional.pad(flat_p, (0, pad), value=-1)
         dists, cells = topk_lastdim_payload(flat_d, flat_p, w_eff)
         cells = torch.where(torch.isfinite(dists) & (cells >= 0), cells, 0)
         return _pad_cells(cells, dists, w)

@@ -5,10 +5,16 @@ the naive or the two-level coarse quantizer.
 
   build:  coarse k-means (k-means|| seeding past 4096 cells) -> residuals
           -> PQ training -> encode -> padded CSR -> coarse quantizer
-  dense search, B*w >= 4*kc: fused coarse probe -> cell ranks -> tile
-          placement -> grouped fold scan -> top-k merge over id payloads
+  dense search, B*w >= 4*kc: fused coarse probe -> cell ranks (counting
+          kernel up to 4096 cells, one sort beyond) -> tile placement ->
+          grouped scan -> top-k merge: over id payloads (128-row cells,
+          fold; IVFADC_EXTRACT=1: over each probe's extracted top-k), or
+          over block indices / slots resolved to ids (8-row cells; the
+          exact merge)
   dense search, B*w < 4*kc (single queries included): fused coarse probe ->
-          per-probe fold scan -> top-k with indices -> slot positions -> ids
+          per-probe scan -> top-k with indices -> slot positions -> ids
+  both scans take the int8 or the bf16 decoded cache (scan_cache) and the
+          fold or the exact merge (scan_merge)
   unfused probe (inner-product scores, non-euclidean coarse metrics, the
           two-level coarse quantizer): the quantizer's own top-w search,
           then v / base in tensor code, then either scan
@@ -17,10 +23,8 @@ the naive or the two-level coarse quantizer.
 
 Routes that are not ported yet raise NotImplementedError naming their
 ROADMAP item instead of silently taking another route: OPQ training, the
-gathered tiny-cell engine, the exact merge, the bf16 decoded cache, stores
-without 128-row cells on the grouped scan (which large-kc indexes reach
-only at B*w >= 4*kc), and the JAX package's opt-in engines other than
-IVFADC_NORMS.
+gathered tiny-cell engine, and the JAX package's opt-in engines other than
+IVFADC_NORMS and IVFADC_EXTRACT.
 """
 
 from __future__ import annotations
@@ -58,14 +62,22 @@ _LUT_BLOCK_ELEMS = 1 << 24
 
 # The JAX package's opt-in engines, selected there by environment variables.
 # These are not ported, so asking for one fails instead of running the
-# default. (IVFADC_NORMS is honoured: `PostingStore.device_view_dense`.)
+# default. (IVFADC_NORMS is honoured by `PostingStore.device_view_dense`,
+# IVFADC_EXTRACT by `_env_extract`.)
 _UNPORTED_ENGINES = {
     "IVFADC_VBASE": ("place", "qc: in-kernel v/base grouped scan, ROADMAP B.9"),
-    "IVFADC_EXTRACT": ("0", "in-kernel extraction variant, ROADMAP B.8"),
     "IVFADC_COARSE_ENGINE": ("v1", "v2 coarse probe, ROADMAP B.10"),
     "IVFADC_RANK_ENGINE": ("v1", "v2 cell ranks, ROADMAP B.11"),
     "IVFADC_MERGE_TOPK": ("pallas", "approximate merge top-k"),
 }
+
+
+def _env_extract() -> bool:
+    """IVFADC_EXTRACT=1 selects the grouped scan's in-kernel extraction,
+    unless IVFADC_NO_EXTRACT is set to anything but "0" or "" (read as the
+    JAX package reads them)."""
+    return (os.environ.get("IVFADC_EXTRACT", "0") == "1"
+            and os.environ.get("IVFADC_NO_EXTRACT", "0") in ("", "0"))
 
 
 def _check_engines() -> None:
@@ -127,7 +139,8 @@ def _train_components(xd: torch.Tensor, config: IVFADCConfig,
 
 
 def _dense_probe(cq, rotation, queries, *, w: int, metric: Metric,
-                 include_base: bool, apply_rot: bool, residual_based: bool):
+                 include_base: bool, apply_rot: bool, residual_based: bool,
+                 extract: bool = False):
     """Coarse probe + scan-vector prep -> (cells (B,w), v (B,w,dq),
     base (B,w), norm_coef)."""
     queries = queries.to(torch.float32)
@@ -141,7 +154,7 @@ def _dense_probe(cq, rotation, queries, *, w: int, metric: Metric,
         cells, _, v, base = coarse_probe_vbase(
             queries, cq.centroids, w, rotation, apply_rot, include_base)
         return cells, v, base, 1.0
-    cells, cdists = cq.search(queries, w)
+    cells, cdists = cq.search(queries, w, extract=extract)
     cent = cq.centroids[cells.to(torch.int64)]            # (B, w, d)
     if residual_based:
         r = queries[:, None, :] - cent
@@ -174,7 +187,7 @@ def _dense_probe(cq, rotation, queries, *, w: int, metric: Metric,
 
 def _lut_search(cq, codebooks, rotation, view, queries, *, k: int, w: int,
                 window: int, metric: Metric, include_base: bool,
-                apply_rot: bool, residual_based: bool):
+                apply_rot: bool, residual_based: bool, extract: bool = False):
     """LUT search: coarse probe -> ADC tables -> posting scan -> k smallest,
     in query blocks that bound the scan's (queries, w, window) temporaries.
     Returns raw (ids, dists); the caller applies `metric.finalize`."""
@@ -186,7 +199,7 @@ def _lut_search(cq, codebooks, rotation, view, queries, *, k: int, w: int,
     outs = []
     for s in range(0, queries.shape[0], block):
         q = queries[s:s + block]
-        cells, cdists = cq.search(q, w)                       # (b, w)
+        cells, cdists = cq.search(q, w, extract=extract)      # (b, w)
         cent = cq.centroids[cells.to(torch.int64)]            # (b, w, d)
         if residual_based:
             vecs = q[:, None, :] - cent
@@ -232,59 +245,76 @@ def _topk_ids(flat_d, flat_i, k):
     return _pad_to_k(out_ids, out_dists, k)
 
 
-def _topk_positions(flat_d, flat_p, k, cells, offsets, n_cand, ids):
-    """Top-k over fold candidate rows whose payloads are cell-relative
-    128-row block indices, resolving the winners to slot positions and
-    external ids -> ((B, k) ids, (B, k) dists)."""
+def _topk_positions(flat_d, flat_p, k, cells, offsets, n_cand, ids,
+                    merge: str = "fold"):
+    """Top-k over position-payload candidate rows, resolving the winners to
+    slot positions and external ids -> ((B, k) ids, (B, k) dists). Fold
+    payloads are cell-relative 128-row block indices; exact-merge payloads
+    are absolute slots."""
     from ivfadc_tpu_torch.ops.topk import topk_lastdim
     k_eff = min(k, flat_d.shape[1])
     out_dists, which = topk_lastdim(flat_d, k_eff)
     which = which.to(torch.int64)
-    blk = torch.gather(flat_p, 1, which).to(torch.int64)
-    # re-attach the winning probe's cell offset (k values per query); the
-    # lane within its bank is the row within the block
-    probe = which // n_cand                                   # (B, k_eff)
-    start = torch.gather(offsets.to(torch.int64)[cells.to(torch.int64)], 1,
-                         probe)
-    pos = torch.where(blk >= 0, start + blk * 128 + which % 128, -1)
+    sel = torch.gather(flat_p, 1, which).to(torch.int64)
+    if merge == "fold":
+        # re-attach the winning probe's cell offset (k values per query);
+        # the lane within its bank is the row within the block
+        probe = which // n_cand                               # (B, k_eff)
+        start = torch.gather(offsets.to(torch.int64)[cells.to(torch.int64)],
+                             1, probe)
+        pos = torch.where(sel >= 0, start + sel * 128 + which % 128, -1)
+    else:
+        pos = sel
     out_ids = torch.where(pos >= 0, ids[torch.clamp_min(pos, 0)], -1)
     out_ids = torch.where(torch.isfinite(out_dists), out_ids, -1) \
         .to(torch.int32)
     return _pad_to_k(out_ids, out_dists, k)
 
 
-def _dense_finish(cells, v, base, dev, *, k, w, chunk, pb, nf, norm_coef):
-    """Scan + merge: returns raw (ids, dists); the caller applies
-    `metric.finalize`. Batches whose probes share cells (B*w >= 4*kc) take
-    the cell-grouped scan, smaller ones the per-probe scan."""
+def _dense_finish(cells, v, base, dev, *, k, w, chunk, pb, nf, norm_coef,
+                  merge: str = "fold", pos8: bool = False,
+                  extract: bool = False):
+    """Scan + merge (the JAX `_dense_finish`): returns raw (ids, dists);
+    the caller applies `metric.finalize`. Batches whose probes share cells
+    (B*w >= 4*kc) take the cell-grouped scan, smaller ones the per-probe
+    scan."""
     B = cells.shape[0]
     kc_ = dev["offsets"].shape[0]
     k_out = min(k, 128)
+    n_lanes = nf if merge == "fold" else 128
     if B * w >= 4 * kc_:
         from ivfadc_tpu_torch.ops.dense_scan import grouped_dense_scan
-        if dev["ids2d"] is None:
-            raise NotImplementedError(
-                "stores without 128-row cell alignment need the grouped "
-                "scan's position-payload variant (ROADMAP B.8)")
+        # id emission needs the fold and 128-row cells; extraction needs id
+        # emission, and runs with the row norms computed in the kernel
+        emit_ids = merge == "fold" and dev["ids2d"] is not None
+        extract_k = k_out if (emit_ids and 2 * k_out <= 128
+                              and extract) else 0
+        use_norms = (dev["norms2d"] is not None and emit_ids
+                     and not extract_k)
         out_d, out_p = grouped_dense_scan(
             cells, dev["offsets"], dev["sizes"], v, base, dev["decoded"],
-            dev["scale"], dev["ids2d"], dev["norms2d"], kc=kc_,
-            k_out=k_out, chunk=chunk, norm_coef=norm_coef, pb=pb,
-            merge="fold", nf=nf)
+            dev["scale"], dev["ids2d"] if emit_ids else None,
+            dev["norms2d"] if use_norms else None, kc=kc_, k_out=k_out,
+            chunk=chunk, norm_coef=norm_coef, pb=pb, merge=merge, nf=n_lanes,
+            pos8=pos8, extract_k=extract_k)
         n_cand = out_d.shape[-1]
-        return _topk_ids(out_d.reshape(B, w * n_cand),
-                         out_p.reshape(B, w * n_cand), k)
+        flat_d = out_d.reshape(B, w * n_cand)
+        flat_p = out_p.reshape(B, w * n_cand)
+        if emit_ids:
+            return _topk_ids(flat_d, flat_p, k)
+        return _topk_positions(flat_d, flat_p, k, cells, dev["offsets"],
+                               n_cand, dev["ids"], merge)
     # mostly-distinct cells: grouping would emit about one tile per probe
     from ivfadc_tpu_torch.ops.dense_scan import dense_scan
     cells64 = cells.to(torch.int64)
     out_d, out_p = dense_scan(
         dev["offsets"][cells64], dev["sizes"][cells64], v, base,
         dev["decoded"], dev["scale"], k_out=k_out, chunk=chunk,
-        norm_coef=norm_coef, merge="fold", nf=nf)
+        norm_coef=norm_coef, merge=merge, nf=n_lanes)
     n_cand = out_d.shape[-1]
     return _topk_positions(out_d.reshape(B, w * n_cand),
                            out_p.reshape(B, w * n_cand), k, cells,
-                           dev["offsets"], n_cand, dev["ids"])
+                           dev["offsets"], n_cand, dev["ids"], merge)
 
 
 def _bucket_batch(b: int) -> int:
@@ -402,6 +432,7 @@ class IVFADCIndex:
                 f"{len(self)} vectors exceed the device int32 id cap "
                 f"({device_id_cap()})")
         _check_engines()
+        extract = _env_extract()
         w = min(w, self.config.kc)
         dev = self.device
         q = torch.as_tensor(queries, device=dev).to(torch.float32)
@@ -418,7 +449,8 @@ class IVFADCIndex:
             # exact there
             mode = "lut"
         if mode == "dense":
-            out_ids, out_dists = self._dense_search(q, k, w, include_base)
+            out_ids, out_dists = self._dense_search(q, k, w, include_base,
+                                                    extract)
         else:
             out_ids, out_dists = _lut_search(
                 self.coarse, self.quantizer.codebooks,
@@ -426,21 +458,15 @@ class IVFADCIndex:
                 w=w, window=self.store.window, metric=self.quant_metric,
                 include_base=include_base,
                 apply_rot=self.quantizer.method == "opq",
-                residual_based=self.quant_metric.residual_based)
+                residual_based=self.quant_metric.residual_based,
+                extract=extract)
         out_dists = self.quant_metric.finalize(out_dists)
         if Bp == B:
             return out_ids, out_dists
         return out_ids[:B], out_dists[:B]
 
-    def _dense_search(self, q, k: int, w: int, include_base: bool):
-        if self._resolve_merge_mode() != "fold":
-            raise NotImplementedError(
-                "scan_merge='exact' is a scan-kernel variant not ported yet "
-                "(ROADMAP B.8)")
-        if self._resolve_cache() != "int8":
-            raise NotImplementedError(
-                "scan_cache='bf16' is a scan-kernel variant not ported yet "
-                "(ROADMAP B.8)")
+    def _dense_search(self, q, k: int, w: int, include_base: bool,
+                      extract: bool):
         if self.config.scan_gather_win:
             raise NotImplementedError(
                 "the gathered tiny-cell engine is not ported yet "
@@ -452,11 +478,14 @@ class IVFADCIndex:
             self.coarse, self.quantizer.rotation, q, w=w,
             metric=self.quant_metric, include_base=include_base,
             apply_rot=self.quantizer.method == "opq",
-            residual_based=self.quant_metric.residual_based)
+            residual_based=self.quant_metric.residual_based, extract=extract)
         return _dense_finish(
             cells, v, base, view, k=k, w=w, chunk=self._effective_chunk(),
             pb=self.config.scan_pb, nf=self.config.scan_fold_lanes,
-            norm_coef=norm_coef)
+            norm_coef=norm_coef, merge=self._resolve_merge_mode(),
+            # int8 block indices while every cell holds at most 127 blocks
+            pos8=bool(int(self.store.caps.max(initial=0)) <= 127 * 128),
+            extract=extract)
 
     def _effective_chunk(self) -> int:
         """Scan chunk adapted to the cell-size distribution: the p95 cell

@@ -12,10 +12,10 @@ on the index's device and the host copy is made on first use (save,
 introspection); after a load they start on the host.
 
 `device_view` holds what the LUT search reads (codes, ids, offsets, sizes);
-`device_view_dense` derives what the dense search reads: the int8 decoded
-residual cache (guard-padded past every cell, feature dim padded to a
-128-multiple), its per-column scale, and the ids and cached row norms in
-(rows/128, 128) layout. Mutation (push/pop/delete), overlays and mutation
+`device_view_dense` derives what the dense search reads: the decoded
+residual cache, int8 with its per-column scale or bf16 (guard-padded past
+every cell, feature dim padded to a 128-multiple), and the ids and cached
+row norms in (rows/128, 128) layout. Mutation (push/pop/delete), overlays and mutation
 logs are not ported yet.
 """
 
@@ -34,18 +34,20 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def _row_norms(decoded: torch.Tensor, scale: torch.Tensor,
+def _row_norms(decoded: torch.Tensor, scale: Optional[torch.Tensor],
                block: int = 262144) -> torch.Tensor:
-    """Per-row ||r_hat||^2 of an int8 decoded cache, from the rows the scan
-    kernel sees (bf16 dequantized, squared in f32). The sum runs in the
-    order of the JAX package's reduction on 128-wide rows — sequentially
-    within each 32-column block, then across the blocks — so the cached
-    norms match it bit for bit."""
+    """Per-row ||r_hat||^2 of a decoded cache, from the rows the scan
+    kernel sees (int8 with `scale`: bf16 dequantized; bf16 with None: as
+    they are), squared in f32. The sum runs in the order of the JAX
+    package's reduction on 128-wide rows — sequentially within each
+    32-column block, then across the blocks — so the cached norms match it
+    bit for bit."""
     n, d = decoded.shape
     outs = []
     for s0 in range(0, n, block):
-        rows = decoded[s0:s0 + block].to(torch.bfloat16) \
-            * scale[None, :].to(torch.bfloat16)
+        rows = decoded[s0:s0 + block].to(torch.bfloat16)
+        if scale is not None:
+            rows = rows * scale[None, :].to(torch.bfloat16)
         r = rows.to(torch.float32)
         sq = r * r
         if d % 32:
@@ -201,30 +203,39 @@ class PostingStore:
 
     def device_view_dense(self, quantizer, chunk: int,
                           cache: str = "int8") -> Dict:
-        """Cached arrays for the dense scan: resident int8 decoded residuals
-        (rotated space) and their per-column scale, guard-padded past every
-        cell and zero-padded on the feature dim to a 128-multiple (zero
-        features change neither dot products nor norms); ids, and — for
-        128-row aligned stores — ids2d and the cached row norms norms2d in
-        (rows/128, 128) layout. IVFADC_NORMS set to anything but "cache"
-        leaves norms2d out (None): the grouped scan then computes the row
-        norms in its kernel."""
+        """Cached arrays for the dense scan: resident decoded residuals
+        (rotated space) — cache="int8" with a per-column scale, "bf16" as
+        bf16 rows with no scale — guard-padded past every cell and
+        zero-padded on the feature dim to a 128-multiple (zero features
+        change neither dot products nor norms); ids, and — for 128-row
+        aligned stores — ids2d and the cached row norms norms2d in
+        (rows/128, 128) layout. The view is rebuilt when the cache type
+        changes. IVFADC_NORMS set to anything but "cache" leaves norms2d
+        out (None): the grouped scan then computes the row norms in its
+        kernel."""
         from ivfadc_tpu_torch.ops import pq as pq_ops
-        if cache != "int8":
-            raise NotImplementedError(
-                f"the {cache!r} decoded cache is a grouped-scan variant not "
-                f"ported yet (ROADMAP B.8)")
+        if cache not in ("int8", "bf16"):
+            raise ValueError(f"cache must be 'int8' or 'bf16', got {cache!r}")
+        if (self._device_dense is not None
+                and self._device_dense["cache"] != cache):
+            self._device_dense = None            # cache type switch: rebuild
         if self._device_dense is None:
-            scale = pq_ops.cache_scale(quantizer)
-            decoded = pq_ops.decode_rotated_int8(
-                quantizer, self._codes_on_device(), scale)
+            if cache == "int8":
+                scale = pq_ops.cache_scale(quantizer)
+                decoded = pq_ops.decode_rotated_int8(
+                    quantizer, self._codes_on_device(), scale)
+            else:
+                scale = None
+                decoded = pq_ops.decode_rotated(quantizer,
+                                                self._codes_on_device())
             total = decoded.shape[0]
             guard = self._bucket_rows(total + chunk + _LANE) - total
             d_pad = _round_up(decoded.shape[1], _LANE) - decoded.shape[1]
             decoded = torch.nn.functional.pad(decoded, (0, d_pad, 0, guard))
-            # padded columns hold zero codes; their scale only has to be
-            # finite for the kernel's multiply
-            scale = torch.nn.functional.pad(scale, (0, d_pad), value=1.0)
+            if scale is not None:
+                # padded columns hold zero codes; their scale only has to
+                # be finite for the kernel's multiply
+                scale = torch.nn.functional.pad(scale, (0, d_pad), value=1.0)
             ids = torch.nn.functional.pad(self._ids_on_device(), (0, guard),
                                           value=-1)
             ids2d = None
@@ -232,7 +243,7 @@ class PostingStore:
                 ids2d = ids.reshape(-1, _LANE)
             self._device_dense = dict(
                 decoded=decoded, ids=ids, ids2d=ids2d, norms2d=None,
-                scale=scale, **self._csr_on_device())
+                scale=scale, cache=cache, **self._csr_on_device())
         view = self._device_dense
         if os.environ.get("IVFADC_NORMS", "cache") != "cache":
             return {**view, "norms2d": None}

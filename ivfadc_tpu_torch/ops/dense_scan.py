@@ -8,25 +8,36 @@ and score all of the tile's probes:
   score(q, x) = base' + v . r_hat + ||r_hat||^2,   v = -2 r,  base' = |r|^2
                                                    (+ coarse distance)
 
-This module holds two variants of the JAX package's grouped scan
-(`grouped_dense_scan` with fold merge, emitted external ids and the int8
-decoded cache): with cached row norms (`norms2d`, the posting scan's
-default) and with the row norms computed in the kernel (`norms2d=None`:
-the two-level coarse quantizer's stage 2, and the posting scan under
-IVFADC_NORMS=off). Both share the counting-rank prep (`cell_ranks`,
-`_tile_map`, the `inv_row` placement with its zero v-row and +inf base-row)
-and `_grouped_call`'s output row gather. The scan kernels are in
-`csrc/dense_scan.cu`; `grouped_scan_plain` is the same function as plain
-tensor code.
+`grouped_dense_scan` holds every variant of the JAX package's grouped scan
+that the JAX package reaches, one CUDA kernel template each
+(`csrc/dense_scan.cu`, table `GROUPED_KERNELS`):
+
+  "ids"      fold, emitted external ids (ids2d), cached row norms (norms2d):
+             the posting scan's default
+  "knorm"    fold, emitted ids, row norms computed in the kernel: the
+             two-level coarse quantizer's stage 2, and IVFADC_NORMS=off
+  "pos8"     fold, cell-relative block-index payloads in int8, in-kernel
+  "pos"      norms (int32 below pb = 32 or past 127 blocks a cell): stores
+             without 128-row cells (no ids2d)
+  "exact"    merge="exact": a 128-lane buffer that holds each probe's true
+             top-k_out distances, absolute slot payloads, in-kernel norms
+  "extract"  fold + emitted ids + in-kernel norms, finished in the kernel
+             with extract_k min-extract passes (IVFADC_EXTRACT=1)
+
+each over the int8 decoded cache (per-column scale) or the bf16 one (rows
+read as they are). The tile prep ranks the probes within their cells by
+the counting kernel (`cell_ranks`, kc <= MAX_KC) or by one sort (kc >
+MAX_KC); `place_tiles` shares the rest: `_tile_map`, the `inv_row`
+placement with its zero v-row and +inf base-row, and the output row gather.
 
 `dense_scan` is the per-probe scan of batches too small to share cells
 (B*w < 4*kc, single queries included): one kernel launch over all probes
-(`csrc/probe_scan.cu`, `probe_scan_plain`), fold merge with cell-relative
-block-index payloads, row norms computed in the kernel.
+(`csrc/probe_scan.cu`, `PROBE_KERNELS`), fold merge with cell-relative
+block-index payloads or the exact merge with absolute slots, row norms
+computed in the kernel, int8 or bf16 cache.
 
-Not ported yet: the kernels' other variants (bf16 cache, exact merge, and
-for the grouped kernel position payloads and in-kernel extraction),
-`grouped_dense_scan_qc`, and the sort-based prep for kc > MAX_KC.
+`grouped_scan_plain` and `probe_scan_plain` are the same functions as plain
+tensor code: the CPU runs them, the card only compares against them.
 """
 
 from __future__ import annotations
@@ -37,35 +48,125 @@ from ivfadc_tpu_torch import _build
 from ivfadc_tpu_torch.ops.cell_rank import MAX_KC, cell_ranks
 
 _CAND = 128          # lanes per fold bank (rows per group)
+_ELEMS = {torch.int8: "int8", torch.bfloat16: "bf16"}
 
-KERNEL = _build.Kernel("dense_scan", "grouped_scan",
-                       [_build.P] * 8 + [_build.I] * 4 + [_build.F]
-                       + [_build.P] * 3)
-NORMS_KERNEL = _build.Kernel("dense_scan", "grouped_scan_knorm",
-                             [_build.P] * 7 + [_build.I] * 4 + [_build.F]
-                             + [_build.P] * 3)
-PROBE_KERNEL = _build.Kernel("probe_scan", "probe_scan",
-                             [_build.P] * 6 + [_build.I] * 3 + [_build.F]
-                             + [_build.P] * 3)
+_GROUPED_ARGS = [_build.P] * 8 + [_build.I] * 5 + [_build.F] + [_build.P] * 3
+_PROBE_ARGS = [_build.P] * 6 + [_build.I] * 4 + [_build.F] + [_build.P] * 3
+
+
+def _entry(prefix: str, variant: str, elem: str) -> str:
+    return (prefix + ("" if variant in ("ids", "fold") else f"_{variant}")
+            + ("" if elem == "int8" else "_bf16"))
+
+
+GROUPED_KERNELS = {
+    (var, elem): _build.Kernel("dense_scan",
+                               _entry("grouped_scan", var, elem),
+                               _GROUPED_ARGS)
+    for var in ("ids", "knorm", "pos8", "pos", "exact", "extract")
+    for elem in ("int8", "bf16")}
+PROBE_KERNELS = {
+    (merge, elem): _build.Kernel("probe_scan", _entry("probe_scan", merge,
+                                                      elem), _PROBE_ARGS)
+    for merge in ("fold", "exact") for elem in ("int8", "bf16")}
+KERNEL = GROUPED_KERNELS["ids", "int8"]
+NORMS_KERNEL = GROUPED_KERNELS["knorm", "int8"]
+PROBE_KERNEL = PROBE_KERNELS["fold", "int8"]
+
+
+def _elem(decoded, scale) -> str:
+    """The decoded cache's kind: "int8" (needs a scale) or "bf16"."""
+    elem = _ELEMS.get(decoded.dtype)
+    if elem is None:
+        raise ValueError(f"decoded cache must be int8 or bf16, got "
+                         f"{decoded.dtype}")
+    if elem == "int8" and scale is None:
+        raise ValueError("int8 decoded cache requires a scale vector")
+    return elem
+
+
+def _rows_f32(decoded, scale, rowidx):
+    """The rows the kernels see, in f32: bf16(int8 * bf16(scale)) for the
+    int8 cache, the bf16 rows as they are otherwise."""
+    rows = decoded[rowidx].to(torch.float32)
+    if decoded.dtype == torch.bfloat16:
+        return rows
+    sc = scale.to(torch.bfloat16).to(torch.float32)
+    return (rows * sc).to(torch.bfloat16).to(torch.float32)
+
+
+def _exact_merge(buf_d, buf_p, s, pay, k_out: int):
+    """The kernels' exact-merge passes over one 128-row group: buffers and
+    candidates (R, 128). Each pass moves the candidates' minimum (first
+    index) into the buffer's maximum lane (first index) when strictly
+    smaller, then masks it. A pass that moves nothing leaves every later
+    pass nothing to move, which is where the kernels stop."""
+    s = s.clone()
+    r = torch.arange(s.shape[0], device=s.device)
+    for _ in range(k_out):
+        cpos = torch.argmin(s, dim=1)
+        cmin = s[r, cpos]
+        rpos = torch.argmax(buf_d, dim=1)
+        rmax = buf_d[r, rpos]
+        hit = cmin < rmax
+        buf_d[r, rpos] = torch.where(hit, cmin, rmax)
+        buf_p[r, rpos] = torch.where(hit, pay[r, cpos], buf_p[r, rpos])
+        s[r, cpos] = float("inf")
+    return buf_d, buf_p
+
+
+def _extract_plain(out_d, out_p, extract_k: int):
+    """extract_k min-extract passes over (R, nf) fold buffers -> (dists,
+    ids (R, extract_k)), id -1 where the distance is +inf."""
+    from ivfadc_tpu_torch.ops.topk import topk_lastdim_payload_plain
+    vals, pays = topk_lastdim_payload_plain(out_d, out_p, extract_k)
+    return vals, torch.where(torch.isinf(vals), -1, pays)
+
+
+def _grouped_variant(ids2d, norms2d, merge: str, nf: int, pos8: bool,
+                     extract_k: int) -> str:
+    """The grouped-scan variant an argument set selects (see the module
+    docstring); raises on combinations the JAX package refuses."""
+    if merge not in ("fold", "exact"):
+        raise ValueError(f"merge must be 'fold' or 'exact', got {merge!r}")
+    if extract_k:
+        if (ids2d is None or norms2d is not None or merge != "fold"
+                or not 1 <= 2 * extract_k <= _CAND):
+            raise ValueError("extraction needs the fold merge, emitted ids, "
+                             "in-kernel norms and 2 * extract_k <= 128")
+        return "extract"
+    if merge == "exact":
+        if ids2d is not None or norms2d is not None or nf != _CAND:
+            raise ValueError("the exact merge keeps one 128-lane buffer of "
+                             "slots: no ids2d, no norms2d, nf == 128")
+        return "exact"
+    if ids2d is not None:
+        return "ids" if norms2d is not None else "knorm"
+    if norms2d is not None:
+        raise ValueError("cached norms ride with the id stream (ids2d)")
+    return "pos8" if pos8 else "pos"
 
 
 def grouped_scan_plain(tile_start, tile_size, v_tiles, base_tiles, decoded,
                        scale, ids2d, norms2d, *, pb: int, nf: int,
-                       norm_coef: float):
-    """Plain version of the scan kernels -> (out_d (T*pb, nf) f32,
-    out_p (T*pb, nf) i32). Walks every tile's cell in 128-row groups with
-    the kernels' arithmetic order (see csrc/dense_scan.cu): cached norms
-    join after the size mask; with `norms2d=None` the norms are f32 sums
-    of the rows' bf16-rounded squares and join before the base."""
+                       norm_coef: float, merge: str = "fold",
+                       pos8: bool = False, extract_k: int = 0,
+                       k_out: int = 0):
+    """Plain version of the scan kernels -> (out_d (T*pb, nf) f32, out_p
+    (T*pb, nf) payloads; extraction: (T*pb, extract_k) each). Walks every
+    tile's cell in 128-row groups with the kernels' arithmetic order (see
+    csrc/dense_scan.cu): cached norms join after the size mask; with
+    `norms2d=None` the norms are f32 sums of the rows' bf16-rounded squares
+    and join before the base."""
+    variant = _grouped_variant(ids2d, norms2d, merge, nf, pos8, extract_k)
     dev = v_tiles.device
     T = tile_start.shape[0]
     d = v_tiles.shape[1]
     nbank = nf // _CAND
     vt = v_tiles.to(torch.bfloat16).to(torch.float32).reshape(T, pb, d)
     bt = base_tiles.to(torch.float32).reshape(T, pb, 1)
-    ids = ids2d.reshape(-1)
+    ids = None if ids2d is None else ids2d.reshape(-1)
     nrm = None if norms2d is None else norms2d.reshape(-1)
-    sc = scale.to(torch.bfloat16).to(torch.float32)
     starts = tile_start.to(torch.int64)
     sizes = tile_size.to(torch.int64)
     out_d = torch.full((T, pb, nf), float("inf"), dtype=torch.float32,
@@ -78,8 +179,7 @@ def grouped_scan_plain(tile_start, tile_size, v_tiles, base_tiles, decoded,
         pos = G * _CAND + lane
         valid = pos[None, :] < sizes[act, None]                 # (A, 128)
         rowidx = torch.where(valid, starts[act, None] + pos[None, :], 0)
-        rows = (decoded[rowidx].to(torch.float32) * sc) \
-            .to(torch.bfloat16).to(torch.float32)               # (A, 128, d)
+        rows = _rows_f32(decoded, scale, rowidx)                # (A, 128, d)
         s = torch.bmm(vt[act], rows.transpose(1, 2))            # (A, pb, 128)
         if nrm is None and norm_coef != 0.0:
             sq = (rows * rows).to(torch.bfloat16).to(torch.float32)
@@ -89,7 +189,21 @@ def grouped_scan_plain(tile_start, tile_size, v_tiles, base_tiles, decoded,
         if nrm is not None:
             s = s + norm_coef * torch.where(valid, nrm[rowidx],
                                             0.0)[:, None, :]
-        pay = torch.where(valid, ids[rowidx], -1).to(torch.int32)
+        if variant == "exact":
+            A = act.shape[0]
+            slot = (starts[act, None] + pos[None, :]).to(torch.int32)
+            bd, bp = _exact_merge(
+                out_d[act].reshape(A * pb, _CAND),
+                out_p[act].reshape(A * pb, _CAND), s.reshape(A * pb, _CAND),
+                slot[:, None, :].expand(A, pb, _CAND).reshape(A * pb, _CAND),
+                k_out)
+            out_d[act] = bd.reshape(A, pb, _CAND)
+            out_p[act] = bp.reshape(A, pb, _CAND)
+            continue
+        if ids is not None:
+            pay = torch.where(valid, ids[rowidx], -1).to(torch.int32)
+        else:
+            pay = torch.full_like(rowidx, G, dtype=torch.int32)
         b = slice((G % nbank) * _CAND, (G % nbank + 1) * _CAND)
         cur_d = out_d[act, :, b]
         cur_p = out_p[act, :, b]
@@ -97,27 +211,40 @@ def grouped_scan_plain(tile_start, tile_size, v_tiles, base_tiles, decoded,
         out_d[act, :, b] = torch.where(upd, s, cur_d)
         out_p[act, :, b] = torch.where(upd, pay[:, None, :].expand_as(cur_p),
                                        cur_p)
-    return out_d.reshape(T * pb, nf), out_p.reshape(T * pb, nf)
+    out_d, out_p = out_d.reshape(T * pb, nf), out_p.reshape(T * pb, nf)
+    if variant == "extract":
+        return _extract_plain(out_d, out_p, extract_k)
+    if variant == "pos8":
+        out_p = out_p.to(torch.int8)
+    return out_d, out_p
 
 
 def grouped_scan(tile_start, tile_size, v_tiles, base_tiles, decoded, scale,
-                 ids2d, norms2d, *, pb: int, nf: int, norm_coef: float):
-    """The scan kernel's wrapper. tile_start/tile_size (T,) i32 (cell row
-    range per tile, 128-row aligned starts), v_tiles (T*pb, d) bf16,
-    base_tiles (T*pb, 1) f32, decoded (rows, d) int8, scale (d,) f32,
-    ids2d / norms2d (rows/128, 128) i32 / f32; `norms2d=None` selects the
-    variant that computes the row norms itself. CPU tensors run the plain
-    version; CUDA tensors launch the kernel."""
+                 ids2d, norms2d, *, pb: int, nf: int, norm_coef: float,
+                 merge: str = "fold", pos8: bool = False, extract_k: int = 0,
+                 k_out: int = 0):
+    """The scan kernels' wrapper. tile_start/tile_size (T,) i32 (cell row
+    range per tile, 8-row aligned starts; 128-row with ids2d / norms2d),
+    v_tiles (T*pb, d) bf16, base_tiles (T*pb, 1) f32, decoded (rows, d)
+    int8 with scale (d,) f32, or bf16 with scale None; ids2d / norms2d
+    (rows/128, 128) i32 / f32 or None. The arguments select the variant
+    (module docstring); `k_out` is the exact merge's pass count. Returns
+    (out_d (T*pb, nf) f32, out_p (T*pb, nf) i32 or int8 for pos8), or with
+    extract_k (dists (T*pb, extract_k) f32, ids i32). CPU tensors run the
+    plain version; CUDA tensors launch the kernel."""
+    variant = _grouped_variant(ids2d, norms2d, merge, nf, pos8, extract_k)
+    elem = _elem(decoded, scale)
     if nf % _CAND or pb % 8 or not 8 <= pb <= 64:
         raise ValueError(f"grouped scan needs nf % 128 == 0 and pb in "
                          f"{{8, 16, ..., 64}}, got nf={nf}, pb={pb}")
-    if decoded.dtype != torch.int8:
-        raise NotImplementedError(
-            "only the int8 decoded cache is ported (bf16 cache: ROADMAP B.8)")
+    if variant == "exact" and not 1 <= k_out <= _CAND:
+        raise ValueError(f"the exact merge needs 1 <= k_out <= 128, got "
+                         f"{k_out}")
+    kw = dict(pb=pb, nf=nf, norm_coef=norm_coef, merge=merge, pos8=pos8,
+              extract_k=extract_k, k_out=k_out)
     if v_tiles.device.type == "cpu":
         return grouped_scan_plain(tile_start, tile_size, v_tiles, base_tiles,
-                                  decoded, scale, ids2d, norms2d, pb=pb,
-                                  nf=nf, norm_coef=norm_coef)
+                                  decoded, scale, ids2d, norms2d, **kw)
     T = tile_start.shape[0]
     d = v_tiles.shape[1]
     dev = v_tiles.device
@@ -127,21 +254,27 @@ def grouped_scan(tile_start, tile_size, v_tiles, base_tiles, decoded, scale,
                          f"{decoded.shape[1]}")
     args = [tile_start.to(torch.int32), tile_size.to(torch.int32),
             v_tiles.to(torch.bfloat16), base_tiles.to(torch.float32),
-            decoded, scale.to(torch.bfloat16).to(torch.float32),
-            ids2d.to(torch.int32)]
-    if norms2d is not None:
-        args.append(norms2d.to(torch.float32))
-    args = [a.contiguous() for a in args]
+            decoded,
+            None if elem == "bf16"
+            else scale.to(torch.bfloat16).to(torch.float32),
+            None if ids2d is None else ids2d.to(torch.int32),
+            None if norms2d is None else norms2d.to(torch.float32)]
+    args = [None if a is None else a.contiguous() for a in args]
     for a in args:
+        if a is None:
+            continue
         if a.device != dev:
             raise ValueError("grouped scan inputs must be on one device")
         if a.data_ptr() % 16:
             raise ValueError("grouped scan inputs must be 16-byte aligned")
-    out_d = torch.empty((T * pb, nf), dtype=torch.float32, device=dev)
-    out_p = torch.empty((T * pb, nf), dtype=torch.int32, device=dev)
-    kernel = NORMS_KERNEL if norms2d is None else KERNEL
-    kernel(*(a.data_ptr() for a in args), T, d, pb, nf, float(norm_coef),
-           out_d.data_ptr(), out_p.data_ptr(), _build.stream_ptr(dev))
+    width = extract_k or nf
+    out_d = torch.empty((T * pb, width), dtype=torch.float32, device=dev)
+    out_p = torch.empty((T * pb, width), dtype=torch.int8
+                        if variant == "pos8" else torch.int32, device=dev)
+    GROUPED_KERNELS[variant, elem](
+        *(None if a is None else a.data_ptr() for a in args), T, d, pb, nf,
+        extract_k or k_out, float(norm_coef), out_d.data_ptr(),
+        out_p.data_ptr(), _build.stream_ptr(dev))
     return out_d, out_p
 
 
@@ -166,33 +299,29 @@ def _tile_map(counts, offsets, sizes, pb: int, T_max: int, kc: int):
 def grouped_dense_scan(cells, offsets, sizes, v, base, decoded, scale=None,
                        ids2d=None, norms2d=None, *, kc: int, k_out: int,
                        chunk: int, norm_coef: float = 1.0, pb: int = 16,
-                       merge: str = "fold", nf: int = _CAND):
-    """Cell-major grouped scan, fold merge with emitted ids.
+                       merge: str = "fold", nf: int = _CAND,
+                       pos8: bool = False, extract_k: int = 0):
+    """Cell-major grouped scan (the JAX `grouped_dense_scan`).
 
     cells (B, w) i32; offsets/sizes (kc,) i32; v (B, w, d) bf16; base (B, w)
-    f32; decoded (rows, d_pad) int8 with d_pad a 128-multiple >= d (v is
-    zero-padded up to it here); scale (d_pad,) f32; ids2d / norms2d the
-    posting ids and cached ||r_hat||^2 in (rows/128, 128) layout (cells
-    128-row aligned); without norms2d the kernel computes the row norms
-    from the dequantized rows. Returns (cand_d (B, w, nf) f32, cand_p
-    (B, w, nf) i32 EXTERNAL ids) in the original probe order. `k_out` and
-    `chunk` are kept for the JAX signature: fold results do not depend on
-    them (nf | chunk).
+    f32; decoded (rows, d_pad) int8 with scale (d_pad,) f32, or bf16 rows
+    with scale None; d_pad a 128-multiple >= d (v is zero-padded up to it
+    here). ids2d / norms2d: the posting ids and cached ||r_hat||^2 in
+    (rows/128, 128) layout (cells 128-row aligned), or None. Returns
+    (cand_d (B, w, nf) f32, cand_p (B, w, nf)) in the original probe order:
+    with ids2d EXTERNAL ids; without, under the fold, the 128-row block
+    index within the cell (int8 when pos8 and pb >= 32, the caller vouching
+    that every cell holds at most 127 blocks); under merge="exact"
+    (nf = 128) absolute slots. extract_k > 0 (ids2d, fold, no norms2d,
+    2 * extract_k <= 128): (dists, ids (B, w, extract_k)), each probe's
+    extract_k best. `chunk` is kept for the JAX signature: the CUDA kernels
+    walk 128-row groups, and nf | chunk makes the fold's result independent
+    of it.
     """
-    if merge != "fold" or ids2d is None:
-        raise NotImplementedError(
-            "only the fold + emitted-ids grouped scan is ported (other "
-            "variants: ROADMAP B.8)")
-    if decoded.dtype != torch.int8 or scale is None:
-        raise NotImplementedError(
-            "only the int8 decoded cache is ported (bf16 cache: ROADMAP B.8)")
     if nf % _CAND or chunk % nf:
         raise ValueError(f"nf must be a 128-multiple dividing chunk, "
                          f"got nf={nf}, chunk={chunk}")
-    if kc > MAX_KC:
-        raise NotImplementedError(
-            f"kc={kc} > {MAX_KC} needs the sort-based tile prep, not ported "
-            f"yet (ROADMAP A.8)")
+    pos8 = pos8 and pb >= 32
     d_dec = decoded.shape[-1]
     if v.shape[-1] != d_dec:
         v = torch.nn.functional.pad(v, (0, d_dec - v.shape[-1]))
@@ -201,22 +330,52 @@ def grouped_dense_scan(cells, offsets, sizes, v, base, decoded, scale=None,
         cells, offsets, sizes, v, base, kc=kc, pb=pb)
     out_d, out_p = grouped_scan(tile_start, tile_size, v_tiles, base_tiles,
                                 decoded, scale, ids2d, norms2d, pb=pb, nf=nf,
-                                norm_coef=norm_coef)
-    return out_d[row].reshape(B, w, nf), out_p[row].reshape(B, w, nf)
+                                norm_coef=norm_coef, merge=merge, pos8=pos8,
+                                extract_k=extract_k, k_out=k_out)
+    width = out_d.shape[1]
+    return out_d[row].reshape(B, w, width), out_p[row].reshape(B, w, width)
+
+
+def sort_ranks(cells_flat, kc: int):
+    """The sort-based rank source (the JAX prep's `lax.sort` branch for
+    kc > MAX_KC, `ops/pallas_scan.py:668-683`): one sort of the unique
+    key cell << 32 | probe, which orders the probes by cell and keeps the
+    probe order within a cell; cell_first / cell_last by searchsorted.
+    Returns (rank (P,) i32, counts (kc,) i32) as `cell_ranks` does, for any
+    kc. Deterministic: no atomics."""
+    c = cells_flat.to(torch.int64)
+    P = c.shape[0]
+    dev = c.device
+    pidx = torch.arange(P, dtype=torch.int64, device=dev)
+    key = torch.sort((c << 32) | pidx).values
+    order = key & 0xFFFFFFFF
+    sorted_cells = key >> 32
+    crange = torch.arange(kc, dtype=torch.int64, device=dev)
+    cell_first = torch.searchsorted(sorted_cells, crange)
+    counts = torch.searchsorted(sorted_cells, crange, right=True) - cell_first
+    ranks = torch.empty(P, dtype=torch.int32, device=dev)
+    ranks[order] = (pidx - cell_first[sorted_cells]).to(torch.int32)
+    return ranks, counts.to(torch.int32)
 
 
 def place_tiles(cells, offsets, sizes, v, base, *, kc: int, pb: int):
-    """The counting-rank prep: group the B*w probes by cell into tiles of pb
-    probes of one cell. Returns the scan kernel's tile inputs (tile_start,
-    tile_size (T_max,) i32, v_tiles (T_max*pb, d) bf16, base_tiles
-    (T_max*pb, 1) f32) and `row` (P,), each probe's row in the tile output,
-    T_max = P // pb + min(kc, P) + 1 (an upper bound on the tiles needed)."""
+    """The tile prep: group the B*w probes by cell into tiles of pb probes
+    of one cell, probes of a cell in probe order. Ranks within the cells
+    come from the counting kernel (kc <= MAX_KC) or from one sort
+    (`sort_ranks`, kc > MAX_KC); the rest is shared. Returns
+    the scan kernel's tile inputs (tile_start, tile_size (T_max,) i32,
+    v_tiles (T_max*pb, d) bf16, base_tiles (T_max*pb, 1) f32) and `row`
+    (P,), each probe's row in the tile output, T_max = P // pb + min(kc, P)
+    + 1 (an upper bound on the tiles needed)."""
     B, w, d = v.shape
     P = B * w
     T_max = P // pb + min(kc, P) + 1
     dev = v.device
     cells_flat = cells.reshape(-1).to(torch.int32)
-    ranks, counts = cell_ranks(cells_flat, kc=kc)
+    if kc <= MAX_KC:
+        ranks, counts = cell_ranks(cells_flat, kc=kc)
+    else:
+        ranks, counts = sort_ranks(cells_flat, kc)
     tile_base, tile_start, tile_size = _tile_map(
         counts, offsets, sizes, pb, T_max, kc)
     ranks = ranks.to(torch.int64)
@@ -235,18 +394,18 @@ def place_tiles(cells, offsets, sizes, v, base, *, kc: int, pb: int):
 
 
 def probe_scan_plain(starts, sizes, base, v, decoded, scale, *, nf: int,
-                     norm_coef: float):
-    """Plain version of the per-probe scan kernel -> (out_d (P, nf) f32,
-    out_p (P, nf) i32 cell-relative 128-row block indices). starts / sizes /
-    base (P,), v (P, d) bf16, decoded (rows, d) int8, scale (d,). Walks
-    every probe's cell in 128-row groups with the kernel's arithmetic order
-    (see csrc/probe_scan.cu)."""
+                     norm_coef: float, merge: str = "fold", k_out: int = 0):
+    """Plain version of the per-probe scan kernels -> (out_d (P, nf) f32,
+    out_p (P, nf) i32: cell-relative 128-row block indices under the fold,
+    absolute slots under the exact merge). starts / sizes / base (P,), v
+    (P, d) bf16, decoded (rows, d) int8 with scale (d,), or bf16 with scale
+    None. Walks every probe's cell in 128-row groups with the kernel's
+    arithmetic order (see csrc/probe_scan.cu)."""
     dev = v.device
     P = starts.shape[0]
     nbank = nf // _CAND
     vf = v.to(torch.bfloat16).to(torch.float32)
     bf = base.to(torch.float32)
-    sc = scale.to(torch.bfloat16).to(torch.float32)
     starts = starts.to(torch.int64)
     sizes = sizes.to(torch.int64)
     out_d = torch.full((P, nf), float("inf"), dtype=torch.float32, device=dev)
@@ -258,14 +417,18 @@ def probe_scan_plain(starts, sizes, base, v, decoded, scale, *, nf: int,
         pos = G * _CAND + lane
         valid = pos[None, :] < sizes[act, None]                 # (A, 128)
         rowidx = torch.where(valid, starts[act, None] + pos[None, :], 0)
-        rows = (decoded[rowidx].to(torch.float32) * sc) \
-            .to(torch.bfloat16).to(torch.float32)               # (A, 128, d)
+        rows = _rows_f32(decoded, scale, rowidx)                # (A, 128, d)
         s = torch.bmm(rows, vf[act, :, None])[:, :, 0]          # (A, 128)
         if norm_coef != 0.0:
             sq = (rows * rows).to(torch.bfloat16).to(torch.float32)
             s = s + norm_coef * torch.sum(sq, dim=-1)
         s = s + bf[act, None]
         s = torch.where(valid, s, float("inf"))
+        if merge == "exact":
+            slot = (starts[act, None] + pos[None, :]).to(torch.int32)
+            out_d[act], out_p[act] = _exact_merge(out_d[act], out_p[act], s,
+                                                  slot, k_out)
+            continue
         b = slice((G % nbank) * _CAND, (G % nbank + 1) * _CAND)
         cur_d = out_d[act, b]
         upd = s < cur_d
@@ -277,26 +440,28 @@ def probe_scan_plain(starts, sizes, base, v, decoded, scale, *, nf: int,
 def dense_scan(starts, sizes, v, base, decoded, scale=None, *, k_out: int,
                chunk: int, norm_coef: float = 1.0, merge: str = "fold",
                nf: int = _CAND):
-    """Scan the probed cells one probe at a time, production variant.
+    """Scan the probed cells one probe at a time (the JAX `dense_scan`).
 
     starts / sizes (B, w) i32 slot ranges of the probed cells; v (B, w, d);
-    base (B, w) f32; decoded (rows, d_pad) int8 with d_pad a 128-multiple
-    >= d (v is zero-padded up to it here); scale (d_pad,) f32. Returns
-    (dists (B, w, nf) f32 with +inf padding, blocks (B, w, nf) i32: the
-    cell-relative 128-row block index of each lane's best row, -1 padding).
-    `k_out` and `chunk` are kept for the JAX signature: fold results do not
-    depend on them (nf | chunk). CPU tensors run the plain version; CUDA
-    tensors launch the kernel."""
-    if merge != "fold":
-        raise NotImplementedError(
-            "only the fold merge of the per-probe scan is ported "
-            "(merge='exact': ROADMAP B.8)")
-    if decoded.dtype != torch.int8 or scale is None:
-        raise NotImplementedError(
-            "only the int8 decoded cache is ported (bf16 cache: ROADMAP B.8)")
+    base (B, w) f32; decoded (rows, d_pad) int8 with scale (d_pad,) f32, or
+    bf16 with scale None; d_pad a 128-multiple >= d (v is zero-padded up to
+    it here). Returns (dists (B, w, nf) f32 with +inf padding, positions
+    (B, w, nf) i32, -1 padding): under the fold the cell-relative 128-row
+    block index of each lane's best row; under merge="exact" (nf = 128,
+    k_out passes) absolute slots, the buffer holding each probe's true
+    top-k_out distances. `chunk` is kept for the JAX signature: fold
+    results do not depend on it (nf | chunk). CPU tensors run the plain
+    version; CUDA tensors launch the kernel."""
+    if merge not in ("fold", "exact"):
+        raise ValueError(f"merge must be 'fold' or 'exact', got {merge!r}")
+    if merge == "exact" and (nf != _CAND or not 1 <= k_out <= _CAND):
+        raise ValueError(f"the exact merge keeps one 128-lane buffer: nf == "
+                         f"128 and 1 <= k_out <= 128, got nf={nf}, "
+                         f"k_out={k_out}")
     if nf % _CAND or chunk % nf:
         raise ValueError(f"nf must be a 128-multiple dividing chunk, "
                          f"got nf={nf}, chunk={chunk}")
+    elem = _elem(decoded, scale)
     d_dec = decoded.shape[-1]
     if v.shape[-1] != d_dec:
         v = torch.nn.functional.pad(v, (0, d_dec - v.shape[-1]))
@@ -307,21 +472,27 @@ def dense_scan(starts, sizes, v, base, decoded, scale=None, *, k_out: int,
             sizes.reshape(P).to(torch.int32),
             base.reshape(P).to(torch.float32),
             v.reshape(P, d).to(torch.bfloat16), decoded,
-            scale.to(torch.bfloat16).to(torch.float32)]
+            None if elem == "bf16"
+            else scale.to(torch.bfloat16).to(torch.float32)]
     if dev.type == "cpu":
-        out_d, out_p = probe_scan_plain(*args, nf=nf, norm_coef=norm_coef)
+        out_d, out_p = probe_scan_plain(*args, nf=nf, norm_coef=norm_coef,
+                                        merge=merge, k_out=k_out)
         return out_d.reshape(B, w, nf), out_p.reshape(B, w, nf)
     if d % 128:
         raise ValueError(f"the decoded cache's feature dim must be a "
                          f"128-multiple, got {d}")
-    args = [a.contiguous() for a in args]
+    args = [None if a is None else a.contiguous() for a in args]
     for a in args:
+        if a is None:
+            continue
         if a.device != dev:
             raise ValueError("dense scan inputs must be on one device")
         if a.data_ptr() % 16:
             raise ValueError("dense scan inputs must be 16-byte aligned")
     out_d = torch.empty((P, nf), dtype=torch.float32, device=dev)
     out_p = torch.empty((P, nf), dtype=torch.int32, device=dev)
-    PROBE_KERNEL(*(a.data_ptr() for a in args), P, d, nf, float(norm_coef),
-                 out_d.data_ptr(), out_p.data_ptr(), _build.stream_ptr(dev))
+    PROBE_KERNELS[merge, elem](
+        *(None if a is None else a.data_ptr() for a in args), P, d, nf,
+        k_out, float(norm_coef), out_d.data_ptr(), out_p.data_ptr(),
+        _build.stream_ptr(dev))
     return out_d.reshape(B, w, nf), out_p.reshape(B, w, nf)

@@ -307,3 +307,218 @@ def test_build_is_reproducible_across_processes(dev):
     out = subprocess.run([sys.executable, "-c", code], cwd=root, check=True,
                          capture_output=True, text=True, timeout=600)
     assert out.stdout.strip().splitlines()[-1] == here[0]
+
+
+def _variant_inputs(rng, integer: bool, elem: str, pb: int):
+    """Grouped-scan inputs for every variant: 8-row aligned cell starts, an
+    empty cell (tiles of size 0), cells that are no 128-multiple, and one
+    cell of 126 full blocks plus one row (block index 126, pos8's top)."""
+    kc, d, B, w = 8, 128, 16, 4
+    sizes = np.array([0, 5, 128, 130, 300, 126 * 128 + 1, 1, 257], np.int32)
+    caps = (sizes // 8 + 2) * 8
+    offsets = np.concatenate([[8], 8 + np.cumsum(caps[:-1])]).astype(np.int32)
+    rows = -(-(int(offsets[-1] + caps[-1]) + 1024 + 128) // 128) * 128
+    cells = rng.randint(0, kc, (B, w)).astype(np.int32)
+    cells[0, :3] = (0, 5, 7)
+    if integer:
+        decoded = rng.randint(-3, 4, (rows, d)).astype(np.int8)
+        scale = np.ones(d, np.float32)
+        v = rng.randint(-4, 5, (B, w, d)).astype(np.float32)
+        base = rng.randint(0, 100, (B, w)).astype(np.float32)
+        # the big cell's last row (block 126) is the only zero row there:
+        # it scores the probe's base, every other row far more
+        big = slice(offsets[5], offsets[5] + sizes[5] - 1)
+        decoded[big] = 3
+        decoded[offsets[5] + sizes[5] - 1] = 0
+    else:
+        decoded = rng.randint(-127, 128, (rows, d)).astype(np.int8)
+        scale = (0.01 + 0.02 * rng.rand(d)).astype(np.float32)
+        v = rng.randn(B, w, d).astype(np.float32)
+        base = (10 + rng.rand(B, w)).astype(np.float32)
+    base[1, 0] = np.inf                         # a padded probe
+    dec = torch.from_numpy(decoded)
+    sc = torch.from_numpy(scale)
+    if elem == "bf16":                          # the rows, no scale
+        dec = (dec.float() * sc.to(torch.bfloat16).float()).to(torch.bfloat16)
+        sc = None
+    return [torch.from_numpy(cells), torch.from_numpy(offsets),
+            torch.from_numpy(sizes), torch.from_numpy(v).to(torch.bfloat16),
+            torch.from_numpy(base), dec, sc], kc
+
+
+def _aligned128(args):
+    """The same inputs on 128-row aligned cells, with ids2d and norms2d."""
+    cells, offsets, sizes, v, base, dec, sc = args
+    caps = (sizes.long() // 128 + 1) * 128
+    off = torch.cat([torch.zeros(1, dtype=torch.long), torch.cumsum(caps, 0)[:-1]])
+    rows = int(off[-1] + caps[-1]) + 1024 + 128
+    rows = -(-rows // 128) * 128
+    src = torch.arange(rows) % dec.shape[0]
+    g = torch.Generator().manual_seed(5)
+    ids2d = torch.randperm(rows, generator=g).to(torch.int32).reshape(-1, 128)
+    norms2d = torch.randint(0, 50, (rows,), generator=g).float().reshape(-1, 128)
+    return [cells, off.to(torch.int32), sizes, v, base, dec[src], sc], \
+        ids2d, norms2d
+
+
+def _close_topk(kd, kp, pd, pp, k):
+    """Exact-merge buffers on random floats (f32 sums in another order):
+    per probe the sorted k smallest distances agree to f32 rounding, and
+    their slots agree on >= 99 %."""
+    kd, kp = kd.reshape(-1, kd.shape[-1]), kp.reshape(-1, kp.shape[-1])
+    pd, pp = pd.reshape(-1, pd.shape[-1]), pp.reshape(-1, pp.shape[-1])
+    ks, ki = torch.sort(kd, dim=1)
+    ps, pi = torch.sort(pd, dim=1)
+    fin = torch.isfinite(ps[:, :k])
+    assert torch.equal(torch.isfinite(ks[:, :k]), fin)
+    torch.testing.assert_close(ks[:, :k][fin], ps[:, :k][fin], rtol=1e-5,
+                               atol=1e-4)
+    ka = torch.gather(kp, 1, ki[:, :k])
+    pa = torch.gather(pp, 1, pi[:, :k])
+    assert (ka == pa)[fin].float().mean() >= 0.99
+
+
+_VARIANT_KW = {
+    "pos8": dict(merge="fold", nf=128, pos8=True, pb=32),
+    "pos": dict(merge="fold", nf=256, pos8=False, pb=16),
+    "exact": dict(merge="exact", nf=128, pb=64),
+    "extract": dict(merge="fold", nf=256, extract_k=10, pb=16),
+    "ids": dict(merge="fold", nf=128, pb=64),
+    "knorm": dict(merge="fold", nf=128, pb=8),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(_VARIANT_KW))
+@pytest.mark.parametrize("elem", ["int8", "bf16"])
+@pytest.mark.parametrize("integer", [True, False])
+def test_grouped_scan_variant_kernels(dev, variant, elem, integer):
+    kw = dict(_VARIANT_KW[variant])
+    args, kc = _variant_inputs(np.random.RandomState(len(variant)), integer,
+                               elem, kw["pb"])
+    ids2d = norms2d = None
+    if variant in ("extract", "ids", "knorm"):
+        args, ids2d, norms2d = _aligned128(args)
+        if variant != "ids":
+            norms2d = None
+    kern = dense_scan.GROUPED_KERNELS[variant, elem]
+    call = dict(kc=kc, k_out=10, chunk=1024, norm_coef=1.0, **kw)
+    n0 = kern.launches
+    kd, kp = dense_scan.grouped_dense_scan(
+        *[None if a is None else a.to(dev) for a in args],
+        None if ids2d is None else ids2d.to(dev),
+        None if norms2d is None else norms2d.to(dev), **call)
+    assert kern.launches == n0 + 1
+    pd, pp = dense_scan.grouped_dense_scan(*args, ids2d, norms2d, **call)
+    assert kern.launches == n0 + 1                   # plain path: no launch
+    assert kp.dtype == pp.dtype == (torch.int8 if variant == "pos8"
+                                    else torch.int32)
+    kd, kp = kd.cpu(), kp.cpu()
+    assert torch.isinf(pd[0, 0]).all() and (pp[0, 0] == -1).all()  # empty
+    assert torch.isinf(pd[1, 0]).all() and (pp[1, 0] == -1).all()  # +inf base
+    if integer:             # every f32 sum exact: bit for bit, any variant
+        assert torch.equal(kd, pd) and torch.equal(kp, pp)
+        if variant.startswith("pos"):       # block 126 of the big cell
+            assert (pp[0, 1] == 126).any()
+    elif variant == "exact":
+        _close_topk(kd, kp, pd, pp, 10)
+    else:                   # f32 sums in another order
+        fin = torch.isfinite(pd)
+        assert torch.equal(torch.isfinite(kd), fin)
+        torch.testing.assert_close(kd[fin], pd[fin], rtol=1e-5, atol=1e-4)
+        assert (kp == pp).float().mean() >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("merge", ["fold", "exact"])
+@pytest.mark.parametrize("elem", ["int8", "bf16"])
+@pytest.mark.parametrize("integer", [True, False])
+def test_probe_scan_variant_kernels(dev, merge, elem, integer):
+    args = _probe_inputs(np.random.RandomState(7), integer)
+    if elem == "bf16":
+        args[4] = (args[4].float() * args[5].to(torch.bfloat16).float()) \
+            .to(torch.bfloat16)
+        args[5] = None
+    kw = dict(k_out=10, chunk=256, norm_coef=1.0, nf=128, merge=merge)
+    kern = dense_scan.PROBE_KERNELS[merge, elem]
+    n0 = kern.launches
+    kd, kp = dense_scan.dense_scan(
+        *[None if a is None else a.to(dev) for a in args], **kw)
+    assert kern.launches == n0 + 1
+    pd, pp = dense_scan.dense_scan(*args, **kw)
+    kd, kp = kd.cpu(), kp.cpu()
+    assert torch.isinf(pd[0, 0]).all() and (pp[0, 0] == -1).all()
+    if integer:
+        assert torch.equal(kd, pd) and torch.equal(kp, pp)
+    elif merge == "exact":
+        _close_topk(kd, kp, pd, pp, 10)
+    else:
+        fin = torch.isfinite(pd)
+        assert torch.equal(torch.isfinite(kd), fin)
+        torch.testing.assert_close(kd[fin], pd[fin], rtol=1e-5, atol=1e-4)
+        assert (kp == pp).float().mean() >= 0.99
+
+
+@pytest.mark.cuda
+def test_sort_prep_feeds_the_scan_kernel_deterministically(dev):
+    # kc = 8192 > MAX_KC: ranks from one sort; two calls give the same
+    # tiles, and kernel 3 on them equals its plain version
+    rng = np.random.RandomState(3)
+    kc, d, B, w, pb = 8192, 128, 512, 8, 16
+    sizes = rng.randint(0, 200, kc).astype(np.int32)
+    caps = (sizes // 128 + 1) * 128
+    offsets = np.concatenate([[0], np.cumsum(caps[:-1])]).astype(np.int32)
+    rows = -(-(int(offsets[-1] + caps[-1]) + 1024 + 128) // 128) * 128
+    cells = np.where(rng.rand(B, w) < 0.5, rng.randint(0, 16, (B, w)),
+                     rng.randint(0, kc, (B, w))).astype(np.int32)
+    t = [torch.from_numpy(a).to(dev) for a in (cells, offsets, sizes)]
+    v = torch.from_numpy(rng.randint(-4, 5, (B, w, d)).astype(np.float32)) \
+        .to(torch.bfloat16).to(dev)
+    base = torch.from_numpy(rng.randint(0, 100, (B, w)).astype(np.float32)) \
+        .to(dev)
+    first = dense_scan.place_tiles(*t, v, base, kc=kc, pb=pb)
+    second = dense_scan.place_tiles(*t, v, base, kc=kc, pb=pb)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    plain = dense_scan.place_tiles(*[a.cpu() for a in t], v.cpu(),
+                                   base.cpu(), kc=kc, pb=pb)
+    for a, b in zip(first, plain):
+        assert torch.equal(a.cpu(), b)
+    dec = torch.from_numpy(rng.randint(-3, 4, (rows, d)).astype(np.int8))
+    ids2d = torch.from_numpy(rng.permutation(rows).astype(np.int32)
+                             .reshape(-1, 128))
+    norms2d = torch.from_numpy(rng.randint(0, 50, rows).astype(np.float32)
+                               .reshape(-1, 128))
+    call = dict(kc=kc, k_out=10, chunk=256, norm_coef=1.0, pb=pb)
+    n0 = dense_scan.KERNEL.launches
+    kd, kp = dense_scan.grouped_dense_scan(
+        *t, v, base, dec.to(dev), torch.ones(d, device=dev), ids2d.to(dev),
+        norms2d.to(dev), **call)
+    assert dense_scan.KERNEL.launches == n0 + 1
+    pd, pp = dense_scan.grouped_dense_scan(
+        *[a.cpu() for a in t], v.cpu(), base.cpu(), dec, torch.ones(d), ids2d,
+        norms2d, **call)
+    assert torch.equal(kd.cpu(), pd) and torch.equal(kp.cpu(), pp)
+
+
+@pytest.mark.cuda
+def test_kc_8192_index_takes_the_grouped_scan(dev):
+    # kc = 8192 > 4096 at B*w = 4*kc: the sort-based tile prep feeds kernel
+    # 3 (128-row cells); the counting-rank kernel stays idle. The same
+    # queries in per-probe batches find near-identical neighbours
+    from ivfadc_tpu_torch import IVFADCIndex
+    from ivfadc_tpu_torch.utils.datasets import synthetic_clustered
+    data = synthetic_clustered(40000, 64, seed=0)
+    idx = IVFADCIndex.build(data, kc=8192, m=8, k=16, seed=0,
+                            coarse_maxiter=3, quantization_maxiter=3)
+    q = data[:4096]
+    n0 = (dense_scan.KERNEL.launches, cell_rank.KERNEL.launches,
+          dense_scan.PROBE_KERNEL.launches)
+    ids, dists = idx.search_padded(q, 10, w=8)           # 4096 * 8 = 4 * kc
+    assert (dense_scan.KERNEL.launches, cell_rank.KERNEL.launches,
+            dense_scan.PROBE_KERNEL.launches) == (n0[0] + 1, n0[1], n0[2])
+    assert (ids >= 0).all() and (np.diff(dists, axis=1) >= 0).all()
+    small = np.concatenate([idx.search_padded(q[s:s + 512], 10, w=8)[0]
+                            for s in range(0, 4096, 512)])
+    overlap = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(ids, small)])
+    assert overlap >= 0.95, overlap

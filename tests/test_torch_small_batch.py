@@ -103,18 +103,23 @@ def test_dense_scan_matches_jax(nf, chunk, kind, norm_coef):
 
 
 def test_dense_scan_unported_variants_raise():
+    # the exact merge and the bf16 cache are ported (held to the JAX
+    # package in tests/test_torch_variants.py); what the JAX package
+    # refuses, the port refuses too
     z = torch.zeros((1, 1), dtype=torch.int32)
     v, base = torch.zeros((1, 1, 128)), torch.zeros((1, 1))
     dec8 = torch.zeros((256, 128), dtype=torch.int8)
-    with pytest.raises(NotImplementedError):          # exact merge
+    with pytest.raises(ValueError):                   # exact: one 128 buffer
         t_scan.dense_scan(z, z, v, base, dec8, torch.ones(128), k_out=10,
-                          chunk=128, merge="exact")
-    with pytest.raises(NotImplementedError):          # bf16 cache
-        t_scan.dense_scan(z, z, v, base, dec8.to(torch.bfloat16), None,
-                          k_out=10, chunk=128)
+                          chunk=256, merge="exact", nf=256)
+    with pytest.raises(ValueError):                   # int8 needs a scale
+        t_scan.dense_scan(z, z, v, base, dec8, None, k_out=10, chunk=128)
     with pytest.raises(ValueError):                   # nf must divide chunk
         t_scan.dense_scan(z, z, v, base, dec8, torch.ones(128), k_out=10,
                           chunk=128, nf=256)
+    out = t_scan.dense_scan(z, z, v, base, dec8.to(torch.bfloat16), None,
+                            k_out=10, chunk=128, merge="exact")
+    assert torch.isinf(out[0]).all() and (out[1] == -1).all()
 
 
 # ------------------------------------------------------ top-k with indices
