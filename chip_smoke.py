@@ -9,7 +9,7 @@ phases, printing one JSON line per phase; any failure raises (exit != 0):
   setup    card name and power limit, versions, kernel build time
   build    IVFADCIndex.build at the SIFT1M shape (n=1M, d=128, kc=1024,
            m=8, k=256, pq, seed 0, kmeanspp_sample=65536) on cuda
-  kernels  kernels 1-7 and the scan variants 8a-8e against their plain
+  kernels  kernels 1-11 and the scan variants 8a-8e against their plain
            PyTorch versions on their paths' own inputs (8a and 8b: in the
            two_level phase, and here on kernel 3's tiles). At B=16384
            queries, w=8: coarse probe, cell ranks, grouped fold scan, its
@@ -19,9 +19,15 @@ phases, printing one JSON line per phase; any failure raises (exit != 0):
            the top-k merge. At B=256, w=8 (2048 probes): per-probe fold
            scan and its exact-merge and bf16 variants, top-k with indices
            on that scan's candidate rows, exact top-w probe (also against
-           the fused probe's cells). For each: kernel time, plain time, the
-           time of the nearest PyTorch library call where there is one, and
-           the card's bound for the same work
+           the fused probe's cells). The opt-in engines: v2 cell ranks on
+           the B=16384 probe's cells (bit-equal to kernel 2 and the plain
+           version), the v2 coarse probe at B=16384 with and without a
+           random orthogonal rotation (kernel 1's cells; v within one bf16
+           ulp; base = 2 cdist), the qc scan (int8 and bf16 caches, and
+           under the rotation) on every tile of a B=8192 batch, beside
+           kernel 3, 8a and the placement's gathers at the same tiles. For
+           each: kernel time, plain time, the time of the nearest PyTorch
+           library call where there is one, and the card's bound
   search   with every launch count zeroed: search_padded of 1000 queries,
            recall@10 against brute force and against the NumPy oracle of
            the reference algorithm, QPS over back-to-back B=16384 batches
@@ -34,14 +40,16 @@ phases, printing one JSON line per phase; any failure raises (exit != 0):
   norms_off  counts zeroed: the search phase's 1000 queries (B*w >= 4*kc:
            the grouped route) under IVFADC_NORMS=off, which sends the
            posting scan through kernel 8a (row norms computed in the
-           kernel) instead of kernel 3
+           kernel) instead of kernel 3; the variable is read when the dense
+           view is built, so the view is dropped before and after
   lut      counts zeroed: scan_mode="lut" at k=10 (256 queries, against the
            oracle) and k=200 through the default configuration (k > 128
            routes to the LUT engine)
   unfused  counts zeroed: a second index (n=200k, kc=256) scored by inner
            product: exact top-w probe, then the per-probe scan (B=16) and
-           the grouped scan (B=4096); recall against brute-force inner
-           product, dense routes against the LUT route
+           the grouped scan (B=4096; no norm term, so kernel 8a without a
+           norms stream); recall against brute-force inner product, dense
+           routes against the LUT route
   variants counts zeroed before each part: scan_cache="bf16" (grouped,
            also under IVFADC_NORMS=off, and small batches; recall@10 within
            0.01 of the oracle, top-10 overlap with the int8 routes >= 0.9),
@@ -52,6 +60,14 @@ phases, printing one JSON line per phase; any failure raises (exit != 0):
            with the default 128-lane fold) and
            IVFADC_EXTRACT=1 on the grouped route (distances bit-equal to
            IVFADC_NORMS=off's, ids equal but at exact ties); batch ms each
+  engines  counts zeroed before each route, B=8192 batches: the default
+           placement route, IVFADC_VBASE=qc (kernel 9), IVFADC_COARSE_ENGINE
+           =v2 (kernel 10), IVFADC_RANK_ENGINE=v2 (kernel 11), all three,
+           and qc over the bf16 cache: recall@10, top-10 overlap with the
+           default, median batch ms, launch counts; rank v2 bit-equal to
+           the default, qc and coarse v2 within 0.01 recall of the oracle
+           and overlap >= 0.99; at B=16384 qc's gate fails (kernel 3); the
+           qc and placement batches profiled
   persist  save -> load(device="cuda") -> identical search_padded output;
            the same file loaded on the CPU (kernels' plain versions) agrees
   profile  device time per kernel and idle share over three B=16384
@@ -70,8 +86,10 @@ phases, printing one JSON line per phase; any failure raises (exit != 0):
            coarse quantizer (counts zeroed: kernels 7 and 1 must launch),
            overlap with the LUT engine, a single search,
            save -> load, batch time, QPS, the coarse share and idle share;
-           then stage 2 under IVFADC_EXTRACT=1 (kernel 8e at g=512, gp=32:
-           the buffered route's cells but at ties); then one batch of 32768
+           then one batch under IVFADC_RANK_ENGINE=v2 (kernel 11 at stage
+           2, bit-equal results), stage 2 under IVFADC_EXTRACT=1 (kernel 8e
+           at g=512, gp=32: the buffered route's cells but at ties); then
+           one batch of 32768
            queries (B*w = 4*kc: sort-based tile prep -> grouped scan with
            pos8 block payloads, kernel 8b, launched once -> top-k), held to
            the same queries in 8 per-probe batches (tie-aware overlap
@@ -85,6 +103,7 @@ without the rest of the repository beside it, the script fails.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -101,6 +120,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 N, D, KC, M, KQ = 1_000_000, 128, 1024, 8, 256
 TOPK, W, BATCH = 10, 8, 16384
+BATCH_QC = 8192                     # the engines phase's batch (qc gate: <= 12288)
 N_SEARCH, N_ORACLE = 1000, 500
 B_SMALL = 256                       # largest small-batch size: 2048 probes
 N2, KC2 = 200_000, 256              # the inner-product index
@@ -152,14 +172,43 @@ def cuda_ms(fn, reps: int = 5, inner: int = 1) -> float:
     return statistics.median(times)
 
 
+@contextlib.contextmanager
+def env(**values):
+    """Environment variables set for the block, restored after it."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def norms_off(index):
+    """IVFADC_NORMS=off for the block. The variable is read when the dense
+    view is built (as in the JAX package), so the view is dropped before
+    and after."""
+    index.store._invalidate()
+    try:
+        with env(IVFADC_NORMS="off"):
+            yield
+    finally:
+        index.store._invalidate()
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
 
 
-def close_scan(kern, plain, what: str, min_agree: float = 0.999):
+def close_scan(kern, plain, what: str, min_agree: float = 0.999,
+               rtol: float = 1e-5):
     """A scan kernel's (scores, payloads) against its plain version's on
-    real data: the same +inf pattern, scores to 1e-5 relative (bf16
+    real data: the same +inf pattern, scores to `rtol` relative (bf16
     products summed in f32 in another order; scores ~1e2), payloads equal
     on >= min_agree. Returns (max abs error, payload agreement)."""
     import torch
@@ -167,7 +216,7 @@ def close_scan(kern, plain, what: str, min_agree: float = 0.999):
     pd, pp = plain
     fin = torch.isfinite(pd)
     check(torch.equal(torch.isfinite(kd), fin), f"{what}: +inf pattern")
-    torch.testing.assert_close(kd[fin], pd[fin], rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(kd[fin], pd[fin], rtol=rtol, atol=1e-3)
     agree = (kp == pp).float().mean().item()
     check(agree >= min_agree, f"{what}: payloads agree on {agree:.5f}")
     return (kd[fin] - pd[fin]).abs().max().item(), agree
@@ -492,6 +541,206 @@ def phase_kernels(index, queries):
         **bound(8 * flat_d.numel() + 8 * BATCH * TOPK,
                 float(flat_d.numel()) * TOPK, PEAK_F32))
     records.update(phase_kernels_small(index, queries, bview))
+    records.update(phase_kernels_engines(index, queries, kv[1], view, bview))
+    return records
+
+
+def phase_kernels_engines(index, queries, cells16k, view, bview):
+    """Kernels 9-11 (the opt-in engines) against their plain versions on
+    their paths' inputs: v2 cell ranks on the B=16384 probe's cells, the v2
+    coarse probe at B=16384 (and under a random orthogonal rotation), the
+    qc scan on every tile of a B=8192 batch (int8 and bf16 caches, and
+    under the rotation), with kernel 3, 8a and the placement's gathers at
+    the same tiles beside it."""
+    import torch
+    from ivfadc_tpu_torch.ops import cell_rank, coarse_scan, dense_scan
+
+    dev = queries.device
+    records = {}
+    # 11. v2 cell ranks: kernel 2's bits and the plain version's
+    cells = cells16k.reshape(-1)
+    k2 = cell_rank.cell_ranks(cells, kc=KC, engine="v2")
+    k1 = cell_rank.cell_ranks(cells, kc=KC, engine="v1")
+    pr = cell_rank.cell_ranks_plain(cells, KC)
+    check(all(torch.equal(a, b) and torch.equal(a, c)
+              for a, b, c in zip(k2, k1, pr)), "v2 cell ranks differ")
+    records["cell_rank_v2"] = dict(
+        source="ivfadc_tpu_torch/csrc/cell_rank.cu",
+        replaces="ivfadc_tpu/ops/cell_rank.py:101", max_abs_err=0.0,
+        equal_to_kernel_2=True, probes=cells.numel(), kc=KC,
+        ms=cuda_ms(lambda: cell_rank.cell_ranks(cells, kc=KC, engine="v2")),
+        plain_ms=cuda_ms(lambda: cell_rank.cell_ranks_plain(cells, KC)),
+        library_ms=cuda_ms(lambda: (torch.sort(cells, stable=True),
+                                    torch.bincount(cells, minlength=KC))),
+        **bound(8 * cells.numel() + 4 * KC, cells.numel(), PEAK_F32))
+
+    # 10. v2 coarse probe at B=16384: kernel 1's cells bit for bit; v within
+    # one bf16 ulp of the plain version (bit-equal without a rotation, where
+    # the cells agree); base = 2 cdist, the wrapper's formula
+    q = queries[:BATCH]
+    c32 = index.coarse.centroids
+    cn = torch.sum(c32 * c32, dim=1)
+    g = torch.Generator(device="cpu").manual_seed(11)
+    rot_r = torch.linalg.qr(torch.randn(D, D, generator=g))[0].to(dev)
+    eye = torch.eye(D, device=dev)
+    v2 = {}
+    for tag, rot, apply_rot in (("", eye, False), ("@rotated", rot_r, True)):
+        hi, lo = coarse_scan.hi_lo_split(c32, rot, apply_rot)
+        kv = coarse_scan.coarse_vbase_v2(q, c32, cn, rot, hi, lo, W,
+                                         apply_rot)
+        pv = coarse_scan.coarse_vbase_v2_plain(q, c32, cn, rot, hi, lo, W,
+                                               apply_rot)
+        v1cells = coarse_scan.coarse_vbase(q, c32, cn, rot, W, apply_rot)[1]
+        check(torch.equal(kv[1], v1cells), f"v2{tag} cells differ from "
+                                           f"kernel 1's")
+        same = kv[1] == pv[1]
+        agree = same.float().mean().item()
+        check(agree >= 0.999, f"v2{tag} cells agree on {agree:.5f}")
+        torch.testing.assert_close(kv[0], pv[0], rtol=1e-5, atol=1e-3)
+        if apply_rot:
+            torch.testing.assert_close(kv[2][same].float(),
+                                       pv[2][same].float(), rtol=2 ** -7,
+                                       atol=1e-6)
+        else:
+            check(torch.equal(kv[2][same], pv[2][same]), "v2 v differs")
+        cells_w, cd_w, _, base_w = coarse_scan.coarse_probe_vbase(
+            q, c32, W, rot, apply_rot, True, engine="v2",
+            rot_orthogonal=True)
+        check(torch.equal(cells_w, kv[1]) and torch.equal(base_w, cd_w + cd_w),
+              f"v2{tag} base is not 2 cdist")
+        v_err = (kv[2][same].float() - pv[2][same].float()).abs().max().item()
+        v2[tag] = dict(
+            cells_agree_plain=agree, cells_equal_kernel_1=True,
+            v_max_abs_err=v_err,
+            max_abs_err=max(v_err, (kv[0] - pv[0]).abs().max().item()),
+            ms=cuda_ms(lambda: coarse_scan.coarse_vbase_v2(
+                q, c32, cn, rot, hi, lo, W, apply_rot)),
+            plain_ms=cuda_ms(lambda: coarse_scan.coarse_vbase_v2_plain(
+                q, c32, cn, rot, hi, lo, W, apply_rot)),
+            hi_lo_split_ms=cuda_ms(lambda: coarse_scan.hi_lo_split(
+                c32, rot, apply_rot)),
+            **bound(4 * (BATCH * D + KC * D + KC + D * D) + 4 * KC * D
+                    + BATCH * W * (8 + 2 * D),
+                    2.0 * BATCH * KC * D + (2.0 * BATCH * D * D
+                                            if apply_rot else 0.0),
+                    PEAK_F32))
+        del kv, pv, hi, lo
+
+    def lib_probe(qq):
+        # nearest library route: score matmul + topk + centroid gather
+        _, idx = torch.topk(cn[None, :] - 2.0 * (qq @ c32.T), W, dim=1,
+                            largest=False)
+        return c32[idx]
+
+    records["coarse_probe_v2"] = dict(
+        v2[""], source="ivfadc_tpu_torch/csrc/coarse_scan.cu",
+        replaces="ivfadc_tpu/ops/coarse_scan.py:169",
+        library_ms=cuda_ms(lambda: lib_probe(q)),
+        rotated=v2["@rotated"])
+
+    # 9. the qc scan on every tile of a B=8192 batch (the engines phase's
+    # batch), against its plain version; kernel 3, 8a and the placement's
+    # two gathers (what qc removes) at the same tiles
+    bq = queries[:BATCH_QC]
+    pb, nf = index.config.scan_pb, index.config.scan_fold_lanes
+    cells_q, _, v_q, base_q = coarse_scan.coarse_probe_vbase(
+        bq, c32, W, eye, False, True)
+    P = BATCH_QC * W
+    sizes64 = view["sizes"].to(torch.int64)
+    cell_rows = int(sizes64[torch.unique(cells_q)].sum().item())
+    probe_rows = int(sizes64[cells_q.to(torch.int64)].sum().item())
+    for name, vw, dec_ok in (("grouped_scan_qc", view, True),
+                             ("grouped_scan_qc_bf16", bview, False)):
+        rots = ((False, None),) if not dec_ok else ((False, None),
+                                                   (True, rot_r))
+        rec = {}
+        for apply_rot, rot in rots:
+            args = dense_scan.qc_tile_inputs(
+                cells_q, vw["offsets"], vw["sizes"], bq, c32, rot, D, kc=KC,
+                pb=pb)[:7] + (vw["decoded"], vw["scale"], vw["ids2d"])
+            kw = dict(pb=pb, nf=nf, norm_coef=1.0, base_mult=2.0,
+                      apply_rot=apply_rot)
+            kd, kp = dense_scan.grouped_scan_qc(*args, **kw)
+            pd, pp = dense_scan.grouped_scan_qc_plain(*args, **kw)
+            # under the rotation the kernel sums r R in another order than
+            # the plain matmul, and bf16(-2 r R) may round the other way:
+            # one bf16 ulp of one v element moves a score by 2^-8 of its
+            # term, so 1e-4 relative and 99.9% of the payloads there
+            err, agree = close_scan(
+                (kd, kp), (pd, pp), f"{name} (rotation {apply_rot})",
+                min_agree=0.999 if apply_rot else 0.99999,
+                rtol=1e-4 if apply_rot else 1e-5)
+            tstart, tsize = args[0], args[1]
+            T = tstart.numel()
+            tile_rows = int(tsize.to(torch.int64).sum().item())
+            live_slots = int((args[3] >= 0).sum().item())
+            part = dict(
+                max_abs_err=err, ids_agree=agree, tiles=T,
+                live_tiles=int((tsize > 0).sum().item()),
+                ms=cuda_ms(lambda: dense_scan.grouped_scan_qc(*args, **kw)),
+                plain_ms=cuda_ms(lambda: dense_scan.grouped_scan_qc_plain(
+                    *args, **kw), reps=3),
+                # cell rows (row, id) read once, each slot's query index and
+                # each tile's cell, start and size, the probed queries and
+                # centroids, every output row written; the products of each
+                # probe with each row of its cell and each tile's row
+                # squares at the bf16 rate (the rotation in the prologue)
+                **bound(cell_rows * ((D if dec_ok else 2 * D) + 4)
+                        + 4 * T * pb + 12 * T + 4 * (BATCH_QC + KC) * D
+                        + (2 * D * D if apply_rot else 0) + kd.numel() * 8,
+                        2.0 * D * (probe_rows + tile_rows)
+                        + (2.0 * D * D * live_slots if apply_rot else 0.0),
+                        PEAK_BF16))
+            # integer-valued inputs on the same tiles: bit for bit
+            gi = torch.Generator(device=dev).manual_seed(17)
+            dec_i = torch.randint(-3, 4, vw["decoded"].shape, generator=gi,
+                                  device=dev)
+            dec_i = dec_i.to(torch.int8 if dec_ok else torch.bfloat16)
+            q_i = torch.randint(-4, 5, args[4].shape, generator=gi,
+                                device=dev).float()
+            c_i = torch.randint(-4, 5, args[5].shape, generator=gi,
+                                device=dev).float()
+            rot_i = torch.zeros((D, D), device=dev)
+            rot_i[torch.arange(D, device=dev),
+                  torch.randperm(D, generator=g).to(dev)] = 1
+            int_args = args[:4] + (q_i, c_i, rot_i.to(torch.bfloat16), dec_i,
+                                   torch.ones(D, device=dev) if dec_ok
+                                   else None, args[9])
+            ki = dense_scan.grouped_scan_qc(*int_args, **kw)
+            pi = dense_scan.grouped_scan_qc_plain(*int_args, **kw)
+            check(torch.equal(ki[0], pi[0]) and torch.equal(ki[1], pi[1]),
+                  f"integer-valued {name} (rotation {apply_rot}) is not "
+                  f"bit-exact")
+            part["integer_case_bit_exact"] = True
+            if apply_rot:
+                rec["rotated"] = part
+            else:
+                rec.update(part)
+            del kd, kp, pd, pp, ki, pi, dec_i
+        rec.update(source="ivfadc_tpu_torch/csrc/dense_scan.cu",
+                   replaces="ivfadc_tpu/ops/pallas_scan.py:407",
+                   batch=BATCH_QC, library_ms=None)
+        records[name] = rec
+    # the placement route at the same B=8192 tiles: its two gathers, kernel
+    # 3 (cached norms) and 8a (in-kernel norms, qc's arithmetic)
+    c_t, tstart, tsize, row, inv_row = dense_scan._tile_slots(
+        cells_q, view["offsets"], view["sizes"], kc=KC, pb=pb,
+        rank_engine="v1")
+    v_pad = torch.cat([v_q.reshape(P, D),
+                       torch.zeros((1, D), dtype=torch.bfloat16, device=dev)])
+    base_pad = torch.cat([base_q.reshape(P, 1),
+                          torch.full((1, 1), float("inf"), device=dev)])
+    v_t, b_t = v_pad[inv_row], base_pad[inv_row]
+    pl_args = (tstart, tsize, v_t, b_t, view["decoded"], view["scale"],
+               view["ids2d"])
+    kw = dict(pb=pb, nf=nf, norm_coef=1.0)
+    records["grouped_scan_qc"]["at_b8192"] = dict(
+        placement_gathers_ms=cuda_ms(lambda: (v_pad[inv_row],
+                                              base_pad[inv_row])),
+        grouped_scan_ms=cuda_ms(lambda: dense_scan.grouped_scan(
+            *pl_args, view["norms2d"], **kw)),
+        grouped_scan_knorm_ms=cuda_ms(lambda: dense_scan.grouped_scan(
+            *pl_args, None, **kw)))
     return records
 
 
@@ -721,11 +970,8 @@ def phase_variants(index, qs, gt, ref, zero_counts, read_counts) -> dict:
     bidx = variant(scan_cache="bf16")
     b_ids, _ = bidx.search_padded(qs, TOPK, w=W)
     b_small = small_batches(bidx)
-    os.environ["IVFADC_NORMS"] = "off"
-    try:
+    with norms_off(index):
         bn_ids, _ = bidx.search_padded(qs, TOPK, w=W)
-    finally:
-        del os.environ["IVFADC_NORMS"]
     out["bf16"] = dict(launches=read_counts(
         "variants_bf16", ["grouped_scan_bf16", "probe_scan_bf16",
                           "grouped_scan_knorm_bf16"],
@@ -746,21 +992,15 @@ def phase_variants(index, qs, gt, ref, zero_counts, read_counts) -> dict:
     # that collide in a lane (cells of ~1000 rows: 8 rows a lane), a
     # 1024-lane fold almost none, so that one is the referee
     widx = variant(scan_fold_lanes=1024, scan_pb=16)
-    os.environ["IVFADC_NORMS"] = "off"
-    try:
+    with norms_off(index):
         w_ids, w_dists = widx.search_padded(qs, TOPK, w=W)
-    finally:
-        del os.environ["IVFADC_NORMS"]
     ws_ids, ws_dists = map(np.concatenate, zip(*[
         widx.search_padded(qs[s:s + B_SMALL], TOPK, w=W)
         for s in range(0, N_SEARCH, B_SMALL)]))
     zero_counts()
     eidx = variant(scan_merge="exact")
-    os.environ["IVFADC_NORMS"] = "off"      # the fold route it is held to
-    try:
+    with norms_off(index):                  # the fold route it is held to
         e_ids, e_dists = eidx.search_padded(qs, TOPK, w=W)
-    finally:
-        del os.environ["IVFADC_NORMS"]
     e_small, e_sd = map(np.concatenate, zip(*[
         eidx.search_padded(qs[s:s + B_SMALL], TOPK, w=W)
         for s in range(0, N_SEARCH, B_SMALL)]))
@@ -807,6 +1047,105 @@ def phase_variants(index, qs, gt, ref, zero_counts, read_counts) -> dict:
         rows_differing_at_ties=ties_only(x_ids, x_dists, ref["n_ids"],
                                          ref["n_dists"]),
         distances_bit_equal_norms_off=True)
+    return out
+
+
+def phase_engines(index, queries, gt, ref, zero_counts, read_counts) -> dict:
+    """The opt-in engines through the index's entry points on B=8192
+    batches (w=8, k=10), counts zeroed before each route: the default
+    placement route, IVFADC_VBASE=qc, IVFADC_COARSE_ENGINE=v2,
+    IVFADC_RANK_ENGINE=v2, all three, qc over the bf16 cache; then qc at
+    B=16384, where its gate fails. Per route: recall@10 (first N_SEARCH
+    queries; the first N_ORACLE against the oracle's), top-10 overlap with
+    the default route, the median of 5 synchronised batch times and the
+    launch counts; the qc and placement batches profiled. `ref` holds the
+    oracle's recall."""
+    import torch
+    from ivfadc_tpu_torch import IVFADCIndex
+    from ivfadc_tpu_torch.utils.evaluation import recall_at_r
+
+    batch = queries[:BATCH_QC]
+    bidx = IVFADCIndex(dataclasses.replace(index.config, scan_cache="bf16"),
+                       index.coarse, index.quantizer, index.store,
+                       index.data_dtype, index.dim)
+    qc, v2c, v2r = (dict(IVFADC_VBASE="qc"), dict(IVFADC_COARSE_ENGINE="v2"),
+                    dict(IVFADC_RANK_ENGINE="v2"))
+    # (route, index, environment, launched, idle)
+    routes = [
+        ("default", index, {}, ["coarse_probe", "cell_rank", "grouped_scan",
+                                "topk_payload"],
+         ["grouped_scan_qc", "coarse_probe_v2", "cell_rank_v2"]),
+        ("qc", index, qc, ["coarse_probe", "cell_rank", "grouped_scan_qc",
+                           "topk_payload"],
+         ["grouped_scan", "grouped_scan_knorm", "coarse_probe_v2",
+          "cell_rank_v2"]),
+        ("coarse_v2", index, v2c, ["coarse_probe_v2", "cell_rank",
+                                   "grouped_scan", "topk_payload"],
+         ["coarse_probe", "grouped_scan_qc", "cell_rank_v2"]),
+        ("rank_v2", index, v2r, ["coarse_probe", "cell_rank_v2",
+                                 "grouped_scan", "topk_payload"],
+         ["cell_rank", "grouped_scan_qc", "coarse_probe_v2"]),
+        ("all", index, {**qc, **v2c, **v2r},
+         ["coarse_probe_v2", "cell_rank_v2", "grouped_scan_qc",
+          "topk_payload"],
+         ["coarse_probe", "cell_rank", "grouped_scan",
+          "grouped_scan_knorm"]),
+        ("qc_bf16", bidx, qc, ["coarse_probe", "cell_rank",
+                               "grouped_scan_qc_bf16", "topk_payload"],
+         ["grouped_scan_qc", "grouped_scan_bf16",
+          "grouped_scan_knorm_bf16"]),
+    ]
+
+    def overlap(a, b):
+        return float(np.mean([len(set(x) & set(y)) / TOPK
+                              for x, y in zip(a, b)]))
+
+    out, res = {}, {}
+    for name, idx, values, launched, idle in routes:
+        with env(**values):
+            zero_counts()
+            ids, dists = idx.search_padded(batch, TOPK, w=W)
+            counts = read_counts(f"engines_{name}", launched, idle)
+            ts = []
+            for _ in range(6):                    # first: warm-up
+                t1 = time.perf_counter()
+                idx._device_search(batch, TOPK, W)
+                torch.cuda.synchronize()
+                ts.append(1e3 * (time.perf_counter() - t1))
+        res[name] = (ids, dists)
+        check(ids.shape == (BATCH_QC, TOPK) and np.isfinite(dists).all()
+              and (ids >= 0).all(), f"engines {name} output")
+        r_oracle = recall_at_r(ids[:N_ORACLE], gt[:N_ORACLE], TOPK)
+        out[name] = dict(
+            recall_at_10=recall_at_r(ids[:N_SEARCH], gt, TOPK),
+            recall_at_10_oracle_queries=r_oracle,
+            top10_overlap_default=overlap(ids, res["default"][0]),
+            batch_ms_median_of_5=float(np.median(ts[1:])), launches=counts)
+    # rank v2: one function, so kernel 2's route bit for bit
+    check(np.array_equal(res["rank_v2"][0], res["default"][0])
+          and np.array_equal(res["rank_v2"][1], res["default"][1]),
+          "rank v2 results differ from v1's")
+    for name in ("qc", "coarse_v2", "all", "qc_bf16"):
+        r = out[name]["recall_at_10_oracle_queries"]
+        check(abs(r - ref["recall_oracle"]) <= 0.01,
+              f"engines {name}: recall {r} vs oracle {ref['recall_oracle']}")
+    for name in ("qc", "coarse_v2", "all"):
+        val = out[name]["top10_overlap_default"]
+        check(val >= 0.99, f"engines {name}: overlap with the default {val}")
+    # B=16384: B * d * 4 = 8 MiB of queries, past the qc gate's 6 MiB: the
+    # placement route with kernel 3
+    with env(**qc):
+        zero_counts()
+        index.search_padded(queries[:BATCH], TOPK, w=W)
+        out["qc_b16384_falls_through"] = dict(launches=read_counts(
+            "engines_qc_b16384", ["coarse_probe", "cell_rank",
+                                  "grouped_scan", "topk_payload"],
+            ["grouped_scan_qc"]))
+    out["profile_placement"] = phase_profile(
+        lambda i: index._device_search(batch, TOPK, W), 3)
+    with env(**qc):
+        out["profile_qc"] = phase_profile(
+            lambda i: index._device_search(batch, TOPK, W), 3)
     return out
 
 
@@ -917,6 +1256,13 @@ def phase_two_level(zero_counts, read_counts, posting: dict) -> dict:
         library_ms=cuda_ms(lambda: (torch.sort(gflat, stable=True),
                                     torch.bincount(gflat, minlength=g))),
         **bound(8 * gflat.numel() + 4 * g, gflat.numel(), PEAK_F32))
+    # 11 on the same group ids: kernel 2's bits
+    kr2 = cell_rank.cell_ranks(gflat, kc=g, engine="v2")
+    check(torch.equal(kr2[0], kr[0]) and torch.equal(kr2[1], kr[1]),
+          "stage-2 v2 cell ranks differ")
+    shapes["cell_rank_v2@stage2"] = dict(
+        shapes["cell_rank@stage2"], equal_to_kernel_2=True,
+        ms=cuda_ms(lambda: cell_rank.cell_ranks(gflat, kc=g, engine="v2")))
     # 8a on stage 2's own tiles
     d_pad = cq.cent_scan.shape[1]
     pb, nf = 64, 128
@@ -1247,6 +1593,20 @@ def phase_two_level(zero_counts, read_counts, posting: dict) -> dict:
          profile=prof, coarse_profile_top=prof_coarse["top"][:6],
          seconds=time.perf_counter() - t0)
 
+    # ---- one batch under IVFADC_RANK_ENGINE=v2: stage 2's counting prep on
+    # kernel 11, bit-equal results
+    t0 = time.perf_counter()
+    zero_counts()
+    with env(IVFADC_RANK_ENGINE="v2"):
+        r_ids, r_dists = index.search_padded(q, TOPK, w=W3)
+    counts_r = read_counts("two_level_rank_v2", ["cell_rank_v2",
+                                                 "grouped_scan_knorm"],
+                           idle=["cell_rank"])
+    check(np.array_equal(r_ids, ids) and np.array_equal(r_dists, dists),
+          "two-level results under rank v2 differ from v1's")
+    emit("two_level_rank_v2", launches=counts_r, bit_equal_v1=True,
+         seconds=time.perf_counter() - t0)
+
     # ---- stage 2 under IVFADC_EXTRACT=1: the cells of the buffered route
     # (bit-equal distances; ids may differ only at exact ties), counts zeroed
     t0 = time.perf_counter()
@@ -1420,7 +1780,11 @@ def main() -> int:
                    dense_scan.GROUPED_KERNELS["exact", "int8"],
                "probe_scan_exact": dense_scan.PROBE_KERNELS["exact", "int8"],
                "grouped_scan_extract":
-                   dense_scan.GROUPED_KERNELS["extract", "int8"]}
+                   dense_scan.GROUPED_KERNELS["extract", "int8"],
+               "cell_rank_v2": cell_rank.KERNEL_V2,
+               "coarse_probe_v2": coarse_scan.V2_KERNEL,
+               "grouped_scan_qc": dense_scan.QC_KERNELS["int8"],
+               "grouped_scan_qc_bf16": dense_scan.QC_KERNELS["bf16"]}
     # the path whose run gives each kernel its launch count
     path_of = {"coarse_probe": "search", "cell_rank": "search",
                "grouped_scan": "search", "topk_payload": "search",
@@ -1432,7 +1796,11 @@ def main() -> int:
                "probe_scan_bf16": "variants_bf16",
                "grouped_scan_exact": "variants_exact",
                "probe_scan_exact": "variants_exact",
-               "grouped_scan_extract": "variants_extract"}
+               "grouped_scan_extract": "variants_extract",
+               "cell_rank_v2": "engines_rank_v2",
+               "coarse_probe_v2": "engines_coarse_v2",
+               "grouped_scan_qc": "engines_qc",
+               "grouped_scan_qc_bf16": "engines_qc_bf16"}
     # the TPU kernel table's row of each kernel (PERF.md)
     row_of = {"coarse_probe": "1", "cell_rank": "2", "grouped_scan": "3",
               "topk_payload": "4", "probe_scan": "5", "topk_index": "6",
@@ -1440,7 +1808,9 @@ def main() -> int:
               "grouped_scan_pos8": "8b", "grouped_scan_bf16": "8c",
               "grouped_scan_knorm_bf16": "8c", "probe_scan_bf16": "8c",
               "grouped_scan_exact": "8d", "probe_scan_exact": "8d",
-              "grouped_scan_extract": "8e"}
+              "grouped_scan_extract": "8e", "cell_rank_v2": "11",
+              "coarse_probe_v2": "10", "grouped_scan_qc": "9",
+              "grouped_scan_qc_bf16": "9"}
     launches = {}
 
     def zero_counts():
@@ -1621,11 +1991,8 @@ def main() -> int:
     # ---- IVFADC_NORMS=off: the posting scan through kernel 8a
     t0 = time.perf_counter()
     zero_counts()
-    os.environ["IVFADC_NORMS"] = "off"
-    try:
+    with norms_off(index):
         n_ids, n_dists = index.search_padded(qs, TOPK, w=W)
-    finally:
-        del os.environ["IVFADC_NORMS"]
     counts = read_counts("norms_off", ["coarse_probe", "cell_rank",
                                        "grouped_scan_knorm", "topk_payload"],
                          idle=["grouped_scan", "probe_scan", "topk_index"])
@@ -1649,6 +2016,12 @@ def main() -> int:
                             n_dists=n_dists, recall_oracle=recall_oracle,
                             batch=queries[:BATCH]),
         zero_counts, read_counts), seconds=time.perf_counter() - t0)
+
+    # ---- the opt-in engines on B=8192 batches
+    t0 = time.perf_counter()
+    emit("engines", **phase_engines(
+        index, queries, gt, dict(recall_oracle=recall_oracle), zero_counts,
+        read_counts), seconds=time.perf_counter() - t0)
 
     # ---- LUT engine: scan_mode="lut", and k > 128 under the default config
     t0 = time.perf_counter()
@@ -1722,10 +2095,12 @@ def main() -> int:
     u_ids, u_dists = index2.search_padded(q2, TOPK, w=W)
     check(bool((np.diff(u_dists, axis=1) >= 0).all()) and (u_ids >= 0).all()
           and (u_ids < N2).all(), "inner-product output")
+    # no norm term under inner product: the grouped scan reads no norms
+    # stream and runs its in-kernel-norms variant (8a), as in the JAX package
     counts = read_counts("unfused", ["coarse_topw", "probe_scan",
                                      "topk_index", "cell_rank",
-                                     "grouped_scan", "topk_payload"],
-                         idle=["coarse_probe"])
+                                     "grouped_scan_knorm", "topk_payload"],
+                         idle=["coarse_probe", "grouped_scan"])
     lut2 = IVFADCIndex(
         dataclasses.replace(index2.config, scan_mode="lut"), index2.coarse,
         index2.quantizer, index2.store, index2.data_dtype, index2.dim)

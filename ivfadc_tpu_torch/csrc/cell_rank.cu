@@ -17,6 +17,19 @@
 // Probes whose cell is outside [0, kc) (the TPU kernel's padding sentinel)
 // are counted in no histogram.
 //
+// cell_ranks_v2 replaces ivfadc_tpu/ops/cell_rank.py::_rank_kernel_v2 (the
+// same function: the TPU's v2 only moves its transposes out of the kernel).
+// It shares passes 1 and 2 and replaces pass 3's compare loop:
+//   3'. rank_local_v2: one thread per probe, 1024 a block. Within a warp,
+//       __match_any_sync groups the lanes of one cell and the popcount of
+//       the group's lower lanes is the within-warp rank; across the warps
+//       of the block, the warps walk in order against a per-cell counter
+//       array in shared memory (kc ints), to which only the lowest lane of
+//       each group adds the group's size. Cells outside [0, kc) keep v1's
+//       rule (earlier equal cells of the block, no carried-in count) by
+//       v1's compare loop, over the earlier warps only.
+// Its bits equal rank_local's.
+//
 // Bound: tiny (P=131072 int32 in, the same out, a (P/1024, kc) scratch).
 // Launch latency dominates; the design keeps every pass a single launch.
 
@@ -78,9 +91,42 @@ __global__ void rank_local(const int* __restrict__ cells, int P, int kc,
   }
 }
 
+__global__ void __launch_bounds__(RANK_BLK) rank_local_v2(
+    const int* __restrict__ cells, int P, int kc,
+    const int* __restrict__ prefix, int* __restrict__ ranks) {
+  extern __shared__ int cnt[];      // kc running counts of the block
+  __shared__ int cs[RANK_BLK];      // the block's cells (out-of-range rule)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int p = blockIdx.x * RANK_BLK + tid;
+  const int c = p < P ? cells[p] : -1;
+  cs[tid] = c;
+  for (int i = tid; i < kc; i += RANK_BLK) cnt[i] = 0;
+  const unsigned peers = __match_any_sync(IVF_FULL_MASK, c);
+  const unsigned lower = peers & ((1u << lane) - 1u);
+  const bool inr = c >= 0 && c < kc;
+  int carried = 0;
+  __syncthreads();
+  for (int wi = 0; wi < RANK_BLK / 32; ++wi) {
+    if (warp == wi && inr) {
+      carried = cnt[c];
+      __syncwarp(peers);
+      if (lower == 0) cnt[c] = carried + __popc(peers);
+    }
+    __syncthreads();
+  }
+  if (p >= P) return;
+  if (inr) {
+    carried += prefix[static_cast<size_t>(blockIdx.x) * kc + c];
+  } else {
+    for (int j = 0; j < warp * 32; ++j) carried += (cs[j] == c);
+  }
+  ranks[p] = carried + __popc(lower);
+}
+
 // scratch: (ceil(P/1024), kc) int32.
-extern "C" int cell_ranks(const void* cells, int P, int kc, void* ranks,
-                          void* counts, void* scratch, void* stream) {
+static int cell_ranks_impl(const void* cells, int P, int kc, void* ranks,
+                           void* counts, void* scratch, void* stream,
+                           bool v2) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nblk = (P + RANK_BLK - 1) / RANK_BLK;
   const size_t hsmem = static_cast<size_t>(kc) * sizeof(int);
@@ -96,8 +142,24 @@ extern "C" int cell_ranks(const void* cells, int P, int kc, void* ranks,
                                              static_cast<int*>(counts));
   err = ivf_launch_status();
   if (err) return err;
-  if (nblk > 0)
+  if (nblk > 0 && v2) {
+    err = ivf_set_smem(reinterpret_cast<const void*>(rank_local_v2), hsmem);
+    if (err) return err;
+    rank_local_v2<<<nblk, RANK_BLK, hsmem, s>>>(c, P, kc, hist,
+                                                static_cast<int*>(ranks));
+  } else if (nblk > 0) {
     rank_local<<<nblk, RANK_THREADS, 0, s>>>(c, P, kc, hist,
                                              static_cast<int*>(ranks));
+  }
   return ivf_launch_status();
+}
+
+extern "C" int cell_ranks(const void* cells, int P, int kc, void* ranks,
+                          void* counts, void* scratch, void* stream) {
+  return cell_ranks_impl(cells, P, kc, ranks, counts, scratch, stream, false);
+}
+
+extern "C" int cell_ranks_v2(const void* cells, int P, int kc, void* ranks,
+                             void* counts, void* scratch, void* stream) {
+  return cell_ranks_impl(cells, P, kc, ranks, counts, scratch, stream, true);
 }

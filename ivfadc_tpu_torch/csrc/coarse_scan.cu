@@ -7,8 +7,13 @@
 // cell c: v = bf16(-2 * rot(q - c)) and ||rot(q - c)||^2.
 // coarse_topw_kernel replaces ::_coarse_kernel: the same scores and
 // selection, emitting only the (B, w) winners (the LUT engine's and the
-// unfused dense probe's coarse search). Both share coarse_select below, so
-// they pick the same cells bit for bit.
+// unfused dense probe's coarse search). coarse_vbase_v2_kernel replaces
+// ::_coarse_vbase_kernel_v2: the same selection, then per query
+// rotq = q R once (f32, in shared memory), and per winning cell a
+// v = bf16(-2 (rotq - (f32(hi[a]) + f32(lo[a])))) from the wrapper's bf16
+// hi/lo split of the pre-rotated table rotC = C R; no ||r||^2 (the wrapper
+// derives the base from the scores, valid for an orthogonal R). All three
+// share coarse_select below, so they pick the same cells bit for bit.
 //
 // Bound: the score matmul, B*kc*d FMAs (2.1 G at B=16384, kc=1024, d=128),
 // kept in exact f32 (fmaf, no TF32 or bf16) because the naive coarse
@@ -253,6 +258,55 @@ __global__ void __launch_bounds__(CS_THREADS) coarse_vbase_kernel(
   }
 }
 
+__global__ void __launch_bounds__(CS_THREADS) coarse_vbase_v2_kernel(
+    const float* __restrict__ q, const float* __restrict__ cents,
+    const float* __restrict__ cn, const float* __restrict__ rot,
+    const __nv_bfloat16* __restrict__ hi, const __nv_bfloat16* __restrict__ lo,
+    int B, int d, int kc, int w, int bq, int kch, int apply_rot,
+    float* __restrict__ vals, int* __restrict__ cells,
+    __nv_bfloat16* __restrict__ v) {
+  extern __shared__ float sm[];
+  const CoarseSmem s = coarse_carve(sm, bq, d, w, kch);
+  const int nq = coarse_select(q, cents, cn, B, d, kc, w, bq, kch, s);
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * bq;
+  const int warp = tid >> 5, lane = tid & 31, warps = blockDim.x >> 5;
+  float* rq = s.rest + static_cast<size_t>(warp) * 2 * d;   // rotq
+  for (int r = warp; r < nq; r += warps) {
+    const float* srow = s.sc + static_cast<size_t>(r) * (w + kch);
+    const int* ri = s.ridx + static_cast<size_t>(r) * w;
+    const float* qr = s.qs + static_cast<size_t>(r) * d;
+    const size_t qi = static_cast<size_t>(q0 + r);
+    if (apply_rot) {
+      for (int col = lane; col < d; col += 32) {
+        float acc = 0.f;
+        for (int k = 0; k < d; ++k)
+          acc = fmaf(qr[k], rot[static_cast<size_t>(k) * d + col], acc);
+        rq[col] = acc;
+      }
+    } else {
+      for (int k = lane; k < d; k += 32) rq[k] = qr[k];
+    }
+    __syncwarp();
+    for (int j = 0; j < w; ++j) {
+      const int a = ri[j];
+      const __nv_bfloat16* hr = hi + static_cast<size_t>(a) * d;
+      const __nv_bfloat16* lr = lo + static_cast<size_t>(a) * d;
+      __nv_bfloat16* vo = v + (qi * w + j) * d;
+      for (int k = lane; k < d; k += 32) {
+        const float rc =
+            __fadd_rn(__bfloat162float(hr[k]), __bfloat162float(lr[k]));
+        vo[k] = __float2bfloat16_rn(-2.0f * __fsub_rn(rq[k], rc));
+      }
+      if (lane == 0) {
+        vals[qi * w + j] = srow[j];
+        cells[qi * w + j] = a;
+      }
+    }
+    __syncwarp();
+  }
+}
+
 // Shared memory of a block of bq queries over chunks of kch centroids;
 // `scratch` adds the per-warp residual rows of the v/base variant.
 static size_t coarse_smem(int bq, int d, int w, int kch, bool scratch) {
@@ -292,6 +346,31 @@ extern "C" int coarse_vbase(const void* q, const void* cents, const void* cn,
         kc, w, bq, kch, apply_rot, static_cast<float*>(vals),
         static_cast<int*>(cells), static_cast<__nv_bfloat16*>(v),
         static_cast<float*>(rn));
+  return ivf_launch_status();
+}
+
+extern "C" int coarse_vbase_v2(const void* q, const void* cents,
+                               const void* cn, const void* rot,
+                               const void* hi, const void* lo, int B, int d,
+                               int kc, int w, int apply_rot, void* vals,
+                               void* cells, void* v, void* stream) {
+  const int kch = kc < KCH_MAX ? kc : KCH_MAX;
+  const int bq = coarse_pick_bq(d, w, kch, true);
+  if (bq == 0 || w < 1 || w > kch) return cudaErrorInvalidValue;
+  const size_t smem = coarse_smem(bq, d, w, kch, true);
+  int err = ivf_set_smem(reinterpret_cast<const void*>(coarse_vbase_v2_kernel),
+                         smem);
+  if (err) return err;
+  const int blocks = (B + bq - 1) / bq;
+  if (blocks > 0)
+    coarse_vbase_v2_kernel<<<blocks, CS_THREADS, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(q), static_cast<const float*>(cents),
+        static_cast<const float*>(cn), static_cast<const float*>(rot),
+        static_cast<const __nv_bfloat16*>(hi),
+        static_cast<const __nv_bfloat16*>(lo), B, d, kc, w, bq, kch,
+        apply_rot, static_cast<float*>(vals), static_cast<int*>(cells),
+        static_cast<__nv_bfloat16*>(v));
   return ivf_launch_status();
 }
 

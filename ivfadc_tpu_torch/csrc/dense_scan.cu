@@ -10,7 +10,11 @@
 //            cell (position payloads; PT = int8 for pos8, else int32); the
 //            exact merge stores absolute slots;
 //   EXACT    merge="exact" instead of the fold;
-//   EXTRACT  finish each tile with k_out min-extract passes (extract_k).
+//   EXTRACT  finish each tile with k_out min-extract passes (extract_k);
+//   QC       derive each tile's v and base in the kernel (replaces
+//            ::_grouped_scan_qc_kernel, IVFADC_VBASE=qc) from the queries
+//            and centroids instead of reading placed v/base tiles; only with
+//            in-kernel norms, id payloads and the fold.
 // Each tile (one block) holds up to pb probes of ONE cell; the block walks
 // the cell's live rows in 128-row groups, in increasing order, and for
 // probe p and group row l computes, in this order (the JAX kernel's
@@ -39,6 +43,13 @@
 //          (the first lane among ties) with its id (-1 where the minimum
 //          is +inf) and mask that lane; output (pb, k_out) per tile
 //          instead of the TPU's packed 128-lane i32 row.
+// QC prologue, per tile of cell c = ctile[t] and slot p with query
+// qi = qidx[t * pb + p] (-1: an empty slot):
+//   r    = q[qi] - c[c]                                  (f32)
+//   r    = sum_k float(bf16(r[k])) * float(R[k][col])    (OPQ only; R bf16)
+//   base = base_mult * sum_k r[k]^2 (f32; +inf for an empty slot)
+//   v    = bf16(-2 r), held for all d features in shared memory
+// then the in-kernel-norms scan above. One warp derives one slot at a time.
 // A staged group's norms are computed once, two threads a row, and shared
 // by the tile's pb probes. Probes whose base is +inf (the placement's empty
 // slots, padded probes) score +inf on every row whatever their dot
@@ -71,13 +82,26 @@ constexpr int MAX_PB = 64;
 
 enum Payload { PAY_IDS = 0, PAY_BLOCK = 1, PAY_SLOT = 2 };
 
+// The QC variant's extra inputs (null / zero for the other variants).
+struct QcArgs {
+  const int* ctile;              // (T,) the cell of each tile
+  const int* qidx;               // (T * pb,) each slot's query, -1: empty
+  const float* q;                // (B, d) queries, f32
+  const float* c;                // (kc, d) centroids, f32
+  const __nv_bfloat16* rot;      // (d, d) rotation, bf16
+  float base_mult;
+  int apply_rot;
+};
+
 // acc[i][j] += v[ty + 8i] . row[tx + 32j] over one staged feature step, for
-// the thread's first NI probe rows
-template <int NI>
+// the thread's first NI probe rows; v rows lie `vstride` apart (KT: the
+// step's slice; QC: whole rows, vs pointing at the step's first feature)
+template <int NI, bool QC>
 __device__ __forceinline__ void dot_step(float (&acc)[8][4],
                                          const __nv_bfloat16* rs,
-                                         const __nv_bfloat16* vs, int tx,
-                                         int ty) {
+                                         const __nv_bfloat16* vs, int vstride,
+                                         int tx, int ty) {
+  const int vst = QC ? vstride : KT;
   for (int kk = 0; kk < KT; ++kk) {
     float rv[4];
 #pragma unroll
@@ -86,7 +110,7 @@ __device__ __forceinline__ void dot_step(float (&acc)[8][4],
 #pragma unroll
     for (int i = 0; i < NI; ++i) {
       const float vv =
-          __bfloat162float(vs[static_cast<size_t>(ty + 8 * i) * KT + kk]);
+          __bfloat162float(vs[static_cast<size_t>(ty + 8 * i) * vst + kk]);
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(vv, rv[j], acc[i][j]);
     }
@@ -94,21 +118,30 @@ __device__ __forceinline__ void dot_step(float (&acc)[8][4],
 }
 
 template <typename ELEM, bool KNORM, int PAY, typename PT, bool EXACT,
-          bool EXTRACT>
+          bool EXTRACT, bool QC = false>
 __global__ void __launch_bounds__(GS_THREADS) grouped_scan_kernel(
     const int* __restrict__ tstart, const int* __restrict__ tsize,
     const __nv_bfloat16* __restrict__ v_tiles,
     const float* __restrict__ base_tiles, const ELEM* __restrict__ decoded,
     const float* __restrict__ scale, const int* __restrict__ ids,
     const float* __restrict__ norms, int d, int pb, int nf, int k_out,
-    float norm_coef, float* __restrict__ out_d, PT* __restrict__ out_p) {
+    float norm_coef, float* __restrict__ out_d, PT* __restrict__ out_p,
+    QcArgs qa) {
   extern __shared__ __align__(16) unsigned char smraw[];
   float* bufd = reinterpret_cast<float*>(smraw);                // pb * nf
   int* bufp = reinterpret_cast<int*>(bufd + static_cast<size_t>(pb) * nf);
   __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(
-      bufp + static_cast<size_t>(pb) * nf);                     // pb * KT
-  __nv_bfloat16* rs = vs + static_cast<size_t>(pb) * KT;        // GROUP * RS
+      bufp + static_cast<size_t>(pb) * nf);          // pb * KT (QC: pb * d)
+  // GROUP * RS (QC: at least pb * d, the OPQ prologue's bf16(r) rows, then
+  // pb floats, the tile's derived bases)
+  __nv_bfloat16* rs = vs + static_cast<size_t>(pb) * (QC ? d : KT);
   __shared__ float nrm_s[GROUP];   // KNORM: the staged group's row norms
+  // QC: the tile's bases sit in the staging area until they reach registers
+  // (before the first group is staged); in static shared memory they would
+  // cost an SM its second block at d = 128, pb = 64
+  float* base_s =
+      QC ? reinterpret_cast<float*>(rs + static_cast<size_t>(pb) * d)
+         : nullptr;
 
   const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
   const size_t t = blockIdx.x;
@@ -122,11 +155,54 @@ __global__ void __launch_bounds__(GS_THREADS) grouped_scan_kernel(
     bufd[i] = IVF_INF;
     bufp[i] = -1;
   }
+  if (QC) {
+    const float* crow = qa.c + static_cast<size_t>(qa.ctile[t]) * d;
+    for (int p = ty; p < pb; p += GS_THREADS / 32) {
+      const int qi = qa.qidx[t * pb + p];           // warp-uniform
+      __nv_bfloat16* vrow = vs + static_cast<size_t>(p) * d;
+      if (qi < 0) {
+        for (int k = tx; k < d; k += 32) vrow[k] = __float2bfloat16_rn(0.f);
+        if (tx == 0) base_s[p] = IVF_INF;
+        continue;
+      }
+      const float* qrow = qa.q + static_cast<size_t>(qi) * d;
+      float ss = 0.f;
+      if (!qa.apply_rot) {
+        for (int k = tx; k < d; k += 32) {
+          const float r = __fsub_rn(qrow[k], crow[k]);
+          ss = __fadd_rn(ss, __fmul_rn(r, r));
+          vrow[k] = __float2bfloat16_rn(-2.0f * r);
+        }
+      } else {
+        __nv_bfloat16* rb = rs + static_cast<size_t>(p) * d;
+        for (int k = tx; k < d; k += 32)
+          rb[k] = __float2bfloat16_rn(__fsub_rn(qrow[k], crow[k]));
+        __syncwarp();
+        for (int col = tx; col < d; col += 32) {
+          float acc = 0.f;
+          for (int k = 0; k < d; ++k)
+            acc = fmaf(__bfloat162float(rb[k]),
+                       __bfloat162float(qa.rot[static_cast<size_t>(k) * d +
+                                               col]),
+                       acc);
+          ss = __fadd_rn(ss, __fmul_rn(acc, acc));
+          vrow[col] = __float2bfloat16_rn(-2.0f * acc);
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        ss = __fadd_rn(ss, __shfl_xor_sync(IVF_FULL_MASK, ss, off));
+      if (tx == 0) base_s[p] = __fmul_rn(qa.base_mult, ss);
+    }
+    __syncthreads();
+  }
   float basev[8];
   int nlive = 0;                   // probe rows up to the last finite base
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    basev[i] = i < np ? base_tiles[t * pb + ty + 8 * i] : IVF_INF;
+    basev[i] = i >= np ? IVF_INF
+               : QC    ? base_s[ty + 8 * i]
+                       : base_tiles[t * pb + ty + 8 * i];
     if (basev[i] < IVF_INF) nlive = i + 1;
   }
   const __nv_bfloat16* vt = v_tiles + t * pb * d;
@@ -145,7 +221,7 @@ __global__ void __launch_bounds__(GS_THREADS) grouped_scan_kernel(
     for (int kb = 0; kb < nk; ++kb) {
       const int k0 = kb * KT;
       __syncthreads();  // buffers initialised / previous step's reads done
-      if (nk > 1 || G == 0) {
+      if (!QC && (nk > 1 || G == 0)) {
         for (int i = tid; i < pb * (KT / 8); i += GS_THREADS) {
           const int p = i / (KT / 8), s = i - p * (KT / 8);
           reinterpret_cast<uint4*>(vs + static_cast<size_t>(p) * KT)[s] =
@@ -174,15 +250,16 @@ __global__ void __launch_bounds__(GS_THREADS) grouped_scan_kernel(
                                        __fmul_rn(r2.y, r2.y))));
           }
       }
+      const __nv_bfloat16* vk = QC ? vs + k0 : vs;
       switch (nlive) {             // warp-uniform: one warp, one ty
-        case 1: dot_step<1>(acc, rs, vs, tx, ty); break;
-        case 2: dot_step<2>(acc, rs, vs, tx, ty); break;
-        case 3: dot_step<3>(acc, rs, vs, tx, ty); break;
-        case 4: dot_step<4>(acc, rs, vs, tx, ty); break;
-        case 5: dot_step<5>(acc, rs, vs, tx, ty); break;
-        case 6: dot_step<6>(acc, rs, vs, tx, ty); break;
-        case 7: dot_step<7>(acc, rs, vs, tx, ty); break;
-        case 8: dot_step<8>(acc, rs, vs, tx, ty); break;
+        case 1: dot_step<1, QC>(acc, rs, vk, d, tx, ty); break;
+        case 2: dot_step<2, QC>(acc, rs, vk, d, tx, ty); break;
+        case 3: dot_step<3, QC>(acc, rs, vk, d, tx, ty); break;
+        case 4: dot_step<4, QC>(acc, rs, vk, d, tx, ty); break;
+        case 5: dot_step<5, QC>(acc, rs, vk, d, tx, ty); break;
+        case 6: dot_step<6, QC>(acc, rs, vk, d, tx, ty); break;
+        case 7: dot_step<7, QC>(acc, rs, vk, d, tx, ty); break;
+        case 8: dot_step<8, QC>(acc, rs, vk, d, tx, ty); break;
         default: break;
       }
     }
@@ -283,14 +360,14 @@ __global__ void __launch_bounds__(GS_THREADS) grouped_scan_kernel(
 }
 
 template <typename ELEM, bool KNORM, int PAY, typename PT, bool EXACT,
-          bool EXTRACT>
+          bool EXTRACT, bool QC = false>
 static int launch_grouped_scan(const void* tstart, const void* tsize,
                                const void* v_tiles, const void* base_tiles,
                                const void* decoded, const void* scale,
                                const void* ids, const void* norms, int T,
                                int d, int pb, int nf, int k_out,
                                float norm_coef, void* out_d, void* out_p,
-                               void* stream) {
+                               void* stream, QcArgs qa = QcArgs{}) {
   if (pb <= 0 || pb % 8 || pb > MAX_PB || nf <= 0 || nf % GROUP ||
       d <= 0 || d % KT)
     return cudaErrorInvalidValue;
@@ -298,17 +375,22 @@ static int launch_grouped_scan(const void* tstart, const void* tsize,
     return cudaErrorInvalidValue;
   if (EXTRACT && (k_out < 1 || 2 * k_out > GROUP))
     return cudaErrorInvalidValue;
-  const size_t smem = static_cast<size_t>(pb) * nf * 8 +
-                      static_cast<size_t>(pb) * KT * 2 +
-                      static_cast<size_t>(GROUP) * RS * 2;
+  const size_t vs_elems = static_cast<size_t>(pb) * (QC ? d : KT);
+  const size_t qc_elems = static_cast<size_t>(pb) * (d + 2);  // r rows, bases
+  const size_t rs_elems =
+      QC && qc_elems > static_cast<size_t>(GROUP) * RS
+          ? qc_elems
+          : static_cast<size_t>(GROUP) * RS;
+  const size_t smem =
+      static_cast<size_t>(pb) * nf * 8 + (vs_elems + rs_elems) * 2;
   if (smem > 226u * 1024u) return cudaErrorInvalidValue;
   int err = ivf_set_smem(
       reinterpret_cast<const void*>(
-          grouped_scan_kernel<ELEM, KNORM, PAY, PT, EXACT, EXTRACT>),
+          grouped_scan_kernel<ELEM, KNORM, PAY, PT, EXACT, EXTRACT, QC>),
       smem);
   if (err) return err;
   if (T > 0)
-    grouped_scan_kernel<ELEM, KNORM, PAY, PT, EXACT, EXTRACT>
+    grouped_scan_kernel<ELEM, KNORM, PAY, PT, EXACT, EXTRACT, QC>
         <<<T, GS_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(tstart), static_cast<const int*>(tsize),
         static_cast<const __nv_bfloat16*>(v_tiles),
@@ -316,7 +398,7 @@ static int launch_grouped_scan(const void* tstart, const void* tsize,
         static_cast<const ELEM*>(decoded), static_cast<const float*>(scale),
         static_cast<const int*>(ids), static_cast<const float*>(norms), d, pb,
         nf, k_out, norm_coef, static_cast<float*>(out_d),
-        static_cast<PT*>(out_p));
+        static_cast<PT*>(out_p), qa);
   return ivf_launch_status();
 }
 
@@ -352,3 +434,25 @@ static int launch_grouped_scan(const void* tstart, const void* tsize,
 
 GROUPED_ENTRIES(, int8_t)
 GROUPED_ENTRIES(_bf16, __nv_bfloat16)
+
+// The QC variant (in-kernel norms, id payloads, fold) with its own
+// signature: the tile cells, slot queries, queries, centroids and bf16
+// rotation replace the placed v/base tiles.
+#define GROUPED_QC_ENTRY(NAME, ELEM)                                         \
+  extern "C" int NAME(const void* tstart, const void* tsize,                 \
+                      const void* ctile, const void* qidx, const void* q,    \
+                      const void* c, const void* rot, const void* decoded,   \
+                      const void* scale, const void* ids, int T, int d,      \
+                      int pb, int nf, float norm_coef, float base_mult,      \
+                      int apply_rot, void* out_d, void* out_p,               \
+                      void* stream) {                                        \
+    QcArgs qa{static_cast<const int*>(ctile), static_cast<const int*>(qidx), \
+              static_cast<const float*>(q), static_cast<const float*>(c),    \
+              static_cast<const __nv_bfloat16*>(rot), base_mult, apply_rot}; \
+    return launch_grouped_scan<ELEM, true, PAY_IDS, int, false, false, true>( \
+        tstart, tsize, nullptr, nullptr, decoded, scale, ids, nullptr, T, d, \
+        pb, nf, 0, norm_coef, out_d, out_p, stream, qa);                     \
+  }
+
+GROUPED_QC_ENTRY(grouped_scan_qc, int8_t)
+GROUPED_QC_ENTRY(grouped_scan_qc_bf16, __nv_bfloat16)

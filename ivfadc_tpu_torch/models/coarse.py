@@ -52,10 +52,11 @@ class NaiveCoarseQuantizer:
                 f"{self.dim}×{self.kc} cluster centres")
 
     def search(self, queries: torch.Tensor, w: int, *,
-               extract: bool = False):
+               extract: bool = False, rank_engine: str | None = None):
         """(B, d) queries -> (cells (B, w) int32, dists (B, w) f32
         ascending; squared distances under both euclidean metrics).
-        `extract` (IVFADC_EXTRACT) concerns the two-level quantizer only."""
+        `extract` (IVFADC_EXTRACT) and `rank_engine` (IVFADC_RANK_ENGINE)
+        concern the two-level quantizer only."""
         from ivfadc_tpu_torch.ops.coarse_scan import coarse_topw
         from ivfadc_tpu_torch.ops.topk import topk_lastdim
         if (self.metric.name in ("sqeuclidean", "euclidean")
@@ -171,11 +172,12 @@ class TwoLevelCoarseQuantizer:
                 f"(gp={self.n_probe_groups})")
 
     def search(self, queries: torch.Tensor, w: int, *,
-               extract: bool = False):
+               extract: bool = False, rank_engine: str | None = None):
         """(B, d) queries -> (cells (B, w) int32, dists (B, w) f32
         ascending). Fewer candidates than w: the tail is cell 0 at +inf.
         `extract` (IVFADC_EXTRACT) runs the scan stage 2 with in-kernel
-        extraction."""
+        extraction; `rank_engine` (IVFADC_RANK_ENGINE) picks its cell-rank
+        kernel."""
         from ivfadc_tpu_torch.ops.topk import topk_lastdim
         queries = queries.to(torch.float32)
         gp = min(self.n_probe_groups, self.group_centers.shape[0])
@@ -185,7 +187,8 @@ class TwoLevelCoarseQuantizer:
         # the (sq)euclidean pairwise; other metrics stay on the exact gather
         scan_ok = self.metric.name in ("sqeuclidean", "euclidean")
         if self.kc > self._GATHER_MAX and scan_ok:
-            return self._scan_stage2(queries, gids, gp, w, extract=extract)
+            return self._scan_stage2(queries, gids, gp, w, extract=extract,
+                                     rank_engine=rank_engine)
         cand = self.members[gids.to(torch.int64)] \
             .reshape(queries.shape[0], -1)
         valid = cand >= 0
@@ -199,7 +202,7 @@ class TwoLevelCoarseQuantizer:
                           dists, w)
 
     def _scan_stage2(self, queries, gids, gp: int, w: int, *,
-                     extract: bool = False):
+                     extract: bool = False, rank_engine: str | None = None):
         """Stage 2 through the grouped scan (|q-c|^2 = |q|^2 - 2 q.c +
         |c|^2 with bf16 products, f32 accumulation). `extract`: each group
         probe's top-w leaves the kernel instead of its 128-lane buffer
@@ -216,7 +219,8 @@ class TwoLevelCoarseQuantizer:
             self.cent_scale, self.perm2d, None,
             kc=self.group_centers.shape[0], k_out=k_out, chunk=512,
             norm_coef=1.0, pb=64, merge="fold", nf=128,
-            extract_k=k_out if 2 * k_out <= 128 and extract else 0)
+            extract_k=k_out if 2 * k_out <= 128 and extract else 0,
+            rank_engine=rank_engine)
         nf = out_d.shape[-1]
         flat_d = out_d.reshape(B, gp * nf)
         flat_p = out_p.reshape(B, gp * nf)       # emitted CELL ids

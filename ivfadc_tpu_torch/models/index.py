@@ -10,7 +10,9 @@ the naive or the two-level coarse quantizer.
           grouped scan -> top-k merge: over id payloads (128-row cells,
           fold; IVFADC_EXTRACT=1: over each probe's extracted top-k), or
           over block indices / slots resolved to ids (8-row cells; the
-          exact merge)
+          exact merge); IVFADC_VBASE=qc on the sqeuclidean naive-coarse
+          fold: fused probe (cells only) -> cell ranks -> grouped scan
+          deriving v / base in the kernel -> top-k merge
   dense search, B*w < 4*kc (single queries included): fused coarse probe ->
           per-probe scan -> top-k with indices -> slot positions -> ids
   both scans take the int8 or the bf16 decoded cache (scan_cache) and the
@@ -21,10 +23,14 @@ the naive or the two-level coarse quantizer.
   LUT search (scan_mode="lut", k > 128, "auto" off the GPU): coarse search
           -> ADC tables -> window gather + table lookups -> k smallest
 
-Routes that are not ported yet raise NotImplementedError naming their
-ROADMAP item instead of silently taking another route: OPQ training, the
-gathered tiny-cell engine, and the JAX package's opt-in engines other than
-IVFADC_NORMS and IVFADC_EXTRACT.
+The JAX package's opt-in engines are read per search, as it reads them:
+IVFADC_VBASE (place | qc), IVFADC_COARSE_ENGINE and IVFADC_RANK_ENGINE
+(v1 | v2), IVFADC_MERGE_TOPK (pallas | approx, served by the exact payload
+top-k, which is what the JAX package's approx_min_k computes off the TPU),
+IVFADC_EXTRACT; IVFADC_NORMS when the dense view is built. An unknown value
+raises ValueError. Routes that are not ported yet raise
+NotImplementedError naming their ROADMAP item instead of silently taking
+another route: OPQ training and the gathered tiny-cell engine.
 """
 
 from __future__ import annotations
@@ -60,16 +66,10 @@ _STREAM_COARSE_GROUPS = 2
 # queries are independent)
 _LUT_BLOCK_ELEMS = 1 << 24
 
-# The JAX package's opt-in engines, selected there by environment variables.
-# These are not ported, so asking for one fails instead of running the
-# default. (IVFADC_NORMS is honoured by `PostingStore.device_view_dense`,
-# IVFADC_EXTRACT by `_env_extract`.)
-_UNPORTED_ENGINES = {
-    "IVFADC_VBASE": ("place", "qc: in-kernel v/base grouped scan, ROADMAP B.9"),
-    "IVFADC_COARSE_ENGINE": ("v1", "v2 coarse probe, ROADMAP B.10"),
-    "IVFADC_RANK_ENGINE": ("v1", "v2 cell ranks, ROADMAP B.11"),
-    "IVFADC_MERGE_TOPK": ("pallas", "approximate merge top-k"),
-}
+# the qc route's bounds on the resident queries and centroids (the JAX
+# package's VMEM gates, kept so both packages take the same route)
+_QC_MAX_QUERY_BYTES = 6 << 20
+_QC_MAX_CENT_BYTES = 4 << 20
 
 
 def _env_extract() -> bool:
@@ -80,12 +80,34 @@ def _env_extract() -> bool:
             and os.environ.get("IVFADC_NO_EXTRACT", "0") in ("", "0"))
 
 
-def _check_engines() -> None:
-    for var, (default, what) in _UNPORTED_ENGINES.items():
-        val = os.environ.get(var, default)
-        if val not in (default, ""):
-            raise NotImplementedError(f"{var}={val} selects an engine that "
-                                      f"is not ported yet ({what})")
+def _env_rank_engine() -> str:
+    """IVFADC_RANK_ENGINE: "v1" (default) or "v2" cell-rank kernel."""
+    return os.environ.get("IVFADC_RANK_ENGINE", "v1")
+
+
+def _env_vbase() -> str:
+    """IVFADC_VBASE: "place" (default: placed v/base tiles) or "qc" (v and
+    base derived in the scan kernel, where the qc gate admits the batch)."""
+    vbase = os.environ.get("IVFADC_VBASE", "place")
+    if vbase not in ("place", "qc"):
+        raise ValueError(f"IVFADC_VBASE must be 'place' or 'qc', got "
+                         f"{vbase!r}")
+    return vbase
+
+
+def _env_coarse_engine() -> str:
+    """IVFADC_COARSE_ENGINE: "v1" (default) or "v2" fused coarse probe."""
+    return os.environ.get("IVFADC_COARSE_ENGINE", "v1")
+
+
+def _env_merge_topk() -> str:
+    """IVFADC_MERGE_TOPK: "pallas" (default) or "approx", the latter with
+    its recall target folded in ("approx:0.95", IVFADC_MERGE_RECALL), as
+    the JAX package spells it."""
+    eng = os.environ.get("IVFADC_MERGE_TOPK", "pallas")
+    if eng == "approx":
+        return f"approx:{float(os.environ.get('IVFADC_MERGE_RECALL', '0.95'))}"
+    return eng
 
 
 class _PhaseTimer:
@@ -138,23 +160,36 @@ def _train_components(xd: torch.Tensor, config: IVFADCConfig,
     return cres, residuals, quantizer
 
 
+def _fused_probe_ok(cq, rotation, queries, w: int, metric: Metric,
+                    residual_based: bool) -> bool:
+    """Whether the fused coarse probe serves this search: a residual
+    (sq)euclidean quantizer over a naive (sq)euclidean coarse quantizer,
+    w <= 128 and no ragged-subspace padding."""
+    return (residual_based and metric.name in ("sqeuclidean", "euclidean")
+            and isinstance(cq, NaiveCoarseQuantizer)
+            and cq.metric.name in ("sqeuclidean", "euclidean")
+            and w <= 128 and rotation.shape[0] == queries.shape[1])
+
+
 def _dense_probe(cq, rotation, queries, *, w: int, metric: Metric,
                  include_base: bool, apply_rot: bool, residual_based: bool,
-                 extract: bool = False):
+                 extract: bool = False, coarse_engine: str | None = None,
+                 rank_engine: str | None = None):
     """Coarse probe + scan-vector prep -> (cells (B,w), v (B,w,dq),
     base (B,w), norm_coef)."""
     queries = queries.to(torch.float32)
     B, d = queries.shape
     dq = rotation.shape[0]                                # quantizer dim
-    if (residual_based and metric.name in ("sqeuclidean", "euclidean")
-            and isinstance(cq, NaiveCoarseQuantizer)
-            and cq.metric.name in ("sqeuclidean", "euclidean")
-            and w <= 128 and dq == d):
-        # fully fused coarse probe: cells / v / base from one kernel
+    if _fused_probe_ok(cq, rotation, queries, w, metric, residual_based):
+        # fully fused coarse probe: cells / v / base from one kernel; the
+        # rotation is the PQ identity or OPQ's orthogonal Procrustes
+        # solution, so the v2 engine's score-derived base holds
         cells, _, v, base = coarse_probe_vbase(
-            queries, cq.centroids, w, rotation, apply_rot, include_base)
+            queries, cq.centroids, w, rotation, apply_rot, include_base,
+            engine=coarse_engine, rot_orthogonal=True)
         return cells, v, base, 1.0
-    cells, cdists = cq.search(queries, w, extract=extract)
+    cells, cdists = cq.search(queries, w, extract=extract,
+                              rank_engine=rank_engine)
     cent = cq.centroids[cells.to(torch.int64)]            # (B, w, d)
     if residual_based:
         r = queries[:, None, :] - cent
@@ -187,7 +222,8 @@ def _dense_probe(cq, rotation, queries, *, w: int, metric: Metric,
 
 def _lut_search(cq, codebooks, rotation, view, queries, *, k: int, w: int,
                 window: int, metric: Metric, include_base: bool,
-                apply_rot: bool, residual_based: bool, extract: bool = False):
+                apply_rot: bool, residual_based: bool, extract: bool = False,
+                rank_engine: str | None = None):
     """LUT search: coarse probe -> ADC tables -> posting scan -> k smallest,
     in query blocks that bound the scan's (queries, w, window) temporaries.
     Returns raw (ids, dists); the caller applies `metric.finalize`."""
@@ -199,7 +235,8 @@ def _lut_search(cq, codebooks, rotation, view, queries, *, k: int, w: int,
     outs = []
     for s in range(0, queries.shape[0], block):
         q = queries[s:s + block]
-        cells, cdists = cq.search(q, w, extract=extract)      # (b, w)
+        cells, cdists = cq.search(q, w, extract=extract,
+                                  rank_engine=rank_engine)    # (b, w)
         cent = cq.centroids[cells.to(torch.int64)]            # (b, w, d)
         if residual_based:
             vecs = q[:, None, :] - cent
@@ -231,10 +268,16 @@ def _pad_to_k(out_ids, out_dists, k):
     return out_ids, out_dists
 
 
-def _topk_ids(flat_d, flat_i, k):
+def _topk_ids(flat_d, flat_i, k, engine: str = "pallas"):
     """Top-k over id-payload candidate rows -> ((B, k) ids, (B, k) dists),
-    inf-padded past the per-query candidate supply."""
+    inf-padded past the per-query candidate supply. `engine` is
+    IVFADC_MERGE_TOPK: "approx[:<recall>]" selects the JAX package's
+    lax.approx_min_k, which is exact off the TPU (a full sort); the port
+    serves it with the exact payload top-k kernel, as "pallas"."""
     from ivfadc_tpu_torch.ops.topk import topk_lastdim_payload
+    if engine != "pallas" and not engine.startswith("approx"):
+        raise ValueError(f"IVFADC_MERGE_TOPK must be 'pallas' or 'approx', "
+                         f"got {engine!r}")
     k_eff = min(k, flat_d.shape[1])
     if flat_d.shape[1] % 128 != 0:
         pad = 128 - flat_d.shape[1] % 128
@@ -273,7 +316,8 @@ def _topk_positions(flat_d, flat_p, k, cells, offsets, n_cand, ids,
 
 def _dense_finish(cells, v, base, dev, *, k, w, chunk, pb, nf, norm_coef,
                   merge: str = "fold", pos8: bool = False,
-                  extract: bool = False):
+                  extract: bool = False, rank_engine: str | None = None,
+                  merge_topk: str = "pallas"):
     """Scan + merge (the JAX `_dense_finish`): returns raw (ids, dists);
     the caller applies `metric.finalize`. Batches whose probes share cells
     (B*w >= 4*kc) take the cell-grouped scan, smaller ones the per-probe
@@ -285,23 +329,24 @@ def _dense_finish(cells, v, base, dev, *, k, w, chunk, pb, nf, norm_coef,
     if B * w >= 4 * kc_:
         from ivfadc_tpu_torch.ops.dense_scan import grouped_dense_scan
         # id emission needs the fold and 128-row cells; extraction needs id
-        # emission, and runs with the row norms computed in the kernel
+        # emission, and runs with the row norms computed in the kernel; a
+        # score without a norm term (inner product) reads no norms stream
         emit_ids = merge == "fold" and dev["ids2d"] is not None
         extract_k = k_out if (emit_ids and 2 * k_out <= 128
                               and extract) else 0
         use_norms = (dev["norms2d"] is not None and emit_ids
-                     and not extract_k)
+                     and not extract_k and norm_coef != 0.0)
         out_d, out_p = grouped_dense_scan(
             cells, dev["offsets"], dev["sizes"], v, base, dev["decoded"],
             dev["scale"], dev["ids2d"] if emit_ids else None,
             dev["norms2d"] if use_norms else None, kc=kc_, k_out=k_out,
             chunk=chunk, norm_coef=norm_coef, pb=pb, merge=merge, nf=n_lanes,
-            pos8=pos8, extract_k=extract_k)
+            pos8=pos8, extract_k=extract_k, rank_engine=rank_engine)
         n_cand = out_d.shape[-1]
         flat_d = out_d.reshape(B, w * n_cand)
         flat_p = out_p.reshape(B, w * n_cand)
         if emit_ids:
-            return _topk_ids(flat_d, flat_p, k)
+            return _topk_ids(flat_d, flat_p, k, merge_topk)
         return _topk_positions(flat_d, flat_p, k, cells, dev["offsets"],
                                n_cand, dev["ids"], merge)
     # mostly-distinct cells: grouping would emit about one tile per probe
@@ -431,7 +476,6 @@ class IVFADCIndex:
             raise AssertionError(
                 f"{len(self)} vectors exceed the device int32 id cap "
                 f"({device_id_cap()})")
-        _check_engines()
         extract = _env_extract()
         w = min(w, self.config.kc)
         dev = self.device
@@ -459,7 +503,7 @@ class IVFADCIndex:
                 include_base=include_base,
                 apply_rot=self.quantizer.method == "opq",
                 residual_based=self.quant_metric.residual_based,
-                extract=extract)
+                extract=extract, rank_engine=_env_rank_engine())
         out_dists = self.quant_metric.finalize(out_dists)
         if Bp == B:
             return out_ids, out_dists
@@ -471,21 +515,80 @@ class IVFADCIndex:
             raise NotImplementedError(
                 "the gathered tiny-cell engine is not ported yet "
                 "(ROADMAP A.10)")
+        engines = dict(coarse_engine=_env_coarse_engine(),
+                       rank_engine=_env_rank_engine())
+        merge_topk, vbase = _env_merge_topk(), _env_vbase()
         view = self.store.device_view_dense(self.quantizer,
                                             self.config.scan_chunk,
                                             cache=self._resolve_cache())
+        merge = self._resolve_merge_mode()
+        apply_rot = self.quantizer.method == "opq"
+        if vbase == "qc" and self._qc_ok(q, w, view, merge, extract):
+            return self._qc_search(q, k, w, include_base, view, apply_rot,
+                                   merge_topk, **engines)
         cells, v, base, norm_coef = _dense_probe(
             self.coarse, self.quantizer.rotation, q, w=w,
             metric=self.quant_metric, include_base=include_base,
-            apply_rot=self.quantizer.method == "opq",
-            residual_based=self.quant_metric.residual_based, extract=extract)
+            apply_rot=apply_rot,
+            residual_based=self.quant_metric.residual_based, extract=extract,
+            **engines)
         return _dense_finish(
             cells, v, base, view, k=k, w=w, chunk=self._effective_chunk(),
             pb=self.config.scan_pb, nf=self.config.scan_fold_lanes,
-            norm_coef=norm_coef, merge=self._resolve_merge_mode(),
+            norm_coef=norm_coef, merge=merge,
             # int8 block indices while every cell holds at most 127 blocks
             pos8=bool(int(self.store.caps.max(initial=0)) <= 127 * 128),
-            extract=extract)
+            extract=extract, rank_engine=engines["rank_engine"],
+            merge_topk=merge_topk)
+
+    def _qc_ok(self, q, w: int, view, merge: str, extract: bool) -> bool:
+        """The JAX package's gate of the qc route, letter for letter: the
+        residual sqeuclidean quantizer over the naive sqeuclidean coarse
+        quantizer, emitted ids, the fold, no extraction, a grouped batch
+        (B*w >= 4*kc) of the counting prep (kc <= 4096), and the resident
+        queries (<= 6 MiB) and centroids (<= 4 MiB) in f32 at d_dec
+        features. (The gathered engine, the gate's last term, raises
+        earlier.)"""
+        from ivfadc_tpu_torch.ops.cell_rank import MAX_KC
+        B = q.shape[0]
+        kc = view["offsets"].shape[0]
+        d_dec = view["decoded"].shape[-1]
+        cq = self.coarse
+        return (self.quant_metric.residual_based
+                and self.quant_metric.name == "sqeuclidean"
+                and isinstance(cq, NaiveCoarseQuantizer)
+                and cq.metric.name == "sqeuclidean"
+                and view["ids2d"] is not None and merge == "fold"
+                and not extract and B * w >= 4 * kc and kc <= MAX_KC
+                and B * d_dec * 4 <= _QC_MAX_QUERY_BYTES
+                and kc * d_dec * 4 <= _QC_MAX_CENT_BYTES)
+
+    def _qc_search(self, q, k: int, w: int, include_base: bool, view,
+                   apply_rot: bool, merge_topk: str, *, coarse_engine: str,
+                   rank_engine: str):
+        """The qc route: cells from the fused probe (its v / base are not
+        used) or the quantizer's search, then the grouped scan that derives
+        v and base in its kernel, then the id top-k. Raw (ids, dists)."""
+        from ivfadc_tpu_torch.ops.dense_scan import grouped_dense_scan_qc
+        cq, rot = self.coarse, self.quantizer.rotation
+        B = q.shape[0]
+        if _fused_probe_ok(cq, rot, q, w, self.quant_metric, True):
+            cells = coarse_probe_vbase(q, cq.centroids, w, rot, apply_rot,
+                                       include_base, engine=coarse_engine,
+                                       rot_orthogonal=True)[0]
+        else:
+            cells, _ = cq.search(q, w, rank_engine=rank_engine)
+        out_d, out_p = grouped_dense_scan_qc(
+            cells, view["offsets"], view["sizes"], q, cq.centroids,
+            rot if apply_rot else None, view["decoded"], view["scale"],
+            view["ids2d"], kc=view["offsets"].shape[0],
+            chunk=self._effective_chunk(), norm_coef=1.0,
+            pb=self.config.scan_pb, nf=self.config.scan_fold_lanes,
+            apply_rot=apply_rot, base_mult=2.0 if include_base else 1.0,
+            rank_engine=rank_engine)
+        n_cand = out_d.shape[-1]
+        return _topk_ids(out_d.reshape(B, w * n_cand),
+                         out_p.reshape(B, w * n_cand), k, merge_topk)
 
     def _effective_chunk(self) -> int:
         """Scan chunk adapted to the cell-size distribution: the p95 cell

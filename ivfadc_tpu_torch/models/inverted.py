@@ -210,9 +210,11 @@ class PostingStore:
         change neither dot products nor norms); ids, and — for 128-row
         aligned stores — ids2d and the cached row norms norms2d in
         (rows/128, 128) layout. The view is rebuilt when the cache type
-        changes. IVFADC_NORMS set to anything but "cache" leaves norms2d
-        out (None): the grouped scan then computes the row norms in its
-        kernel."""
+        changes or after `_invalidate()`. IVFADC_NORMS is read when the view
+        is built, as the JAX package reads it: set to anything but "cache"
+        it leaves norms2d out (None), and the grouped scan then computes
+        the row norms in its kernel; toggling it takes effect at the next
+        rebuild."""
         from ivfadc_tpu_torch.ops import pq as pq_ops
         if cache not in ("int8", "bf16"):
             raise ValueError(f"cache must be 'int8' or 'bf16', got {cache!r}")
@@ -241,13 +243,17 @@ class PostingStore:
             ids2d = None
             if self.align % _LANE == 0 and ids.shape[0] % _LANE == 0:
                 ids2d = ids.reshape(-1, _LANE)
+            norms2d = None
+            if ids2d is not None and \
+                    os.environ.get("IVFADC_NORMS", "cache") == "cache":
+                norms2d = _row_norms(decoded, scale).reshape(-1, _LANE)
             self._device_dense = dict(
-                decoded=decoded, ids=ids, ids2d=ids2d, norms2d=None,
+                decoded=decoded, ids=ids, ids2d=ids2d, norms2d=norms2d,
                 scale=scale, cache=cache, **self._csr_on_device())
-        view = self._device_dense
-        if os.environ.get("IVFADC_NORMS", "cache") != "cache":
-            return {**view, "norms2d": None}
-        if view["norms2d"] is None and view["ids2d"] is not None:
-            view["norms2d"] = _row_norms(view["decoded"], view["scale"]) \
-                .reshape(-1, _LANE)
-        return view
+        return self._device_dense
+
+    def _invalidate(self) -> None:
+        """Drop the cached device views; the next search rebuilds them (and
+        reads IVFADC_NORMS again)."""
+        self._device = None
+        self._device_dense = None

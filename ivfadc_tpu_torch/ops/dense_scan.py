@@ -26,9 +26,14 @@ that the JAX package reaches, one CUDA kernel template each
 
 each over the int8 decoded cache (per-column scale) or the bf16 one (rows
 read as they are). The tile prep ranks the probes within their cells by
-the counting kernel (`cell_ranks`, kc <= MAX_KC) or by one sort (kc >
-MAX_KC); `place_tiles` shares the rest: `_tile_map`, the `inv_row`
-placement with its zero v-row and +inf base-row, and the output row gather.
+the counting kernel (`cell_ranks`, kc <= MAX_KC, engine v1 or v2) or by one
+sort (kc > MAX_KC); `place_tiles` shares the rest: `_tile_map`, the
+`inv_row` placement with its zero v-row and +inf base-row, and the output
+row gather.
+
+`grouped_dense_scan_qc` (IVFADC_VBASE=qc) is the "knorm" variant without
+the placement: each slot carries only its query's index, and the kernel
+(`QC_KERNELS`) derives v and base from the queries and the tile's centroid.
 
 `dense_scan` is the per-probe scan of batches too small to share cells
 (B*w < 4*kc, single queries included): one kernel launch over all probes
@@ -69,6 +74,11 @@ PROBE_KERNELS = {
     (merge, elem): _build.Kernel("probe_scan", _entry("probe_scan", merge,
                                                       elem), _PROBE_ARGS)
     for merge in ("fold", "exact") for elem in ("int8", "bf16")}
+QC_KERNELS = {
+    elem: _build.Kernel("dense_scan", _entry("grouped_scan", "qc", elem),
+                        [_build.P] * 10 + [_build.I] * 4 + [_build.F] * 2
+                        + [_build.I] + [_build.P] * 3)
+    for elem in ("int8", "bf16")}
 KERNEL = GROUPED_KERNELS["ids", "int8"]
 NORMS_KERNEL = GROUPED_KERNELS["knorm", "int8"]
 PROBE_KERNEL = PROBE_KERNELS["fold", "int8"]
@@ -280,9 +290,9 @@ def grouped_scan(tile_start, tile_size, v_tiles, base_tiles, decoded, scale,
 
 def _tile_map(counts, offsets, sizes, pb: int, T_max: int, kc: int):
     """Tile bookkeeping: cell c owns ceil(counts[c]/pb) consecutive tiles
-    starting at tile_base[c]. Returns (tile_base (kc,), tile_start,
-    tile_size (T_max,) i32): each tile's cell row range, zero on tiles past
-    the last one needed."""
+    starting at tile_base[c]. Returns (tile_base (kc,), c_t, tile_start,
+    tile_size (T_max,) i32): each tile's cell (clamped to kc - 1 past the
+    last tile needed) and cell row range (zero past the last tile)."""
     dev = counts.device
     nt = (counts.to(torch.int64) + pb - 1) // pb          # tiles per cell
     tile_base = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
@@ -293,14 +303,16 @@ def _tile_map(counts, offsets, sizes, pb: int, T_max: int, kc: int):
     tile_valid = trange < torch.sum(nt)
     tile_start = torch.where(tile_valid, offsets.to(torch.int64)[c_t], 0)
     tile_size = torch.where(tile_valid, sizes.to(torch.int64)[c_t], 0)
-    return tile_base, tile_start.to(torch.int32), tile_size.to(torch.int32)
+    return (tile_base, c_t.to(torch.int32), tile_start.to(torch.int32),
+            tile_size.to(torch.int32))
 
 
 def grouped_dense_scan(cells, offsets, sizes, v, base, decoded, scale=None,
                        ids2d=None, norms2d=None, *, kc: int, k_out: int,
                        chunk: int, norm_coef: float = 1.0, pb: int = 16,
                        merge: str = "fold", nf: int = _CAND,
-                       pos8: bool = False, extract_k: int = 0):
+                       pos8: bool = False, extract_k: int = 0,
+                       rank_engine: str | None = None):
     """Cell-major grouped scan (the JAX `grouped_dense_scan`).
 
     cells (B, w) i32; offsets/sizes (kc,) i32; v (B, w, d) bf16; base (B, w)
@@ -316,7 +328,7 @@ def grouped_dense_scan(cells, offsets, sizes, v, base, decoded, scale=None,
     2 * extract_k <= 128): (dists, ids (B, w, extract_k)), each probe's
     extract_k best. `chunk` is kept for the JAX signature: the CUDA kernels
     walk 128-row groups, and nf | chunk makes the fold's result independent
-    of it.
+    of it. `rank_engine` picks the counting kernel's engine (kc <= MAX_KC).
     """
     if nf % _CAND or chunk % nf:
         raise ValueError(f"nf must be a 128-multiple dividing chunk, "
@@ -327,7 +339,7 @@ def grouped_dense_scan(cells, offsets, sizes, v, base, decoded, scale=None,
         v = torch.nn.functional.pad(v, (0, d_dec - v.shape[-1]))
     B, w, _ = v.shape
     tile_start, tile_size, v_tiles, base_tiles, row = place_tiles(
-        cells, offsets, sizes, v, base, kc=kc, pb=pb)
+        cells, offsets, sizes, v, base, kc=kc, pb=pb, rank_engine=rank_engine)
     out_d, out_p = grouped_scan(tile_start, tile_size, v_tiles, base_tiles,
                                 decoded, scale, ids2d, norms2d, pb=pb, nf=nf,
                                 norm_coef=norm_coef, merge=merge, pos8=pos8,
@@ -358,34 +370,49 @@ def sort_ranks(cells_flat, kc: int):
     return ranks, counts.to(torch.int32)
 
 
-def place_tiles(cells, offsets, sizes, v, base, *, kc: int, pb: int):
-    """The tile prep: group the B*w probes by cell into tiles of pb probes
-    of one cell, probes of a cell in probe order. Ranks within the cells
-    come from the counting kernel (kc <= MAX_KC) or from one sort
-    (`sort_ranks`, kc > MAX_KC); the rest is shared. Returns
-    the scan kernel's tile inputs (tile_start, tile_size (T_max,) i32,
-    v_tiles (T_max*pb, d) bf16, base_tiles (T_max*pb, 1) f32) and `row`
-    (P,), each probe's row in the tile output, T_max = P // pb + min(kc, P)
-    + 1 (an upper bound on the tiles needed)."""
-    B, w, d = v.shape
-    P = B * w
+def _tile_slots(cells, offsets, sizes, *, kc: int, pb: int,
+                rank_engine: str | None):
+    """The placement both tile preps share: ranks within the cells from
+    the counting kernel (kc <= MAX_KC, engine `rank_engine`) or from one
+    sort (`sort_ranks`, kc > MAX_KC), then `_tile_map`. Returns (c_t,
+    tile_start, tile_size (T_max,) i32, row (P,) each probe's row in the
+    tile output, inv_row (T_max*pb,) each slot's probe or P for an empty
+    slot), T_max = P // pb + min(kc, P) + 1 (an upper bound on the tiles
+    needed)."""
+    P = cells.numel()
     T_max = P // pb + min(kc, P) + 1
-    dev = v.device
+    dev = cells.device
     cells_flat = cells.reshape(-1).to(torch.int32)
     if kc <= MAX_KC:
-        ranks, counts = cell_ranks(cells_flat, kc=kc)
+        ranks, counts = cell_ranks(cells_flat, kc=kc, engine=rank_engine)
     else:
         ranks, counts = sort_ranks(cells_flat, kc)
-    tile_base, tile_start, tile_size = _tile_map(
+    tile_base, c_t, tile_start, tile_size = _tile_map(
         counts, offsets, sizes, pb, T_max, kc)
     ranks = ranks.to(torch.int64)
     row = (tile_base[cells_flat.to(torch.int64)] + ranks // pb) * pb \
         + ranks % pb
-    # place probes into their tile rows by a gather: invert `row` (slot ->
-    # probe; unwritten slots point at the padding row P, whose v is zero
-    # and whose base is +inf, so empty slots never score)
+    # invert `row` (slot -> probe; unwritten slots point at P)
     inv_row = torch.full((T_max * pb,), P, dtype=torch.int64, device=dev)
     inv_row[row] = torch.arange(P, dtype=torch.int64, device=dev)
+    return c_t, tile_start, tile_size, row, inv_row
+
+
+def place_tiles(cells, offsets, sizes, v, base, *, kc: int, pb: int,
+                rank_engine: str | None = None):
+    """The tile prep: group the B*w probes by cell into tiles of pb probes
+    of one cell, probes of a cell in probe order (`_tile_slots`), and place
+    their v and base rows by a gather. Returns the scan kernel's tile
+    inputs (tile_start, tile_size (T_max,) i32, v_tiles (T_max*pb, d) bf16,
+    base_tiles (T_max*pb, 1) f32) and `row` (P,), each probe's row in the
+    tile output."""
+    B, w, d = v.shape
+    P = B * w
+    dev = v.device
+    _, tile_start, tile_size, row, inv_row = _tile_slots(
+        cells, offsets, sizes, kc=kc, pb=pb, rank_engine=rank_engine)
+    # empty slots point at the padding row P, whose v is zero and whose
+    # base is +inf, so they never score
     v_pad = torch.cat([v.reshape(P, d).to(torch.bfloat16),
                        torch.zeros((1, d), dtype=torch.bfloat16, device=dev)])
     base_pad = torch.cat([base.reshape(P, 1).to(torch.float32),
@@ -496,3 +523,142 @@ def dense_scan(starts, sizes, v, base, decoded, scale=None, *, k_out: int,
         k_out, float(norm_coef), out_d.data_ptr(), out_p.data_ptr(),
         _build.stream_ptr(dev))
     return out_d.reshape(B, w, nf), out_p.reshape(B, w, nf)
+
+
+def _qc_tiles(c_t, qidx, q_pad, c_pad, rot_pad, *, pb: int, apply_rot: bool,
+              base_mult: float):
+    """The qc kernel's prologue as tensor code: per slot r = q[qidx] -
+    c[tile cell] (under a rotation bf16(r) @ bf16(R), f32 products),
+    base = base_mult * ||r||^2 (+inf for an empty slot), v = bf16(-2 r).
+    Returns (v_tiles (T*pb, d) bf16, base_tiles (T*pb, 1) f32)."""
+    ok = qidx >= 0
+    r = q_pad[torch.clamp_min(qidx.to(torch.int64), 0)] \
+        - c_pad[c_t.to(torch.int64)].repeat_interleave(pb, dim=0)
+    if apply_rot:
+        r = r.to(torch.bfloat16).to(torch.float32) \
+            @ rot_pad.to(torch.float32)
+    base = torch.where(ok, base_mult * torch.sum(r * r, dim=1),
+                       float("inf"))
+    return (-2.0 * r).to(torch.bfloat16), base[:, None]
+
+
+def grouped_scan_qc_plain(tile_start, tile_size, c_t, qidx, q_pad, c_pad,
+                          rot_pad, decoded, scale, ids2d, *, pb: int,
+                          nf: int, norm_coef: float, base_mult: float,
+                          apply_rot: bool):
+    """Plain version of the qc kernel: the prologue in tensor code
+    (`_qc_tiles`), then the in-kernel-norms scan's plain version."""
+    v_tiles, base_tiles = _qc_tiles(c_t, qidx, q_pad, c_pad, rot_pad, pb=pb,
+                                    apply_rot=apply_rot, base_mult=base_mult)
+    return grouped_scan_plain(tile_start, tile_size, v_tiles, base_tiles,
+                              decoded, scale, ids2d, None, pb=pb, nf=nf,
+                              norm_coef=norm_coef)
+
+
+def grouped_scan_qc(tile_start, tile_size, c_t, qidx, q_pad, c_pad, rot_pad,
+                    decoded, scale, ids2d, *, pb: int, nf: int,
+                    norm_coef: float, base_mult: float, apply_rot: bool):
+    """The qc kernel's wrapper. tile_start / tile_size / c_t (T,) i32, qidx
+    (T*pb,) i32 (-1: empty slot), q_pad (B', d) and c_pad (kc', d) f32,
+    rot_pad (d, d) bf16, decoded (rows, d) int8 with scale (d,) f32 or bf16
+    with scale None, ids2d (rows/128, 128) i32; d a 128-multiple. Returns
+    (out_d (T*pb, nf) f32, out_p (T*pb, nf) i32 external ids). CPU tensors
+    run the plain version; CUDA tensors launch the kernel."""
+    elem = _elem(decoded, scale)
+    if nf % _CAND or pb % 8 or not 8 <= pb <= 64:
+        raise ValueError(f"grouped scan needs nf % 128 == 0 and pb in "
+                         f"{{8, 16, ..., 64}}, got nf={nf}, pb={pb}")
+    kw = dict(pb=pb, nf=nf, norm_coef=norm_coef, base_mult=base_mult,
+              apply_rot=apply_rot)
+    if q_pad.device.type == "cpu":
+        return grouped_scan_qc_plain(tile_start, tile_size, c_t, qidx, q_pad,
+                                     c_pad, rot_pad, decoded, scale, ids2d,
+                                     **kw)
+    T = tile_start.shape[0]
+    d = q_pad.shape[1]
+    dev = q_pad.device
+    if d % 128 or decoded.shape[1] != d or c_pad.shape[1] != d \
+            or tuple(rot_pad.shape) != (d, d):
+        raise ValueError(f"feature dim must be a 128-multiple shared by the "
+                         f"queries, centroids, rotation and decoded cache, "
+                         f"got {d} / {c_pad.shape[1]} / "
+                         f"{tuple(rot_pad.shape)} / {decoded.shape[1]}")
+    args = [tile_start.to(torch.int32), tile_size.to(torch.int32),
+            c_t.to(torch.int32), qidx.to(torch.int32),
+            q_pad.to(torch.float32), c_pad.to(torch.float32),
+            rot_pad.to(torch.bfloat16), decoded,
+            None if elem == "bf16"
+            else scale.to(torch.bfloat16).to(torch.float32),
+            ids2d.to(torch.int32)]
+    args = [None if a is None else a.contiguous() for a in args]
+    for a in args:
+        if a is None:
+            continue
+        if a.device != dev:
+            raise ValueError("qc scan inputs must be on one device")
+        if a.data_ptr() % 16:
+            raise ValueError("qc scan inputs must be 16-byte aligned")
+    out_d = torch.empty((T * pb, nf), dtype=torch.float32, device=dev)
+    out_p = torch.empty((T * pb, nf), dtype=torch.int32, device=dev)
+    QC_KERNELS[elem](*(None if a is None else a.data_ptr() for a in args),
+                     T, d, pb, nf, float(norm_coef), float(base_mult),
+                     int(apply_rot), out_d.data_ptr(), out_p.data_ptr(),
+                     _build.stream_ptr(dev))
+    return out_d, out_p
+
+
+def qc_tile_inputs(cells, offsets, sizes, queries, cents, rot, d_dec: int, *,
+                   kc: int, pb: int, rank_engine: str | None = None):
+    """The qc route's prep (JAX `grouped_dense_scan_qc`, up to its
+    pallas_call): the counting-rank tile placement, and per slot only the
+    index of its query. Returns (tile_start, tile_size, c_t, qidx, q_pad,
+    c_pad, rot_pad, row): queries and centroids zero-padded to d_dec
+    features in f32, the rotation (identity when `rot` is None) embedded
+    in a (d_dec, d_dec) identity, as bf16."""
+    B, w = cells.shape
+    P = B * w
+    dev = queries.device
+    c_t, tile_start, tile_size, row, inv_row = _tile_slots(
+        cells, offsets, sizes, kc=kc, pb=pb, rank_engine=rank_engine)
+    qidx = torch.where(inv_row < P, inv_row // w, -1).to(torch.int32)
+    dq = queries.shape[-1]
+    q_pad = torch.nn.functional.pad(queries.to(torch.float32),
+                                    (0, d_dec - dq))
+    c_pad = torch.nn.functional.pad(cents.to(torch.float32), (0, d_dec - dq))
+    rot_pad = torch.eye(d_dec, dtype=torch.float32, device=dev)
+    if rot is not None:
+        dr = rot.shape[0]
+        rot_pad[:dr, :dr] = rot.to(torch.float32)
+    return (tile_start, tile_size, c_t, qidx, q_pad, c_pad,
+            rot_pad.to(torch.bfloat16), row)
+
+
+def grouped_dense_scan_qc(cells, offsets, sizes, queries, cents, rot,
+                          decoded, scale, ids2d, *, kc: int, chunk: int,
+                          norm_coef: float = 1.0, pb: int = 16,
+                          nf: int = _CAND, apply_rot: bool = False,
+                          base_mult: float = 2.0,
+                          rank_engine: str | None = None):
+    """`grouped_dense_scan` with v and base derived in the kernel (the JAX
+    `grouped_dense_scan_qc`): raw (B, dq) queries and (kc, dq) centroids
+    instead of placed v/base tiles. Fold merge, emitted ids (ids2d) and
+    the counting-rank prep only (kc <= MAX_KC): callers gate on those.
+    base_mult is 2 under the reference score (cdist == ||r||^2 for the
+    sqeuclidean coarse and quantizer metrics) and 1 under "pure". Returns
+    (cand_d (B, w, nf) f32, cand_ids (B, w, nf) i32 external ids). `chunk`
+    is kept for the JAX signature (nf | chunk)."""
+    if ids2d is None or kc > MAX_KC:
+        raise ValueError(f"the qc scan needs ids2d and kc <= {MAX_KC}")
+    if nf % _CAND or chunk % nf:
+        raise ValueError(f"nf must be a 128-multiple dividing chunk, "
+                         f"got nf={nf}, chunk={chunk}")
+    B, w = cells.shape
+    tile_start, tile_size, c_t, qidx, q_pad, c_pad, rot_pad, row = \
+        qc_tile_inputs(cells, offsets, sizes, queries, cents, rot,
+                       decoded.shape[-1], kc=kc, pb=pb,
+                       rank_engine=rank_engine)
+    out_d, out_p = grouped_scan_qc(
+        tile_start, tile_size, c_t, qidx, q_pad, c_pad, rot_pad, decoded,
+        scale, ids2d, pb=pb, nf=nf, norm_coef=norm_coef, base_mult=base_mult,
+        apply_rot=apply_rot)
+    return out_d[row].reshape(B, w, nf), out_p[row].reshape(B, w, nf)

@@ -522,3 +522,127 @@ def test_kc_8192_index_takes_the_grouped_scan(dev):
                             for s in range(0, 4096, 512)])
     overlap = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(ids, small)])
     assert overlap >= 0.95, overlap
+
+
+# ------------------------------------------------- the opt-in engines
+@pytest.mark.cuda
+@pytest.mark.parametrize("kc,P", [(300, 5000), (4096, 5000), (1024, 131072),
+                                  (1, 3000)])
+def test_cell_rank_v2_kernel_exact(dev, kc, P):
+    rng = np.random.RandomState(kc + P)
+    cells = np.where(rng.rand(P) < 0.3, rng.randint(0, min(kc, 5), P),
+                     rng.randint(0, kc, P)).astype(np.int32)
+    c = torch.from_numpy(cells)
+    n0 = cell_rank.KERNEL_V2.launches
+    kr, kn = cell_rank.cell_ranks(c.to(dev), kc=kc, engine="v2")
+    assert cell_rank.KERNEL_V2.launches == n0 + 1
+    pr, pn = cell_rank.cell_ranks_plain(c, kc)
+    assert torch.equal(kr.cpu(), pr) and torch.equal(kn.cpu(), pn)
+    # cells outside [0, kc): counted nowhere, ranked as kernel 2 ranks them
+    bad = c.clone()
+    bad[::7] = -1
+    bad[3::11] = kc + 3
+    k1 = cell_rank.cell_ranks(bad.to(dev), kc=kc, engine="v1")
+    k2 = cell_rank.cell_ranks(bad.to(dev), kc=kc, engine="v2")
+    assert torch.equal(k1[0], k2[0]) and torch.equal(k1[1], k2[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kc", [1024, 3000])
+@pytest.mark.parametrize("apply_rot", [False, True])
+def test_coarse_probe_v2_kernel(dev, kc, apply_rot):
+    # kc = 3000: not a 128-multiple, more than one 1024-centroid chunk
+    rng = np.random.RandomState(kc + int(apply_rot))
+    q = torch.from_numpy(rng.randn(256, 128).astype(np.float32))
+    c = torch.from_numpy(rng.randn(kc, 128).astype(np.float32))
+    rot = torch.from_numpy(np.linalg.qr(rng.randn(128, 128))[0]
+                           .astype(np.float32))
+    kw = dict(engine="v2", rot_orthogonal=True)
+    n0 = coarse_scan.V2_KERNEL.launches
+    kcells, kd, kv, kb = coarse_scan.coarse_probe_vbase(
+        q.to(dev), c.to(dev), 8, rot.to(dev), apply_rot, True, **kw)
+    assert coarse_scan.V2_KERNEL.launches == n0 + 1
+    pcells, pd, pv, pb = coarse_scan.coarse_probe_vbase(
+        q, c, 8, rot, apply_rot, True, **kw)
+    # the selection is kernel 1's, bit for bit
+    v1cells = coarse_scan.coarse_probe_vbase(
+        q.to(dev), c.to(dev), 8, rot.to(dev), apply_rot, True,
+        engine="v1")[0]
+    assert torch.equal(kcells, v1cells)
+    same = kcells.cpu() == pcells
+    assert same.float().mean() >= 0.999       # near-ties may flip
+    torch.testing.assert_close(kd.cpu(), pd, rtol=1e-5, atol=1e-4)
+    assert torch.equal(kb, kd + kd)
+    if apply_rot:
+        torch.testing.assert_close(kv.cpu()[same].float(), pv[same].float(),
+                                   rtol=2 ** -7, atol=1e-6)
+    else:
+        assert torch.equal(kv.cpu()[same], pv[same])
+
+
+def _qc_case(rng, integer: bool, d: int, pb: int, elem: str, apply_rot: bool,
+             device):
+    """qc tile inputs (via the route's own prep) of 12 cells, 64 queries x 8
+    probes: integer-valued (exact) or random floats."""
+    kc, B, w = 12, 64, 8
+    caps = np.full(kc, 640)
+    offsets = np.concatenate([[0], np.cumsum(caps[:-1])]).astype(np.int32)
+    sizes = rng.randint(0, 640, kc).astype(np.int32)
+    sizes[:3] = [0, 1, 128]
+    rows = -(-(int(caps.sum()) + 256 + 128) // 128) * 128
+    cells = rng.randint(0, kc, (B, w)).astype(np.int32)
+    ids2d = rng.permutation(rows).astype(np.int32).reshape(-1, 128)
+    if integer:
+        decoded = rng.randint(-3, 4, (rows, d)).astype(np.float32)
+        scale = np.ones(d, np.float32)
+        q = rng.randint(-4, 5, (B, d)).astype(np.float32)
+        cents = rng.randint(-4, 5, (kc, d)).astype(np.float32)
+        rot = np.zeros((d, d), np.float32)
+        rot[np.arange(d), rng.permutation(d)] = rng.choice([-1.0, 1.0], d)
+    else:
+        decoded = rng.randint(-127, 128, (rows, d)).astype(np.float32)
+        scale = (0.01 + 0.02 * rng.rand(d)).astype(np.float32)
+        cents = rng.randn(kc, d).astype(np.float32)
+        q = (cents[rng.randint(0, kc, B)]
+             + 0.5 * rng.randn(B, d)).astype(np.float32)
+        rot = np.linalg.qr(rng.randn(d, d))[0].astype(np.float32)
+    t = {k: torch.from_numpy(v).to(device) for k, v in dict(
+        cells=cells, offsets=offsets, sizes=sizes, q=q, cents=cents, rot=rot,
+        decoded=decoded, scale=scale, ids2d=ids2d).items()}
+    if elem == "bf16":
+        sc = t["scale"].to(torch.bfloat16).float()
+        dec, scale_t = (t["decoded"] * sc).to(torch.bfloat16), None
+    else:
+        dec, scale_t = t["decoded"].to(torch.int8), t["scale"]
+    prep = dense_scan.qc_tile_inputs(
+        t["cells"], t["offsets"], t["sizes"], t["q"], t["cents"],
+        t["rot"] if apply_rot else None, d, kc=kc, pb=pb)
+    return prep[:7] + (dec, scale_t, t["ids2d"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pb,d", [(16, 128), (64, 128), (64, 256)])
+@pytest.mark.parametrize("apply_rot", [False, True])
+@pytest.mark.parametrize("elem", ["int8", "bf16"])
+@pytest.mark.parametrize("integer", [True, False])
+def test_grouped_scan_qc_kernel(dev, pb, d, apply_rot, elem, integer):
+    rng = np.random.RandomState(pb + d + int(apply_rot))
+    args = _qc_case(rng, integer, d, pb, elem, apply_rot, dev)
+    kw = dict(pb=pb, nf=128, norm_coef=1.0, base_mult=2.0,
+              apply_rot=apply_rot)
+    kern = dense_scan.QC_KERNELS[elem]
+    n0 = kern.launches
+    kd, kp = dense_scan.grouped_scan_qc(*args, **kw)
+    assert kern.launches == n0 + 1
+    pd, pp = dense_scan.grouped_scan_qc_plain(
+        *[None if a is None else a.cpu() for a in args], **kw)
+    kd, kp = kd.cpu(), kp.cpu()
+    if integer:
+        assert torch.equal(kd, pd) and torch.equal(kp, pp)
+        return
+    fin = torch.isfinite(pd)
+    assert torch.equal(torch.isfinite(kd), fin)
+    # bf16 products and squares summed in f32 in another order (and the
+    # rotated r in another order than the plain matmul's)
+    torch.testing.assert_close(kd[fin], pd[fin], rtol=1e-4, atol=1e-3)
+    assert (kp == pp).float().mean().item() >= 0.999

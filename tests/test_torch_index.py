@@ -200,23 +200,14 @@ def _variant(index, **changes):
                        index.data_dtype, index.dim)
 
 
-@pytest.mark.parametrize("case", [
-    "gather_win", "qc_vbase", "coarse_v2", "rank_v2", "approx_merge"])
-def test_unported_routes_raise(case, port_index, queries, monkeypatch):
+@pytest.mark.parametrize("case", ["gather_win"])
+def test_unported_routes_raise(case, port_index, queries):
     # the routes that work are held to the JAX package in
-    # tests/test_torch_routes.py and tests/test_torch_variants.py; these
-    # name their ROADMAP item instead
-    idx, q = port_index, queries
-    if case == "gather_win":
-        idx = _variant(port_index, scan_gather_win=64)
-    else:
-        var, val = {"qc_vbase": ("IVFADC_VBASE", "qc"),
-                    "coarse_v2": ("IVFADC_COARSE_ENGINE", "v2"),
-                    "rank_v2": ("IVFADC_RANK_ENGINE", "v2"),
-                    "approx_merge": ("IVFADC_MERGE_TOPK", "approx")}[case]
-        monkeypatch.setenv(var, val)
-    with pytest.raises(NotImplementedError, match="ROADMAP|not ported"):
-        idx.search_padded(q, K, w=W)
+    # tests/test_torch_routes.py, tests/test_torch_variants.py and
+    # tests/test_torch_engines.py; this one names its ROADMAP item instead
+    idx = _variant(port_index, scan_gather_win=64)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
+        idx.search_padded(queries, K, w=W)
 
 
 def test_unported_build_parts_raise(data, port_index):

@@ -295,10 +295,49 @@ def test_norms_off_route_matches_jax(data, queries, metric, monkeypatch):
     # bf16 squares kept in f32 by the interpret-mode kernel: as on the
     # per-probe path, ids agree on >= 97% and distances to 1e-3 relative
     _agreement(ti, td, ji, jd, ids_min=0.97, rtol=1e-3)
-    # back on the default, the port's view holds the cached norms again
+    # IVFADC_NORMS is read when the view is built, in both packages: back
+    # on the default, each view keeps its choice until it is invalidated
     monkeypatch.delenv("IVFADC_NORMS")
-    assert tidx.store.device_view_dense(
-        tidx.quantizer, tidx.config.scan_chunk)["norms2d"] is not None
+    for idx in (jidx, tidx):
+        def norms2d():
+            return idx.store.device_view_dense(
+                idx.quantizer, idx.config.scan_chunk, cache="int8")["norms2d"]
+        assert norms2d() is None
+        idx.store._invalidate()
+        assert norms2d() is not None
     ci, _ = tidx.search_padded(queries, K, w=W)
-    assert seen[-1] is not None
+    # a score without a norm term reads no norms stream (C.12)
+    assert (seen[-1] is not None) == (metric == "sqeuclidean")
     assert np.mean([len(set(a) & set(b)) / K for a, b in zip(ci, ti)]) >= 0.95
+
+
+def test_inner_product_grouped_scan_reads_no_norms(jax_index, queries,
+                                                   monkeypatch):
+    # inner-product scores have no norm term (norm_coef = 0): under the
+    # default IVFADC_NORMS the view holds cached norms, yet neither package
+    # streams them into the grouped scan (B*w = 1024 >= 4*kc), which then
+    # runs its in-kernel-norms variant
+    import jax
+    from ivfadc_tpu.ops import pallas_scan as j_scan
+    from ivfadc_tpu_torch.ops import dense_scan as t_scan
+    jax.clear_caches()             # the JAX side records at trace time
+    seen = {"jax": [], "port": []}
+    for side, mod, at in (("jax", j_scan, 8), ("port", t_scan, 8)):
+        real = mod.grouped_dense_scan
+
+        def spy(*args, _real=real, _side=side, _at=at, **kw):
+            seen[_side].append(args[_at] if len(args) > _at
+                               else kw.get("norms2d"))
+            return _real(*args, **kw)
+
+        monkeypatch.setattr(mod, "grouped_dense_scan", spy)
+    jv, tv = _pair(jax_index, quantization_metric="inner_product")
+    for idx in (jv, tv):
+        assert idx.store.device_view_dense(
+            idx.quantizer, idx.config.scan_chunk,
+            cache="int8")["norms2d"] is not None
+    q = np.concatenate([queries, queries])
+    ji, jd = jv.search_padded(q, K, w=W)
+    ti, td = tv.search_padded(q, K, w=W)
+    assert seen == {"jax": [None], "port": [None]}
+    _agreement(ti, td, ji, jd, ids_min=0.95, rtol=2e-3, atol=0.05)

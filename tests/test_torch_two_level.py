@@ -190,6 +190,48 @@ def test_scan_stage_on_a_small_quantizer(monkeypatch):
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
 
 
+@pytest.mark.parametrize("kind", ["integer", "float"])
+def test_scan_stage_under_rank_v2(kind, monkeypatch):
+    # IVFADC_RANK_ENGINE=v2 reaches stage 2's counting prep (512 groups):
+    # the same ranks, so v1's cells and distances bit for bit, and JAX's v2
+    # (exactly on integer-valued centroids)
+    monkeypatch.setattr(j_coarse.TwoLevelCoarseQuantizer, "_GATHER_MAX", 64)
+    monkeypatch.setattr(t_coarse.TwoLevelCoarseQuantizer, "_GATHER_MAX", 64)
+    rng = np.random.RandomState(6)
+    if kind == "integer":
+        cents, centers, members, q = _integer_case(rng, 512, 23)
+    else:
+        cents = rng.randn(512, 32).astype(np.float32)
+        centers, members = _grouping(cents, 23, rng)
+        q = rng.randn(64, 32).astype(np.float32)
+    jq, tq = _pair(cents, centers, members, 8)
+    from ivfadc_tpu_torch.ops import dense_scan as t_scan
+    engines = []
+    real = t_scan.cell_ranks
+
+    def spy(*args, **kw):
+        engines.append(kw.get("engine"))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(t_scan, "cell_ranks", spy)
+    c1, d1 = tq.search(torch.from_numpy(q), 8)
+    c2, d2 = tq.search(torch.from_numpy(q), 8, rank_engine="v2")
+    assert engines == [None, "v2"]
+    assert torch.equal(c1, c2) and torch.equal(d1, d2)
+    jc, jd = jq.search(jnp.asarray(q), 8, rank_engine="v2")
+    if kind == "integer":
+        np.testing.assert_array_equal(c2.numpy(), np.asarray(jc))
+        np.testing.assert_array_equal(d2.numpy(), np.asarray(jd))
+    else:
+        # as test_scan_stage_search_random_floats
+        overlap = np.mean([len(set(a) & set(b)) / 8
+                           for a, b in zip(c2.numpy(), np.asarray(jc))])
+        assert overlap >= 0.99, overlap
+        same = c2.numpy() == np.asarray(jc)
+        np.testing.assert_allclose(d2.numpy()[same], np.asarray(jd)[same],
+                                   rtol=3e-3, atol=1e-3)
+
+
 @pytest.mark.parametrize("stage", ["gather", "scan"])
 def test_fewer_candidates_than_w_pad_with_cell_zero(stage, monkeypatch):
     # 16 centroids in 4 groups, one group probed: ~4 candidates for w = 8
