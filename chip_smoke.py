@@ -27,7 +27,11 @@ phases, printing one JSON line per phase; any failure raises (exit != 0):
            under the rotation) on every tile of a B=8192 batch, beside
            kernel 3, 8a and the placement's gathers at the same tiles. For
            each: kernel time, plain time, the time of the nearest PyTorch
-           library call where there is one, and the card's bound
+           library call where there is one, and the card's bound; for the
+           coarse kernels 1, 7 and 10 also the launch plan (query tile,
+           centroid tile, splits of the table, grid) and the share of the
+           bound, and at B=256 an integer-valued table on which kernels 7,
+           1 and 10 must equal the plain versions bit for bit
   search   with every launch count zeroed: search_padded of 1000 queries,
            recall@10 against brute force and against the NumPy oracle of
            the reference algorithm, QPS over back-to-back B=16384 batches
@@ -77,7 +81,8 @@ phases, printing one JSON line per phase; any failure raises (exit != 0):
            coarse_quantizer="hnsw"; kernel 8a and kernels 2, 4, 5, 6
            against their plain versions at this path's shapes, kernels 7
            and 1 over the whole centroid table (the naive-coarse checks'
-           shape: kc > 1024 is scored in chunks); counts
+           shape, split over blocks; with an integer-valued table they
+           must equal the plain versions bit for bit on 256 queries); counts
            zeroed: search_padded of 4096 queries at w=32, k=10 (stage 1 ->
            cell ranks -> grouped scan with in-kernel norms -> merge ->
            per-probe posting scan -> top-k); the probed cells against the
@@ -172,6 +177,29 @@ def cuda_ms(fn, reps: int = 5, inner: int = 1) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, calls: int = 10) -> float:
+    """Device time of fn() per call: the summed device time of the
+    operations it launches (torch.profiler's CUDA trace), after one
+    warm-up. Unlike CUDA events around back-to-back calls it leaves out
+    the host's time, which bounds calls of a few microseconds."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            us += t if t is not None else getattr(e, "self_cuda_time_total",
+                                                  0.0)
+    return us / 1e3 / calls
+
+
 @contextlib.contextmanager
 def env(**values):
     """Environment variables set for the block, restored after it."""
@@ -249,6 +277,55 @@ def exact_topk(kern, plain, k: int, what: str):
     return (ks[fin] - ps[fin]).abs().max().item(), agree
 
 
+def coarse_layout(rec: dict, kind: str, B: int, kc: int, d: int,
+                  w: int) -> dict:
+    """A coarse kernel record with its launch plan (query tile bq,
+    centroid tile bc, splits S of the table, grid) and its share of the
+    bound (bound_ms / ms)."""
+    import torch
+    from ivfadc_tpu_torch.ops import coarse_scan
+    p = coarse_scan.plan(B, d, kc, w, kind, torch.device("cuda"))
+    return dict(rec, plan=p, bq=p["bq"], bc=p["bc"], splits=p["splits"],
+                grid=p["grid"], share_of_bound=rec["bound_ms"] / rec["ms"])
+
+
+def coarse_integer_ties(B: int, kc: int, d: int, w: int, n_plain: int,
+                        seed: int) -> dict:
+    """Kernels 7, 1 and 10 on an integer-valued table (entries in -2..2:
+    every f32 sum exact, most scores tied, copies of one centroid row on
+    both sides of every split boundary) against the plain versions on the
+    first n_plain queries, bit for bit; all three kernels' cells equal."""
+    import torch
+    from ivfadc_tpu_torch.ops import coarse_scan
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randint(-2, 3, (B, d), generator=g, device=dev).float()
+    c = torch.randint(-2, 3, (kc, d), generator=g, device=dev).float()
+    p = coarse_scan.plan(B, d, kc, w, "vbase", dev)
+    span = p["bc"] * p["tiles_per_split"]
+    for edge in range(span, kc, span):
+        c[edge - 1] = c[edge] = c[0]
+    cn = torch.sum(c * c, dim=1)
+    eye = torch.eye(d, device=dev)
+    k7 = coarse_scan.coarse_topw(q, c, w)
+    k1 = coarse_scan.coarse_vbase(q, c, cn, eye, w, False)
+    hi, lo = coarse_scan.hi_lo_split(c, eye, False)
+    k10 = coarse_scan.coarse_vbase_v2(q, c, cn, eye, hi, lo, w, False)
+    check(torch.equal(k7[0], k1[1]) and torch.equal(k10[1], k1[1]),
+          f"integer ties at ({B}, {kc}): kernels 7, 1, 10 cells differ")
+    qs = q[:n_plain]
+    p7 = coarse_scan.coarse_topw_plain(qs, c, cn, w)
+    p1 = coarse_scan.coarse_vbase_plain(qs, c, cn, eye, w, False)
+    qn = torch.sum(qs * qs, dim=1, keepdim=True)
+    check(torch.equal(k7[0][:n_plain], p7[1])
+          and torch.equal(k7[1][:n_plain], torch.clamp_min(p7[0] + qn, 0.0)),
+          f"integer ties at ({B}, {kc}): kernel 7 is not bit-equal")
+    check(all(torch.equal(a[:n_plain], b) for a, b in zip(k1, p1)),
+          f"integer ties at ({B}, {kc}): kernel 1 is not bit-equal")
+    return dict(shape=[B, kc], d=d, w=w, plain_queries=n_plain,
+                splits=p["splits"], bit_equal=True)
+
+
 def tie_overlap(ids_a, d_a, ids_b, d_b) -> float:
     """Top-k overlap of result a with result b that also counts an id of a
     whose distance ties b's k-th distance (to 1e-4 relative): points with
@@ -322,8 +399,13 @@ def phase_kernels(index, queries):
         plain_ms=cuda_ms(lambda: coarse_scan.coarse_vbase_plain(
             q, c32, cn, rot, W, False)),
         library_ms=cuda_ms(lambda: lib_probe(q)),
+        device_ms=device_ms(lambda: coarse_scan.coarse_vbase(
+            q, c32, cn, rot, W, False)),
+        library_device_ms=device_ms(lambda: lib_probe(q)),
         **bound(4 * (BATCH * D + KC * D + KC + D * D)
                 + BATCH * W * (12 + 2 * D), 2.0 * BATCH * KC * D, PEAK_F32))
+    records["coarse_probe"] = coarse_layout(records["coarse_probe"], "vbase",
+                                            BATCH, KC, D, W)
 
     # 2. cell ranks on the probe's own cells: exact.
     cells = kv[1].reshape(-1)
@@ -632,11 +714,23 @@ def phase_kernels_engines(index, queries, cells16k, view, bview):
                             largest=False)
         return c32[idx]
 
-    records["coarse_probe_v2"] = dict(
+    def lib_probe_rot(qq):
+        # the same route with the rotation applied to each winner's residual
+        _, idx = torch.topk(cn[None, :] - 2.0 * (qq @ c32.T), W, dim=1,
+                            largest=False)
+        return (qq[:, None, :] - c32[idx]) @ rot_r
+
+    hi0, lo0 = coarse_scan.hi_lo_split(c32, eye, False)
+    records["coarse_probe_v2"] = coarse_layout(dict(
         v2[""], source="ivfadc_tpu_torch/csrc/coarse_scan.cu",
         replaces="ivfadc_tpu/ops/coarse_scan.py:169",
         library_ms=cuda_ms(lambda: lib_probe(q)),
-        rotated=v2["@rotated"])
+        device_ms=device_ms(lambda: coarse_scan.coarse_vbase_v2(
+            q, c32, cn, eye, hi0, lo0, W, False)),
+        library_device_ms=device_ms(lambda: lib_probe(q)),
+        rotated=dict(v2["@rotated"],
+                     library_ms=cuda_ms(lambda: lib_probe_rot(q)))),
+        "vbase_v2", BATCH, KC, D, W)
 
     # 9. the qc scan on every tile of a B=8192 batch (the engines phase's
     # batch), against its plain version; kernel 3, 8a and the placement's
@@ -787,8 +881,13 @@ def phase_kernels_small(index, queries, bview):
         plain_ms=cuda_ms(lambda: coarse_scan.coarse_topw_plain(q, c32, cn,
                                                                W)),
         library_ms=cuda_ms(lib_topw, inner=10),
+        device_ms=device_ms(lambda: coarse_scan.coarse_topw(q, c32, W)),
+        library_device_ms=device_ms(lib_topw),
+        integer_ties=coarse_integer_ties(B_SMALL, KC, D, W, B_SMALL, 7),
         **bound(4 * (B_SMALL * D + KC * D + KC) + 8 * B_SMALL * W,
                 2.0 * B_SMALL * KC * D, PEAK_F32))
+    records["coarse_topw"] = coarse_layout(records["coarse_topw"], "topw",
+                                           B_SMALL, KC, D, W)
 
     # 5. per-probe scan on the path's own probes
     cells64 = cells_q.to(torch.int64)
@@ -1421,7 +1520,7 @@ def phase_two_level(zero_counts, read_counts, posting: dict) -> dict:
                 PEAK_F32))
     del fd, ksd, ksp, psd, psp, v_sub, plain_args, v_q
     # 7 and 1 over the whole centroid table, the shape of the naive-coarse
-    # checks below: the kernels score kc > 1024 centroids in chunks with a
+    # checks below: the kernels split the table over blocks, each with a
     # running top-w. Plain versions on the first 256 queries (a (256, kc)
     # score matrix); cells may differ only at few-ulp ties
     c32 = cq.centroids
@@ -1454,8 +1553,11 @@ def phase_two_level(zero_counts, read_counts, posting: dict) -> dict:
         plain_ms_256_queries=cuda_ms(lambda: coarse_scan.coarse_topw_plain(
             qs_, c32, cn, W3), reps=3),
         library_ms=cuda_ms(lib_topw, reps=3),
+        integer_ties=coarse_integer_ties(NQ3, KC3, D3, W3, nsub, 3),
         **bound(4 * (NQ3 * D3 + KC3 * D3 + KC3) + 8 * NQ3 * W3,
                 2.0 * NQ3 * KC3 * D3, PEAK_F32))
+    shapes["coarse_topw@large_kc"] = coarse_layout(
+        shapes["coarse_topw@large_kc"], "topw", NQ3, KC3, D3, W3)
     shapes["coarse_probe@large_kc"] = dict(
         shape=[NQ3, KC3], w=W3, cells_agree=same.float().mean().item(),
         plain_queries=nsub,
@@ -1468,6 +1570,8 @@ def phase_two_level(zero_counts, read_counts, posting: dict) -> dict:
         library_ms=None,                 # timed above, for kernel 7
         **bound(4 * (NQ3 * D3 + KC3 * D3 + KC3 + D3 * D3)
                 + NQ3 * W3 * (12 + 2 * D3), 2.0 * NQ3 * KC3 * D3, PEAK_F32))
+    shapes["coarse_probe@large_kc"] = coarse_layout(
+        shapes["coarse_probe@large_kc"], "vbase", NQ3, KC3, D3, W3)
     del kv, pv, pvals, pcells, kcells, kdist, pdist, same
     emit("two_level_kernels", kernels_at_this_path=shapes,
          seconds=time.perf_counter() - t0)

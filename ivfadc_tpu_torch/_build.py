@@ -132,19 +132,14 @@ I = ctypes.c_int
 F = ctypes.c_float
 
 
-class Kernel:
-    """One C entry point of a kernel library plus its launch count.
-
-    `launches` grows by one for every successful call, and is the only
-    place a kernel's use is counted: a run can show that its path went
-    through the kernel by zeroing the count before and reading it after.
-    """
+class HostFn:
+    """One C entry point of a kernel library that launches nothing (a
+    launch plan, say); a nonzero return raises."""
 
     def __init__(self, lib: str, fn: str, argtypes):
         self.lib = lib
         self.fn = fn
         self.argtypes = list(argtypes)
-        self.launches = 0
         self._cfn = None
 
     def __call__(self, *args) -> None:
@@ -160,6 +155,22 @@ class Kernel:
             raise RuntimeError(
                 f"CUDA kernel {self.fn} failed: "
                 f"{lib.ivfadc_error_string(err).decode()} (error {err})")
+
+
+class Kernel(HostFn):
+    """One C entry point of a kernel library plus its launch count.
+
+    `launches` grows by one for every successful call, and is the only
+    place a kernel's use is counted: a run can show that its path went
+    through the kernel by zeroing the count before and reading it after.
+    """
+
+    def __init__(self, lib: str, fn: str, argtypes):
+        super().__init__(lib, fn, argtypes)
+        self.launches = 0
+
+    def __call__(self, *args) -> None:
+        super().__call__(*args)
         self.launches += 1
 
 

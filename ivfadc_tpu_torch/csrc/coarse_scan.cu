@@ -15,216 +15,581 @@
 // derives the base from the scores, valid for an orthogonal R). All three
 // share coarse_select below, so they pick the same cells bit for bit.
 //
-// Bound: the score matmul, B*kc*d FMAs (2.1 G at B=16384, kc=1024, d=128),
-// kept in exact f32 (fmaf, no TF32 or bf16) because the naive coarse
-// quantizer is contractually the exact brute-force scan. The (kc, d) table
-// (512 KB at the main shape) exceeds a block's shared memory, so it is
-// streamed in 32-centroid tiles. A block scores its bq queries against one
-// chunk of up to kch <= KCH_MAX centroids at a time and keeps a running
-// top-w per query in shared memory, so any kc is taken; a table of at most
-// KCH_MAX centroids is one chunk. Only the (B, w) winners and the (B, w, d)
-// v rows reach device memory. The winning centroid row is a plain global
-// read (L2-resident), not the TPU kernel's one-hot matmul.
+// Bound: the score matmul, B*kc*d FMAs (2.1 G at B=16384, kc=1024, d=128;
+// 103 G at B=4096, kc=2^18, d=96), in exact f32 on the CUDA cores: the
+// naive coarse quantizer is contractually the exact brute-force scan, and
+// Hopper's tensor cores have no f32 product (TF32 keeps about three
+// digits). A split-TF32 prefilter with exact f32 rescoring would move the
+// bulk to the tensor cores; it is not built yet.
+//
+// What bound the first design (one thread scoring one centroid against
+// two queries, 16 queries a block, a w-pass argmin merge after every
+// 1024-centroid chunk) and what this one does about it:
+// 1. Shared-memory bound inner loop (three loads fed two FMAs). Now a
+//    block scores BQ = 16*TQ queries against tiles of BC = 128 centroids
+//    and each thread keeps a TQ x 8 register tile of sums: per 4 features
+//    it reads TQ + 8 float4 (queries broadcast to 8 lanes, 8 centroid rows
+//    on distinct banks through an odd float4 row stride) for 32*TQ FMAs.
+//    Each sum is still acc = fmaf(q[k], c[k], acc) for k = 0..d-1 in
+//    order, then __fsub_rn(cn, 2 acc): the first design's scores bit for
+//    bit.
+// 2. Too few blocks, each streaming the whole table. Now the grid is
+//    query tiles x S splits of the table (the wrapper picks S from B, kc
+//    and the card's resident blocks; query tile fastest, so blocks that
+//    run together share one split's L2-resident slice), and centroid
+//    slabs of 32 features arrive by cp.async into a two-stage ring while
+//    the previous slab is scored.
+// 3. A full merge after every chunk. Now each query keeps a sorted top-w
+//    list whose last entry is a threshold: a score enters a per-query
+//    candidate buffer (atomic slot, so in arbitrary order) only if it
+//    precedes the threshold in the total order (score, index), and the
+//    buffer is merged into the list by rank only when it would overflow
+//    and at the end of a split. The last block of a query tile to finish
+//    (an atomic ticket) merges the other splits' lists the same way. Every
+//    merge ranks by (score, index), never by position, so the result does
+//    not depend on the order in which atomics land.
+// The winning centroid row is a plain global read (L2-resident), not the
+// TPU kernel's one-hot matmul.
 
 #include "common.cuh"
 
-constexpr int CT = 32;          // centroids per streamed tile
-constexpr int CS_THREADS = 256;
-constexpr int QROWS = CS_THREADS / CT;  // queries scored side by side
-constexpr int BQ_MAX = 2 * QROWS;       // queries per block, two a thread
-constexpr int KCH_MAX = 1024;   // centroids per chunk
+namespace {
 
-// Shared memory of coarse_select, carved from one dynamic array.
-struct CoarseSmem {
-  float* qs;    // bq * d             the block's queries
-  float* ct;    // CT * (d + 1)       one centroid tile, padded rows
-  float* sc;    // bq * (w + kch)     per query: running top-w, chunk scores
-  int* ridx;    // bq * w             centroid index of each running winner
-  float* nval;  // bq * w             winners of the chunk being merged
-  int* nidx;    // bq * w
-  float* rest;  // what follows (the v/base variant's scratch)
+constexpr int NT = 256;        // threads per block: 16 x 16
+constexpr int TC = 8;          // centroids per thread (register tile width)
+constexpr int BC = 16 * TC;    // centroids per tile
+constexpr int BK = 32;         // features per slab
+constexpr int CSTR = BK + 4;   // slab row stride: 9 float4, odd
+constexpr int NSTAGE = 2;      // slabs in flight
+constexpr int CAP = 32;        // candidate buffer places per query: a warp
+constexpr int SENT = 0x7fffffff;  // index of an empty list place
+constexpr size_t SMEM_MAX = 232448;
+
+struct __align__(8) Ent {
+  float s;
+  int i;
 };
 
-__device__ __forceinline__ CoarseSmem coarse_carve(float* sm, int bq, int d,
-                                                   int w, int kch) {
-  CoarseSmem s;
+__device__ __forceinline__ bool ent_less(float as, int ai, float bs,
+                                         int bi) {
+  return as < bs || (as == bs && ai < bi);
+}
+
+// Row stride of the staged queries, in floats: d rounded up to 4, then an
+// odd number of float4 so that consecutive rows start on distinct banks.
+__host__ __device__ inline int qstride(int d) {
+  int r = (d + 3) & ~3;
+  if (((r >> 2) & 1) == 0) r += 4;
+  return r;
+}
+
+// The slab ring, reused by the v/base epilogues as per-warp rows.
+__host__ __device__ inline size_t ring_floats(int d, bool scratch) {
+  const size_t ring = static_cast<size_t>(NSTAGE) * BC * CSTR;
+  const size_t rows = scratch ? static_cast<size_t>(NT / 32) * 2 * d : 0;
+  return ring > rows ? ring : rows;
+}
+
+__host__ __device__ inline size_t sel_bytes(int bq, int d, int w,
+                                            bool scratch) {
+  return 4 * (static_cast<size_t>(bq) * qstride(d) + ring_floats(d, scratch)) +
+         8 * (2 * static_cast<size_t>(bq) * w +
+              static_cast<size_t>(bq) * (CAP + 1)) +
+         4 * (static_cast<size_t>(bq) + 1);
+}
+
+struct SelArgs {
+  const float* q;      // (B, d)
+  const float* cents;  // (kc, d)
+  const float* cn;     // (kc,) ||c||^2
+  int B, d, kc, w;
+  int splits, tps;     // table splits, tiles per split
+  Ent* part;           // (B, splits, w) per-split lists (splits > 1)
+  int* tickets;        // one per query tile, zero on entry (splits > 1)
+};
+
+// Shared memory, carved from one dynamic array.
+// The current list is list(cur): a select by arithmetic, since an array
+// of pointers indexed at run time would live in local memory.
+struct Sel {
+  float* qs;     // BQ x qstride(d)   the block's queries, zero-padded
+  float* ring;   // NSTAGE x BC x CSTR centroid slabs / epilogue rows
+  Ent* lists;    // 2 x BQ x w        sorted top-w, and the merge target
+  int lstride;   // BQ x w
+  Ent* buf;      // BQ x (CAP + 1)    candidates, unordered (+1: the
+                 //                   rows of a warp's 8-lane groups on
+                 //                   distinct banks)
+  int* cnt;      // BQ                candidates offered per query
+  int* flag;     // 1                  last block of the query tile
+  __device__ __forceinline__ Ent* list(int cur) const {
+    return lists + cur * lstride;
+  }
+};
+
+__device__ __forceinline__ Sel sel_carve(float* sm, int bq, const SelArgs& a,
+                                         bool scratch) {
+  Sel s;
   s.qs = sm;
-  s.ct = s.qs + static_cast<size_t>(bq) * d;
-  s.sc = s.ct + static_cast<size_t>(CT) * (d + 1);
-  s.ridx = reinterpret_cast<int*>(s.sc + static_cast<size_t>(bq) * (w + kch));
-  s.nval = reinterpret_cast<float*>(s.ridx + static_cast<size_t>(bq) * w);
-  s.nidx = reinterpret_cast<int*>(s.nval + static_cast<size_t>(bq) * w);
-  s.rest = reinterpret_cast<float*>(s.nidx + static_cast<size_t>(bq) * w);
+  s.ring = s.qs + static_cast<size_t>(bq) * qstride(a.d);
+  s.lists = reinterpret_cast<Ent*>(s.ring + ring_floats(a.d, scratch));
+  s.lstride = bq * a.w;
+  s.buf = s.lists + 2 * static_cast<size_t>(s.lstride);
+  s.cnt = reinterpret_cast<int*>(s.buf + static_cast<size_t>(bq) *
+                                             (CAP + 1));
+  s.flag = s.cnt + bq;
   return s;
 }
 
-// Stage the block's bq queries and select, for each, the w smallest of
-// ||c||^2 - 2 q.c over all kc centroids. On return row r of `sc` starts
-// with the w winning scores in ascending order and `ridx` row r holds their
-// centroid indices. Ends at a block barrier; returns the number of live
-// queries of the block.
-//
-// A score row is [w running winners | the chunk's scores]. The running
-// winners are sorted by (score, index) and every one has a lower index than
-// the chunk's centroids, so positions order equal scores by centroid index
-// and w position-argmin passes over the row give the merged top-w.
-__device__ __forceinline__ int coarse_select(
-    const float* __restrict__ q, const float* __restrict__ cents,
-    const float* __restrict__ cn, int B, int d, int kc, int w, int bq,
-    int kch, const CoarseSmem& s) {
-  const int dp = d + 1;  // padded tile row: conflict-free column reads
-  const int ld = w + kch;
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int warp = tid >> 5, lane = tid & 31, warps = nthr >> 5;
-  const int q0 = blockIdx.x * bq;
-  const int nq = min(bq, B - q0);
-  // rows of the table start 16-byte aligned: tiles load as float4
-  const bool vec4 =
-      (d & 3) == 0 && (reinterpret_cast<uintptr_t>(cents) & 15) == 0;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
 
-  for (int i = tid; i < bq * d; i += nthr) {
-    const int r = i / d;
-    s.qs[i] = r < nq ? q[static_cast<size_t>(q0 + r) * d + (i - r * d)] : 0.f;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Features [k0, k0 + BK) of centroids [c0, c0 + BC) into one ring stage;
+// places past the split's end or past d are zero-filled (a zero product
+// leaves a sum unchanged).
+__device__ __forceinline__ void load_slab(float* dst, const float* cents,
+                                          int c0, int cend, int k0, int d,
+                                          bool vec4, int tid) {
+  if (vec4) {
+    for (int ch = tid; ch < BC * (BK / 4); ch += NT) {
+      const int c = ch / (BK / 4), s4 = ch % (BK / 4);
+      const int k = k0 + 4 * s4;
+      const bool ok = c0 + c < cend && k < d;
+      cp_async16(dst + c * CSTR + 4 * s4,
+                 ok ? cents + static_cast<size_t>(c0 + c) * d + k : cents,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int e = tid; e < BC * BK; e += NT) {
+      const int c = e / BK, kk = e % BK;
+      const bool ok = c0 + c < cend && k0 + kk < d;
+      cp_async4(dst + c * CSTR + kk,
+                ok ? cents + static_cast<size_t>(c0 + c) * d + k0 + kk
+                   : cents,
+                ok ? 4 : 0);
+    }
   }
-  for (int i = tid; i < bq * w; i += nthr) {
-    const int r = i / w;
-    s.sc[static_cast<size_t>(r) * ld + (i - r * w)] = IVF_INF;
-    s.ridx[i] = 0;
-  }
-  for (int ch0 = 0; ch0 < kc; ch0 += kch) {
-    const int nch = min(kch, kc - ch0);
-    for (int c0 = 0; c0 < nch; c0 += CT) {
-      const int nc = min(CT, nch - c0);
-      __syncthreads();  // queries staged / previous tile, chunk consumed
-      const float* tile = cents + static_cast<size_t>(ch0 + c0) * d;
-      if (vec4) {
-        // four 16-byte loads in flight per thread before the first store:
-        // one at a time, each store waits out a full memory round trip
-        const float4* tile4 = reinterpret_cast<const float4*>(tile);
-        const int d4 = d >> 2, n4 = CT * d4;
-        for (int i0 = tid; i0 < n4; i0 += 4 * nthr) {
-          float4 x[4];
+}
+
+// One slab of the register tile: nk4 steps of 4 features (all BK / 4 of
+// them when FULL: no per-step branch), each sum in ascending feature order.
+template <int TQ, bool FULL>
+__device__ __forceinline__ void fma_slab(float (&acc)[TQ][TC],
+                                         const float* qs, int qstr,
+                                         const float* cs, int k0, int nk4,
+                                         int tx, int ty) {
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const int i = i0 + u * nthr;
-            x[u] = i < n4 && i / d4 < nc ? __ldg(tile4 + i)
-                                         : make_float4(0.f, 0.f, 0.f, 0.f);
-          }
+  for (int kq = 0; kq < BK / 4; ++kq) {
+    if (FULL || kq < nk4) {
+      float4 a[TQ];
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const int i = i0 + u * nthr;
-            if (i < n4) {
-              const int r = i / d4;
-              float* dst = s.ct + r * dp + (i - r * d4) * 4;
-              dst[0] = x[u].x;
-              dst[1] = x[u].y;
-              dst[2] = x[u].z;
-              dst[3] = x[u].w;
-            }
-          }
+      for (int i = 0; i < TQ; ++i)
+        a[i] = *reinterpret_cast<const float4*>(
+            qs + (ty + 16 * i) * qstr + k0 + 4 * kq);
+#pragma unroll
+      for (int j = 0; j < TC; ++j) {
+        const float4 b = *reinterpret_cast<const float4*>(
+            cs + (tx + 16 * j) * CSTR + 4 * kq);
+#pragma unroll
+        for (int i = 0; i < TQ; ++i) {
+          acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
+          acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
+          acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
+          acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
         }
-      } else {
-#pragma unroll 4
-        for (int i = tid; i < CT * d; i += nthr) {
-          const int r = i / d, k = i - r * d;
-          s.ct[r * dp + k] = r < nc ? tile[i] : 0.f;
-        }
-      }
-      __syncthreads();
-      // thread (r0, c) scores tile column c against queries r0 and
-      // r0 + QROWS: two independent sums (each in k order) share the
-      // centroid reads and hide each other's latency
-      const int c = tid % CT, r0 = tid / CT;
-      if (c < nc && r0 < bq) {
-        const bool two = r0 + QROWS < bq;
-        const float* qa = s.qs + static_cast<size_t>(r0) * d;
-        const float* qb = two ? qa + static_cast<size_t>(QROWS) * d : qa;
-        const float* cr = s.ct + static_cast<size_t>(c) * dp;
-        float acc_a = 0.f, acc_b = 0.f;
-#pragma unroll 8
-        for (int k = 0; k < d; ++k) {
-          const float cv = cr[k];
-          acc_a = fmaf(qa[k], cv, acc_a);
-          acc_b = fmaf(qb[k], cv, acc_b);
-        }
-        const float cnv = cn[ch0 + c0 + c];
-        float* out = s.sc + static_cast<size_t>(r0) * ld + w + c0 + c;
-        out[0] = __fsub_rn(cnv, 2.0f * acc_a);
-        if (two)
-          out[static_cast<size_t>(QROWS) * ld] = __fsub_rn(cnv, 2.0f * acc_b);
       }
     }
-    __syncthreads();
-    for (int r = warp; r < nq; r += warps) {
-      float* srow = s.sc + static_cast<size_t>(r) * ld;
-      int* ri = s.ridx + static_cast<size_t>(r) * w;
-      float* nv = s.nval + static_cast<size_t>(r) * w;
-      int* ni = s.nidx + static_cast<size_t>(r) * w;
-      for (int j = 0; j < w; ++j) {
-        float m;
-        int a;
-        ivf_lane_argmin(srow, w + nch, lane, m, a);
-        ivf_warp_argmin(m, a);
-        if (lane == 0) {
-          nv[j] = m;
-          ni[j] = a < w ? ri[a] : ch0 + a - w;
-          srow[a] = IVF_INF;
+  }
+}
+
+// Number of entries of the sorted run r[0..n) that precede x.
+__device__ __forceinline__ int lower_bound(const Ent* r, int n, float xs,
+                                           int xi) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (ent_less(r[mid].s, r[mid].i, xs, xi))
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// Merge every live query row's buffered candidates into its list, one
+// warp a row: the warp sorts the row's CAP = 32 places (one a lane, empty
+// places as (+inf, SENT)) by a bitonic network of shuffles in the total
+// order (score, index), then every entry lands at its rank: a candidate at
+// its place in the sorted buffer plus the list entries before it, a list
+// entry at its place plus the candidates before it (binary searches).
+// Ranks below w land in the other list, which becomes current. Entries are
+// distinct (each index is offered once per query) but for the list's empty
+// places, which sort last by place. Called after a block barrier; ends at
+// one.
+template <int TQ>
+__device__ __forceinline__ void merge(const Sel& s, int w, int nq,
+                                      int& cur) {
+  constexpr int BQ = 16 * TQ;
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < nq; r += NT / 32) {
+    const Ent* L = s.list(cur) + static_cast<size_t>(r) * w;
+    Ent* O = s.list(cur ^ 1) + static_cast<size_t>(r) * w;
+    Ent* Bf = s.buf + static_cast<size_t>(r) * (CAP + 1);
+    const int n = min(s.cnt[r], CAP);
+    float xs = IVF_INF;
+    int xi = SENT;
+    if (lane < n) {
+      xs = Bf[lane].s;
+      xi = Bf[lane].i;
+    }
+#pragma unroll
+    for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+      for (int j = k >> 1; j > 0; j >>= 1) {
+        const float os = __shfl_xor_sync(IVF_FULL_MASK, xs, j);
+        const int oi = __shfl_xor_sync(IVF_FULL_MASK, xi, j);
+        const bool keep_min = ((lane & k) == 0) == ((lane & j) == 0);
+        if (keep_min ? ent_less(os, oi, xs, xi) : ent_less(xs, xi, os, oi)) {
+          xs = os;
+          xi = oi;
         }
-        __syncwarp();
-      }
-      for (int j = lane; j < w; j += 32) {
-        srow[j] = nv[j];
-        ri[j] = ni[j];
       }
     }
+    Bf[lane] = Ent{xs, xi};
+    __syncwarp();
+    if (lane < n) {
+      const int rank = lane + lower_bound(L, w, xs, xi);
+      if (rank < w) O[rank] = Ent{xs, xi};
+    }
+    for (int e = lane; e < w; e += 32) {
+      const Ent l = L[e];
+      const int rank = e + lower_bound(Bf, n, l.s, l.i);
+      if (rank < w) O[rank] = l;
+    }
+    __syncwarp();
   }
   __syncthreads();
-  return nq;
+  for (int q = threadIdx.x; q < BQ; q += NT) s.cnt[q] = 0;
+  cur ^= 1;
+  __syncthreads();
 }
 
-__global__ void __launch_bounds__(CS_THREADS) coarse_topw_kernel(
-    const float* __restrict__ q, const float* __restrict__ cents,
-    const float* __restrict__ cn, int B, int d, int kc, int w, int bq,
-    int kch, float* __restrict__ vals, int* __restrict__ cells) {
-  extern __shared__ float sm[];
-  const CoarseSmem s = coarse_carve(sm, bq, d, w, kch);
-  const int nq = coarse_select(q, cents, cn, B, d, kc, w, bq, kch, s);
-  const int q0 = blockIdx.x * bq;
-  for (int i = threadIdx.x; i < nq * w; i += blockDim.x) {
-    const int r = i / w, j = i - r * w;
-    const size_t o = static_cast<size_t>(q0 + r) * w + j;
-    vals[o] = s.sc[static_cast<size_t>(r) * (w + kch) + j];
-    cells[o] = s.ridx[i];
+// Offer each thread's TQ x TC candidates (scores sc, indices id(i, j); bit
+// i*TC + j of `pend` set: a live candidate for query row ty + 16 i) to
+// their queries. Those that
+// precede the query's threshold take a buffer place; when a buffer is
+// full the block merges and the rest are filtered again against the new
+// thresholds. The 8 lanes sharing a query row reserve their places with
+// one atomic. Block-wide: every thread calls it.
+template <int TQ, class Id>
+__device__ __forceinline__ void offer(const float (&sc)[TQ][TC], Id id,
+                                      uint32_t pend,
+                                      const Sel& s, int w, int nq, int& cur,
+                                      int ty, int lane) {
+  const int jw = (w + 7) >> 3;
+  for (bool first = true;; first = false) {
+#pragma unroll
+    for (int i = 0; i < TQ; ++i) {
+      const Ent t = s.list(cur)[static_cast<size_t>(ty + 16 * i) * w + w - 1];
+#pragma unroll
+      for (int j = 0; j < TC; ++j)
+        if (!ent_less(sc[i][j], id(i, j), t.s, t.i))
+          pend &= ~(1u << (i * TC + j));
+    }
+    // In each 8-lane group sharing a query row, let every lane take the j-th
+    // of its own candidates, j = ceil(w / 8), and the group the last of those
+    // (while every lane has j): the group then holds w candidates up to it,
+    // so one after it can not be in the row's top-w. This cuts a flood (the
+    // first tile, whose every score passes the empty list) to about 2w a row.
+    if (first && jw < TC) {
+#pragma unroll
+      for (int i = 0; i < TQ; ++i) {
+        const uint32_t bits = (pend >> (i * TC)) & ((1u << TC) - 1);
+        if (!__any_sync(IVF_FULL_MASK, __popc(bits) > jw)) continue;
+        float gs = IVF_INF;
+        int gi = SENT;
+#pragma unroll
+        for (int a = 0; a < TC; ++a) {
+          int r = 0;
+#pragma unroll
+          for (int b = 0; b < TC; ++b)
+            r += b != a && ((bits >> b) & 1) &&
+                         ent_less(sc[i][b], id(i, b), sc[i][a], id(i, a))
+                     ? 1 : 0;
+          if (((bits >> a) & 1) && r == jw - 1) {
+            gs = sc[i][a];
+            gi = id(i, a);
+          }
+        }
+#pragma unroll
+        for (int off = 1; off < 8; off <<= 1) {
+          const float os = __shfl_xor_sync(IVF_FULL_MASK, gs, off, 8);
+          const int oi = __shfl_xor_sync(IVF_FULL_MASK, gi, off, 8);
+          if (ent_less(gs, gi, os, oi)) {
+            gs = os;
+            gi = oi;
+          }
+        }
+#pragma unroll
+        for (int a = 0; a < TC; ++a)
+          if (ent_less(gs, gi, sc[i][a], id(i, a)))
+            pend &= ~(1u << (i * TC + a));
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < TQ; ++i) {
+      const uint32_t bits = (pend >> (i * TC)) & ((1u << TC) - 1);
+      const int n = __popc(bits);
+      int incl = n;
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1) {
+        const int t = __shfl_up_sync(IVF_FULL_MASK, incl, off, 8);
+        if ((lane & 7) >= off) incl += t;
+      }
+      const int total = __shfl_sync(IVF_FULL_MASK, incl, 7, 8);
+      int base = 0;
+      if ((lane & 7) == 0 && total > 0)
+        base = atomicAdd(s.cnt + ty + 16 * i, total);
+      base = __shfl_sync(IVF_FULL_MASK, base, 0, 8);
+      int pos = base + incl - n;
+      Ent* row = s.buf + static_cast<size_t>(ty + 16 * i) * (CAP + 1);
+#pragma unroll
+      for (int j = 0; j < TC; ++j)
+        if ((bits >> j) & 1) {
+          if (pos < CAP) {
+            row[pos] = Ent{sc[i][j], id(i, j)};
+            pend &= ~(1u << (i * TC + j));
+          }
+          ++pos;
+        }
+    }
+    if (!__syncthreads_or(pend != 0)) return;
+    merge<TQ>(s, w, nq, cur);
   }
 }
 
-__global__ void __launch_bounds__(CS_THREADS) coarse_vbase_kernel(
-    const float* __restrict__ q, const float* __restrict__ cents,
-    const float* __restrict__ cn, const float* __restrict__ rot, int B, int d,
-    int kc, int w, int bq, int kch, int apply_rot, float* __restrict__ vals,
-    int* __restrict__ cells, __nv_bfloat16* __restrict__ v,
-    float* __restrict__ rn) {
-  extern __shared__ float sm[];
-  const CoarseSmem s = coarse_carve(sm, bq, d, w, kch);
-  float* rb = s.rest;                                   // warps * 2 * d
-  const int nq = coarse_select(q, cents, cn, B, d, kc, w, bq, kch, s);
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int q0 = blockIdx.x * bq;
+struct Pos {
+  int q0, nq, split, qtile;
+};
 
-  const int warp = tid >> 5, lane = tid & 31, warps = nthr >> 5;
-  float* rr = rb + static_cast<size_t>(warp) * 2 * d;  // q - c
-  float* ro = rr + d;                                   // rot(q - c)
-  for (int r = warp; r < nq; r += warps) {
-    const float* srow = s.sc + static_cast<size_t>(r) * (w + kch);
-    const int* ri = s.ridx + static_cast<size_t>(r) * w;
-    const float* qr = s.qs + static_cast<size_t>(r) * d;
-    const size_t qi = static_cast<size_t>(q0 + r);
+template <int TQ>
+__device__ __forceinline__ Pos block_pos(const SelArgs& a) {
+  constexpr int BQ = 16 * TQ;
+  const int qtiles = (a.B + BQ - 1) / BQ;
+  Pos p;
+  p.qtile = blockIdx.x % qtiles;  // query tile fastest: blocks resident
+  p.split = blockIdx.x / qtiles;  // together share one split's slice
+  p.q0 = p.qtile * BQ;
+  p.nq = min(BQ, a.B - p.q0);
+  return p;
+}
+
+// Stage the block's queries and select, for each, the w smallest of
+// ||c||^2 - 2 q.c over its split of the table; with more than one split,
+// the last block of the query tile to finish merges the others' lists.
+// Returns true in the block that holds the final lists (list(cur), each
+// ascending by (score, index)); the others return false and exit. Ends at
+// a block barrier.
+template <int TQ>
+__device__ __forceinline__ bool coarse_select(const SelArgs& a, const Sel& s,
+                                              const Pos& p, int& cur) {
+  constexpr int BQ = 16 * TQ;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tx = ((warp & 1) << 3) | (lane & 7);
+  const int ty = ((warp >> 1) << 2) | (lane >> 3);
+  const int d = a.d, w = a.w, qstr = qstride(d);
+  const int r4 = (d + 3) & ~3;
+  const bool vec4 =
+      (d & 3) == 0 && (reinterpret_cast<uintptr_t>(a.cents) & 15) == 0;
+
+  // the queries arrive by cp.async with the first slab (zero-filled past
+  // d and past the batch): no load-to-store round trip per element
+  if ((d & 3) == 0 && (reinterpret_cast<uintptr_t>(a.q) & 15) == 0) {
+    const int c4 = qstr >> 2;
+    for (int i = tid; i < BQ * c4; i += NT) {
+      const int r = i / c4, k = 4 * (i - r * c4);
+      const bool ok = r < p.nq && k < d;
+      cp_async16(s.qs + r * qstr + k,
+                 ok ? a.q + static_cast<size_t>(p.q0 + r) * d + k : a.q,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int i = tid; i < BQ * qstr; i += NT) {
+      const int r = i / qstr, k = i - r * qstr;
+      const bool ok = r < p.nq && k < d;
+      cp_async4(s.qs + i,
+                ok ? a.q + static_cast<size_t>(p.q0 + r) * d + k : a.q,
+                ok ? 4 : 0);
+    }
+  }
+  for (int i = tid; i < BQ * w; i += NT) s.lists[i] = Ent{IVF_INF, SENT};
+  for (int i = tid; i < BQ; i += NT) s.cnt[i] = 0;
+  cur = 0;
+
+  const int ntiles = (a.kc + BC - 1) / BC;
+  const int t0 = p.split * a.tps;
+  const int nt = max(0, min(a.tps, ntiles - t0));
+  const int cend = min(a.kc, (t0 + nt) * BC);
+  const int nsl = (d + BK - 1) / BK;
+  const int total = nt * nsl;
+  float acc[TQ][TC];
+#pragma unroll
+  for (int i = 0; i < TQ; ++i)
+#pragma unroll
+    for (int j = 0; j < TC; ++j) acc[i][j] = 0.f;
+
+  if (total > 0) load_slab(s.ring, a.cents, t0 * BC, cend, 0, d, vec4, tid);
+  cp_async_commit();
+  for (int it = 0; it < total; ++it) {
+    cp_async_wait_all();
+    __syncthreads();  // slab `it` landed; slab it - 1's stage is free
+    if (it + 1 < total) {
+      const int tn = (it + 1) / nsl, kn = (it + 1) - tn * nsl;
+      load_slab(s.ring + ((it + 1) % NSTAGE) * BC * CSTR, a.cents,
+                (t0 + tn) * BC, cend, kn * BK, d, vec4, tid);
+    }
+    cp_async_commit();
+    const int tl = it / nsl, ks = it - tl * nsl;
+    const int k0 = ks * BK;
+    const int nk4 = min(BK, r4 - k0) >> 2;
+    const float* cs = s.ring + (it % NSTAGE) * BC * CSTR;
+    if (nk4 == BK / 4)
+      fma_slab<TQ, true>(acc, s.qs, qstr, cs, k0, nk4, tx, ty);
+    else
+      fma_slab<TQ, false>(acc, s.qs, qstr, cs, k0, nk4, tx, ty);
+    if (ks == nsl - 1) {
+      const int c0 = (t0 + tl) * BC;
+      uint32_t pend = 0;
+#pragma unroll
+      for (int j = 0; j < TC; ++j) {
+        const int c = c0 + tx + 16 * j;
+        const float cnv = c < cend ? __ldg(a.cn + c) : 0.f;
+#pragma unroll
+        for (int i = 0; i < TQ; ++i) {
+          acc[i][j] = __fsub_rn(cnv, 2.0f * acc[i][j]);
+          if (c < cend && ty + 16 * i < p.nq) pend |= 1u << (i * TC + j);
+        }
+      }
+      offer<TQ>(acc, [=](int, int j) { return c0 + tx + 16 * j; }, pend, s,
+                w, p.nq, cur, ty, lane);
+#pragma unroll
+      for (int i = 0; i < TQ; ++i)
+#pragma unroll
+        for (int j = 0; j < TC; ++j) acc[i][j] = 0.f;
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  merge<TQ>(s, w, p.nq, cur);
+  if (a.splits == 1) return true;
+
+  // publish this split's lists; the last block of the query tile merges
+  const int S = a.splits;
+  const Ent* L = s.list(cur);
+  for (int e = tid; e < p.nq * w; e += NT) {
+    const int r = e / w, j = e - r * w;
+    a.part[(static_cast<size_t>(p.q0 + r) * S + p.split) * w + j] = L[e];
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0)
+    s.flag[0] = atomicAdd(a.tickets + p.qtile, 1) == S - 1;
+  __syncthreads();
+  if (!s.flag[0]) return false;
+  __threadfence();
+  const int E = S * w;
+  for (int e0 = 0; e0 < E; e0 += BC) {
+    float sc[TQ][TC];
+    int id[TQ][TC];
+    uint32_t pend = 0;
+#pragma unroll
+    for (int i = 0; i < TQ; ++i) {
+      const int r = ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < TC; ++j) {
+        // every load issued (a dead one from the tile's first entry), so
+        // they overlap instead of waiting on one another
+        const int e = e0 + tx + 16 * j;
+        const bool ok = r < p.nq && e < E && e / w != p.split;
+        const int2 v = __ldcg(reinterpret_cast<const int2*>(
+            a.part + static_cast<size_t>(p.q0) * E +
+            (ok ? static_cast<size_t>(r) * E + e : 0)));
+        sc[i][j] = ok ? __int_as_float(v.x) : IVF_INF;
+        id[i][j] = ok ? v.y : SENT;
+        if (ok) pend |= 1u << (i * TC + j);
+      }
+    }
+    offer<TQ>(sc, [&](int i, int j) { return id[i][j]; }, pend, s, w, p.nq,
+              cur, ty, lane);
+  }
+  merge<TQ>(s, w, p.nq, cur);
+  return true;
+}
+
+__device__ __forceinline__ int cell_of(const Ent& e) {
+  return e.i == SENT ? 0 : e.i;  // only for a table of +inf / NaN scores
+}
+
+template <int TQ>
+__global__ void __launch_bounds__(NT, 2)
+    coarse_topw_kernel(SelArgs a, float* __restrict__ vals,
+                       int* __restrict__ cells) {
+  extern __shared__ __align__(16) float sm[];
+  const Sel s = sel_carve(sm, 16 * TQ, a, false);
+  const Pos p = block_pos<TQ>(a);
+  int cur;
+  if (!coarse_select<TQ>(a, s, p, cur)) return;
+  const Ent* L = s.list(cur);
+  for (int i = threadIdx.x; i < p.nq * a.w; i += NT) {
+    const size_t o = static_cast<size_t>(p.q0) * a.w + i;
+    vals[o] = L[i].s;
+    cells[o] = cell_of(L[i]);
+  }
+}
+
+template <int TQ>
+__global__ void __launch_bounds__(NT, 2)
+    coarse_vbase_kernel(SelArgs a, const float* __restrict__ rot,
+                        int apply_rot, float* __restrict__ vals,
+                        int* __restrict__ cells,
+                        __nv_bfloat16* __restrict__ v,
+                        float* __restrict__ rn) {
+  extern __shared__ __align__(16) float sm[];
+  const Sel s = sel_carve(sm, 16 * TQ, a, true);
+  const Pos p = block_pos<TQ>(a);
+  int cur;
+  if (!coarse_select<TQ>(a, s, p, cur)) return;
+  const int d = a.d, w = a.w, qstr = qstride(d);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, warps = NT >> 5;
+  float* rr = s.ring + static_cast<size_t>(warp) * 2 * d;  // q - c
+  float* ro = rr + d;                                       // rot(q - c)
+  for (int r = warp; r < p.nq; r += warps) {
+    const Ent* L = s.list(cur) + static_cast<size_t>(r) * w;
+    const float* qr = s.qs + static_cast<size_t>(r) * qstr;
+    const size_t qi = static_cast<size_t>(p.q0 + r);
     for (int j = 0; j < w; ++j) {
-      const float m = srow[j];
-      const int a = ri[j];
-      const float* cr = cents + static_cast<size_t>(a) * d;
+      const float m = L[j].s;
+      const int a_ = cell_of(L[j]);
+      const float* cr = a.cents + static_cast<size_t>(a_) * d;
       for (int k = lane; k < d; k += 32) rr[k] = __fsub_rn(qr[k], cr[k]);
       __syncwarp();
       const float* res = rr;
@@ -250,7 +615,7 @@ __global__ void __launch_bounds__(CS_THREADS) coarse_vbase_kernel(
         part = __fadd_rn(part, __shfl_down_sync(IVF_FULL_MASK, part, off));
       if (lane == 0) {
         vals[qi * w + j] = m;
-        cells[qi * w + j] = a;
+        cells[qi * w + j] = a_;
         rn[qi * w + j] = part;
       }
       __syncwarp();
@@ -258,25 +623,27 @@ __global__ void __launch_bounds__(CS_THREADS) coarse_vbase_kernel(
   }
 }
 
-__global__ void __launch_bounds__(CS_THREADS) coarse_vbase_v2_kernel(
-    const float* __restrict__ q, const float* __restrict__ cents,
-    const float* __restrict__ cn, const float* __restrict__ rot,
-    const __nv_bfloat16* __restrict__ hi, const __nv_bfloat16* __restrict__ lo,
-    int B, int d, int kc, int w, int bq, int kch, int apply_rot,
-    float* __restrict__ vals, int* __restrict__ cells,
-    __nv_bfloat16* __restrict__ v) {
-  extern __shared__ float sm[];
-  const CoarseSmem s = coarse_carve(sm, bq, d, w, kch);
-  const int nq = coarse_select(q, cents, cn, B, d, kc, w, bq, kch, s);
+template <int TQ>
+__global__ void __launch_bounds__(NT, 2)
+    coarse_vbase_v2_kernel(SelArgs a, const float* __restrict__ rot,
+                           const __nv_bfloat16* __restrict__ hi,
+                           const __nv_bfloat16* __restrict__ lo,
+                           int apply_rot, float* __restrict__ vals,
+                           int* __restrict__ cells,
+                           __nv_bfloat16* __restrict__ v) {
+  extern __shared__ __align__(16) float sm[];
+  const Sel s = sel_carve(sm, 16 * TQ, a, true);
+  const Pos p = block_pos<TQ>(a);
+  int cur;
+  if (!coarse_select<TQ>(a, s, p, cur)) return;
+  const int d = a.d, w = a.w, qstr = qstride(d);
   const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * bq;
-  const int warp = tid >> 5, lane = tid & 31, warps = blockDim.x >> 5;
-  float* rq = s.rest + static_cast<size_t>(warp) * 2 * d;   // rotq
-  for (int r = warp; r < nq; r += warps) {
-    const float* srow = s.sc + static_cast<size_t>(r) * (w + kch);
-    const int* ri = s.ridx + static_cast<size_t>(r) * w;
-    const float* qr = s.qs + static_cast<size_t>(r) * d;
-    const size_t qi = static_cast<size_t>(q0 + r);
+  const int warp = tid >> 5, lane = tid & 31, warps = NT >> 5;
+  float* rq = s.ring + static_cast<size_t>(warp) * 2 * d;  // rotq
+  for (int r = warp; r < p.nq; r += warps) {
+    const Ent* L = s.list(cur) + static_cast<size_t>(r) * w;
+    const float* qr = s.qs + static_cast<size_t>(r) * qstr;
+    const size_t qi = static_cast<size_t>(p.q0 + r);
     if (apply_rot) {
       for (int col = lane; col < d; col += 32) {
         float acc = 0.f;
@@ -289,9 +656,9 @@ __global__ void __launch_bounds__(CS_THREADS) coarse_vbase_v2_kernel(
     }
     __syncwarp();
     for (int j = 0; j < w; ++j) {
-      const int a = ri[j];
-      const __nv_bfloat16* hr = hi + static_cast<size_t>(a) * d;
-      const __nv_bfloat16* lr = lo + static_cast<size_t>(a) * d;
+      const int a_ = cell_of(L[j]);
+      const __nv_bfloat16* hr = hi + static_cast<size_t>(a_) * d;
+      const __nv_bfloat16* lr = lo + static_cast<size_t>(a_) * d;
       __nv_bfloat16* vo = v + (qi * w + j) * d;
       for (int k = lane; k < d; k += 32) {
         const float rc =
@@ -299,97 +666,168 @@ __global__ void __launch_bounds__(CS_THREADS) coarse_vbase_v2_kernel(
         vo[k] = __float2bfloat16_rn(-2.0f * __fsub_rn(rq[k], rc));
       }
       if (lane == 0) {
-        vals[qi * w + j] = srow[j];
-        cells[qi * w + j] = a;
+        vals[qi * w + j] = L[j].s;
+        cells[qi * w + j] = a_;
       }
     }
     __syncwarp();
   }
 }
 
-// Shared memory of a block of bq queries over chunks of kch centroids;
-// `scratch` adds the per-warp residual rows of the v/base variant.
-static size_t coarse_smem(int bq, int d, int w, int kch, bool scratch) {
-  return sizeof(float) *
-         (static_cast<size_t>(bq) * d + static_cast<size_t>(CT) * (d + 1) +
-          static_cast<size_t>(bq) * (w + kch) +
-          static_cast<size_t>(bq) * w * 3 +
-          (scratch ? static_cast<size_t>(CS_THREADS / 32) * 2 * d : 0));
+enum Kind { TOPW = 0, VBASE = 1, VBASE_V2 = 2 };
+
+const void* kernel_of(int kind, int tq) {
+  switch (kind * 2 + (tq == 4 ? 1 : 0)) {
+    case 0: return reinterpret_cast<const void*>(coarse_topw_kernel<1>);
+    case 1: return reinterpret_cast<const void*>(coarse_topw_kernel<4>);
+    case 2: return reinterpret_cast<const void*>(coarse_vbase_kernel<1>);
+    case 3: return reinterpret_cast<const void*>(coarse_vbase_kernel<4>);
+    case 4: return reinterpret_cast<const void*>(coarse_vbase_v2_kernel<1>);
+    case 5: return reinterpret_cast<const void*>(coarse_vbase_v2_kernel<4>);
+  }
+  return nullptr;
 }
 
-// Largest power-of-two query block (<= BQ_MAX) that fits; 0 when none does
-// (only a very large d: the chunk bounds the score rows).
-static int coarse_pick_bq(int d, int w, int kch, bool scratch) {
-  const size_t limit = 200u << 10;
-  int bq = BQ_MAX;
-  while (bq > 1 && coarse_smem(bq, d, w, kch, scratch) > limit) bq >>= 1;
-  return coarse_smem(bq, d, w, kch, scratch) > limit ? 0 : bq;
+// Validate a launch plan and fill the kernel arguments; 0 or an error.
+int sel_args(const void* q, const void* cents, const void* cn, int B, int d,
+             int kc, int w, int tq, int splits, void* part, void* tickets,
+             bool scratch, SelArgs* a, size_t* smem) {
+  const int ntiles = (kc + BC - 1) / BC;
+  if ((tq != 1 && tq != 4) || d < 1 || w < 1 || w > kc || splits < 1 ||
+      splits > ntiles || (splits > 1 && (!part || !tickets)))
+    return cudaErrorInvalidValue;
+  *smem = sel_bytes(16 * tq, d, w, scratch);
+  if (*smem > SMEM_MAX) return cudaErrorInvalidValue;
+  a->q = static_cast<const float*>(q);
+  a->cents = static_cast<const float*>(cents);
+  a->cn = static_cast<const float*>(cn);
+  a->B = B;
+  a->d = d;
+  a->kc = kc;
+  a->w = w;
+  a->splits = splits;
+  a->tps = (ntiles + splits - 1) / splits;
+  a->part = static_cast<Ent*>(part);
+  a->tickets = static_cast<int*>(tickets);
+  return 0;
+}
+
+int grid_of(int B, int tq, int splits) {
+  return (B + 16 * tq - 1) / (16 * tq) * splits;
+}
+
+}  // namespace
+
+// A block shape's fit for (d, w) and a kernel kind (0 top-w, 1 v/base,
+// 2 v2), with query tiles of 16 * tq rows (tq 4 or 1): out = {bq, bc,
+// shared bytes, resident blocks per SM}, the last two 0 where the shared
+// memory would exceed a block's.
+extern "C" int coarse_fit(int d, int w, int kind, int tq, int* out) {
+  if (d < 1 || w < 1 || kind < TOPW || kind > VBASE_V2 ||
+      (tq != 1 && tq != 4))
+    return cudaErrorInvalidValue;
+  const size_t smem = sel_bytes(16 * tq, d, w, kind != TOPW);
+  out[0] = 16 * tq;
+  out[1] = BC;
+  out[2] = out[3] = 0;
+  if (smem > SMEM_MAX) return 0;
+  const void* k = kernel_of(kind, tq);
+  int err = ivf_set_smem(k, smem);
+  if (err) return err;
+  int blocks = 0;
+  err = static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, NT, smem));
+  if (err) return err;
+  out[2] = static_cast<int>(smem);
+  out[3] = blocks;
+  return 0;
 }
 
 extern "C" int coarse_vbase(const void* q, const void* cents, const void* cn,
                             const void* rot, int B, int d, int kc, int w,
-                            int apply_rot, void* vals, void* cells, void* v,
-                            void* rn, void* stream) {
-  const int kch = kc < KCH_MAX ? kc : KCH_MAX;
-  const int bq = coarse_pick_bq(d, w, kch, true);
-  if (bq == 0 || w < 1 || w > kch) return cudaErrorInvalidValue;
-  const size_t smem = coarse_smem(bq, d, w, kch, true);
-  int err =
-      ivf_set_smem(reinterpret_cast<const void*>(coarse_vbase_kernel), smem);
+                            int apply_rot, int tq, int splits,
+                            void* part, void* tickets, void* vals,
+                            void* cells, void* v, void* rn, void* stream) {
+  SelArgs a;
+  size_t smem;
+  int err = sel_args(q, cents, cn, B, d, kc, w, tq, splits, part, tickets,
+                     true, &a, &smem);
   if (err) return err;
-  const int blocks = (B + bq - 1) / bq;
-  if (blocks > 0)
-    coarse_vbase_kernel<<<blocks, CS_THREADS, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(q), static_cast<const float*>(cents),
-        static_cast<const float*>(cn), static_cast<const float*>(rot), B, d,
-        kc, w, bq, kch, apply_rot, static_cast<float*>(vals),
-        static_cast<int*>(cells), static_cast<__nv_bfloat16*>(v),
-        static_cast<float*>(rn));
+  err = ivf_set_smem(kernel_of(VBASE, tq), smem);
+  if (err) return err;
+  const int grid = grid_of(B, tq, splits);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* rt = static_cast<const float*>(rot);
+  auto* fv = static_cast<float*>(vals);
+  auto* ic = static_cast<int*>(cells);
+  auto* bv = static_cast<__nv_bfloat16*>(v);
+  auto* fr = static_cast<float*>(rn);
+  if (grid > 0) {
+    if (tq == 4)
+      coarse_vbase_kernel<4><<<grid, NT, smem, st>>>(a, rt, apply_rot, fv,
+                                                     ic, bv, fr);
+    else
+      coarse_vbase_kernel<1><<<grid, NT, smem, st>>>(a, rt, apply_rot, fv,
+                                                     ic, bv, fr);
+  }
   return ivf_launch_status();
 }
 
 extern "C" int coarse_vbase_v2(const void* q, const void* cents,
                                const void* cn, const void* rot,
                                const void* hi, const void* lo, int B, int d,
-                               int kc, int w, int apply_rot, void* vals,
-                               void* cells, void* v, void* stream) {
-  const int kch = kc < KCH_MAX ? kc : KCH_MAX;
-  const int bq = coarse_pick_bq(d, w, kch, true);
-  if (bq == 0 || w < 1 || w > kch) return cudaErrorInvalidValue;
-  const size_t smem = coarse_smem(bq, d, w, kch, true);
-  int err = ivf_set_smem(reinterpret_cast<const void*>(coarse_vbase_v2_kernel),
-                         smem);
+                               int kc, int w, int apply_rot, int tq,
+                               int splits, void* part, void* tickets,
+                               void* vals, void* cells, void* v,
+                               void* stream) {
+  SelArgs a;
+  size_t smem;
+  int err = sel_args(q, cents, cn, B, d, kc, w, tq, splits, part, tickets,
+                     true, &a, &smem);
   if (err) return err;
-  const int blocks = (B + bq - 1) / bq;
-  if (blocks > 0)
-    coarse_vbase_v2_kernel<<<blocks, CS_THREADS, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(q), static_cast<const float*>(cents),
-        static_cast<const float*>(cn), static_cast<const float*>(rot),
-        static_cast<const __nv_bfloat16*>(hi),
-        static_cast<const __nv_bfloat16*>(lo), B, d, kc, w, bq, kch,
-        apply_rot, static_cast<float*>(vals), static_cast<int*>(cells),
-        static_cast<__nv_bfloat16*>(v));
+  err = ivf_set_smem(kernel_of(VBASE_V2, tq), smem);
+  if (err) return err;
+  const int grid = grid_of(B, tq, splits);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* rt = static_cast<const float*>(rot);
+  auto* h = static_cast<const __nv_bfloat16*>(hi);
+  auto* l = static_cast<const __nv_bfloat16*>(lo);
+  auto* fv = static_cast<float*>(vals);
+  auto* ic = static_cast<int*>(cells);
+  auto* bv = static_cast<__nv_bfloat16*>(v);
+  if (grid > 0) {
+    if (tq == 4)
+      coarse_vbase_v2_kernel<4><<<grid, NT, smem, st>>>(a, rt, h, l,
+                                                        apply_rot, fv, ic,
+                                                        bv);
+    else
+      coarse_vbase_v2_kernel<1><<<grid, NT, smem, st>>>(a, rt, h, l,
+                                                        apply_rot, fv, ic,
+                                                        bv);
+  }
   return ivf_launch_status();
 }
 
 extern "C" int coarse_topw(const void* q, const void* cents, const void* cn,
-                           int B, int d, int kc, int w, void* vals,
+                           int B, int d, int kc, int w, int tq, int splits,
+                           void* part, void* tickets, void* vals,
                            void* cells, void* stream) {
-  const int kch = kc < KCH_MAX ? kc : KCH_MAX;
-  const int bq = coarse_pick_bq(d, w, kch, false);
-  if (bq == 0 || w < 1 || w > kch) return cudaErrorInvalidValue;
-  const size_t smem = coarse_smem(bq, d, w, kch, false);
-  int err =
-      ivf_set_smem(reinterpret_cast<const void*>(coarse_topw_kernel), smem);
+  SelArgs a;
+  size_t smem;
+  int err = sel_args(q, cents, cn, B, d, kc, w, tq, splits, part, tickets,
+                     false, &a, &smem);
   if (err) return err;
-  const int blocks = (B + bq - 1) / bq;
-  if (blocks > 0)
-    coarse_topw_kernel<<<blocks, CS_THREADS, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(q), static_cast<const float*>(cents),
-        static_cast<const float*>(cn), B, d, kc, w, bq, kch,
-        static_cast<float*>(vals), static_cast<int*>(cells));
+  err = ivf_set_smem(kernel_of(TOPW, tq), smem);
+  if (err) return err;
+  const int grid = grid_of(B, tq, splits);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* fv = static_cast<float*>(vals);
+  auto* ic = static_cast<int*>(cells);
+  if (grid > 0) {
+    if (tq == 4)
+      coarse_topw_kernel<4><<<grid, NT, smem, st>>>(a, fv, ic);
+    else
+      coarse_topw_kernel<1><<<grid, NT, smem, st>>>(a, fv, ic);
+  }
   return ivf_launch_status();
 }

@@ -17,6 +17,8 @@ scores, which holds only for an orthogonal rotation.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
 
 import torch
@@ -28,16 +30,91 @@ from ivfadc_tpu_torch import _build
 # IVFADC_COARSE_ENGINE per search and pass it explicitly.
 _DEFAULT_ENGINE = os.environ.get("IVFADC_COARSE_ENGINE", "v1")
 
+_P, _I = _build.P, _build.I
 KERNEL = _build.Kernel("coarse_scan", "coarse_vbase",
-                       [_build.P, _build.P, _build.P, _build.P, _build.I,
-                        _build.I, _build.I, _build.I, _build.I, _build.P,
-                        _build.P, _build.P, _build.P, _build.P])
+                       [_P] * 4 + [_I] * 7 + [_P] * 7)
 V2_KERNEL = _build.Kernel("coarse_scan", "coarse_vbase_v2",
-                          [_build.P] * 6 + [_build.I] * 5 + [_build.P] * 4)
+                          [_P] * 6 + [_I] * 7 + [_P] * 6)
 TOPW_KERNEL = _build.Kernel("coarse_scan", "coarse_topw",
-                            [_build.P, _build.P, _build.P, _build.I,
-                             _build.I, _build.I, _build.I, _build.P,
-                             _build.P, _build.P])
+                            [_P] * 3 + [_I] * 6 + [_P] * 5)
+_FIT = _build.HostFn("coarse_scan", "coarse_fit", [_I, _I, _I, _I, _P])
+_KINDS = {"topw": 0, "vbase": 1, "vbase_v2": 2}
+
+
+def split_plan(B: int, kc: int, bq: int, bc: int, slots: int):
+    """(S, tiles per split): the kernels' grid is ceil(B / bq) query tiles
+    times S splits of the ceil(kc / bc) centroid tiles. S is the largest
+    count whose blocks all fit the card's `slots` resident blocks at once
+    (one wave; a partial second wave would idle most SMs), at least 1 and
+    at most one tile a split; tiles are then spread evenly, so no split is
+    empty."""
+    tiles = -(-kc // bc)
+    qtiles = -(-B // bq)
+    if qtiles == 0:
+        return 1, tiles
+    s = min(tiles, max(1, slots // qtiles))
+    tps = -(-tiles // s)
+    return -(-tiles // tps), tps
+
+
+@functools.lru_cache(maxsize=None)
+def _fit(d: int, w: int, kind: int, tq: int, device_index: int):
+    """(bq, bc, shared bytes, resident blocks per SM) of query tiles of
+    16 * tq rows for (d, w), or None where they do not fit."""
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device_index):
+        _FIT(d, w, kind, tq, ctypes.addressof(out))
+    return tuple(out) if out[3] > 0 else None
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index) \
+        .multi_processor_count
+
+
+def plan(B: int, d: int, kc: int, w: int, kind: str, device) -> dict:
+    """The launch plan of a coarse kernel (`kind` "topw", "vbase" or
+    "vbase_v2") on a CUDA device: query tiles of bq = 64 rows (tq = 4 a
+    thread) where their grid fills every SM once, else of 16 (tq = 1: a
+    small batch wastes fewer rows and spreads over more blocks); bc
+    centroids a tile; the split of the table over the card's resident
+    blocks (`split_plan`); the kernel's shared memory and blocks per SM."""
+    device = torch.device(device)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    sms = _sms(index)
+    plans = []
+    for tq in (4, 1):
+        fit = _fit(d, w, _KINDS[kind], tq, index)
+        if fit is None:
+            continue
+        bq, bc, smem, per_sm = fit
+        splits, tps = split_plan(B, kc, bq, bc, sms * per_sm)
+        plans.append(dict(tq=tq, bq=bq, bc=bc, splits=splits,
+                          tiles_per_split=tps, grid=-(-B // bq) * splits,
+                          smem_bytes=smem, blocks_per_sm=per_sm, sms=sms))
+    if not plans:
+        raise ValueError(f"the coarse kernels take no d={d}, w={w}: their "
+                         f"shared memory would exceed the card's")
+    return plans[0] if plans[0]["grid"] >= sms else plans[-1]
+
+
+def _launch_args(B: int, d: int, kc: int, w: int, kind: str, dev):
+    """(tq, splits, part, tickets) for a launch; with more than one
+    split, the per-split lists (B, S, w) of (score, index) and one zeroed
+    ticket a query tile."""
+    p = plan(B, d, kc, w, kind, dev)
+    if p["splits"] == 1:
+        return p["tq"], 1, None, None
+    part = torch.empty((B, p["splits"], w, 2), dtype=torch.int32,
+                       device=dev)
+    tickets = torch.zeros(-(-B // p["bq"]), dtype=torch.int32, device=dev)
+    return p["tq"], p["splits"], part, tickets
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def coarse_vbase_plain(q32, c32, cn, rot, w: int, apply_rot: bool):
@@ -76,8 +153,10 @@ def coarse_vbase(q32, c32, cn, rot, w: int, apply_rot: bool):
     cells = torch.empty((B, w), dtype=torch.int32, device=dev)
     v = torch.empty((B, w, d), dtype=torch.bfloat16, device=dev)
     rn = torch.empty((B, w), dtype=torch.float32, device=dev)
-    KERNEL(*(t.data_ptr() for t in args), B, d, kc, w, int(apply_rot),
-           vals.data_ptr(), cells.data_ptr(), v.data_ptr(), rn.data_ptr(),
+    tq, splits, part, tickets = _launch_args(B, d, kc, w, "vbase", dev)
+    KERNEL(*(t.data_ptr() for t in args), B, d, kc, w, int(apply_rot), tq,
+           splits, _ptr(part), _ptr(tickets), vals.data_ptr(),
+           cells.data_ptr(), v.data_ptr(), rn.data_ptr(),
            _build.stream_ptr(dev))
     return vals, cells, v, rn
 
@@ -117,9 +196,10 @@ def coarse_vbase_v2(q32, c32, cn, rot, hi, lo, w: int, apply_rot: bool):
     vals = torch.empty((B, w), dtype=torch.float32, device=dev)
     cells = torch.empty((B, w), dtype=torch.int32, device=dev)
     v = torch.empty((B, w, d), dtype=torch.bfloat16, device=dev)
+    tq, splits, part, tickets = _launch_args(B, d, kc, w, "vbase_v2", dev)
     V2_KERNEL(*(t.data_ptr() for t in args), B, d, kc, w, int(apply_rot),
-              vals.data_ptr(), cells.data_ptr(), v.data_ptr(),
-              _build.stream_ptr(dev))
+              tq, splits, _ptr(part), _ptr(tickets), vals.data_ptr(),
+              cells.data_ptr(), v.data_ptr(), _build.stream_ptr(dev))
     return vals, cells, v
 
 
@@ -150,7 +230,7 @@ def coarse_probe_vbase(queries, centroids, w: int, rotation,
     runs v1, as in the JAX package.
 
     Unlike the JAX wrapper it never returns None: the kernels stream the
-    centroid table in chunks and take every kc. The JAX wrapper returns
+    centroid table in tiles and take every kc. The JAX wrapper returns
     None where its tables outgrow its VMEM budget (v2 at d = 128 from about
     kc = 7900 up, e.g. kc = 8192; v1 from twice that) and its callers then
     run the unfused probe, which picks the same exact top-w cells."""
@@ -208,7 +288,7 @@ def coarse_topw(queries, centroids, w: int):
     the (B, kc) matrix in device memory. queries (B, d), centroids (kc, d)
     -> (cells (B, w) i32, sqdists (B, w) f32 ascending), for 1 <= w <=
     min(kc, 128). Unlike the JAX wrapper it never returns None: the kernel
-    streams the centroid table in chunks and takes every kc. CPU tensors
+    streams the centroid table in tiles and takes every kc. CPU tensors
     run the plain version, CUDA tensors launch the kernel."""
     B, d = queries.shape
     kc = centroids.shape[0]
@@ -225,8 +305,11 @@ def coarse_topw(queries, centroids, w: int):
     else:
         vals = torch.empty((B, w), dtype=torch.float32, device=q32.device)
         cells = torch.empty((B, w), dtype=torch.int32, device=q32.device)
+        tq, splits, part, tickets = _launch_args(B, d, kc, w, "topw",
+                                                 q32.device)
         TOPW_KERNEL(q32.data_ptr(), c32.data_ptr(), cn.data_ptr(), B, d, kc,
-                    w, vals.data_ptr(), cells.data_ptr(),
+                    w, tq, splits, _ptr(part), _ptr(tickets),
+                    vals.data_ptr(), cells.data_ptr(),
                     _build.stream_ptr(q32.device))
     qn = torch.sum(q32 * q32, dim=1, keepdim=True)
     return cells, torch.clamp_min(vals + qn, 0.0)

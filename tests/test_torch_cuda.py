@@ -222,8 +222,8 @@ def test_probe_scan_kernel(dev, nf, norm_coef, integer):
                                       (24, 128, 9000, 16),
                                       (17, 32, 70000, 128)])
 def test_coarse_topw_kernel(dev, B, d, kc, w):
-    # kc > 1024: the table is scored in chunks of 1024 centroids, merged
-    # into a running top-w
+    # kc > 128: the table is scored in 128-centroid tiles, split over
+    # blocks, each keeping a running top-w
     rng = np.random.RandomState(B + kc)
     q = torch.from_numpy(rng.randn(B, d).astype(np.float32))
     c = torch.from_numpy(rng.randn(kc, d).astype(np.float32))
@@ -240,16 +240,35 @@ def test_coarse_topw_kernel(dev, B, d, kc, w):
         assert torch.equal(fcells, kcells)
 
 
+def _tie_table(rng, B, kc, d, dev, w):
+    """Integer-valued queries and centroids (entries in -2..2: every f32
+    sum is exact in any order, and most scores tie), with copies of one
+    centroid row on both sides of every 128-centroid tile boundary, the
+    1024-centroid boundaries and the boundaries of the kernels' kc splits
+    at this batch."""
+    q = rng.randint(-2, 3, (B, d)).astype(np.float32)
+    c = rng.randint(-2, 3, (kc, d)).astype(np.float32)
+    tps = coarse_scan.plan(B, d, kc, w, "topw", dev)["tiles_per_split"]
+    for edge in list(range(128, kc, 128)) + list(range(1024, kc, 1024)) \
+            + list(range(128 * tps, kc, 128 * tps)):
+        c[edge - 1] = c[edge] = c[0]
+    c[kc - 1] = c[0]
+    return torch.from_numpy(q), torch.from_numpy(c)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kc,w", [(9001, 64), (4096, 128), (12288, 1)])
+@pytest.mark.parametrize("kc,w", [(9001, 64), (4096, 128), (12288, 1),
+                                  (65536, 32)])
 def test_coarse_kernels_break_ties_by_index_across_chunks(dev, kc, w):
     # integer-valued inputs: every score is exact and most tie, within a
-    # chunk of 1024 centroids and across chunks, so both kernels must
-    # return the plain version's cells (lowest index first) bit for bit
+    # tile of 128 centroids, across tiles and across the splits of the
+    # table that the kernels score in separate blocks, so both kernels
+    # must return the plain version's cells (lowest index first) bit for
+    # bit
     rng = np.random.RandomState(kc)
     B, d = 37, 16
-    q = torch.from_numpy(rng.randint(-2, 3, (B, d)).astype(np.float32))
-    c = torch.from_numpy(rng.randint(-2, 3, (kc, d)).astype(np.float32))
+    assert coarse_scan.plan(B, d, kc, w, "topw", dev)["splits"] > 1
+    q, c = _tie_table(rng, B, kc, d, dev, w)
     cn = torch.sum(c * c, dim=1)
     pvals, pcells = coarse_scan.coarse_topw_plain(q, c, cn, w)
     kcells, kd = coarse_scan.coarse_topw(q.to(dev), c.to(dev), w)
@@ -263,6 +282,41 @@ def test_coarse_kernels_break_ties_by_index_across_chunks(dev, kc, w):
     pv = coarse_scan.coarse_vbase_plain(q, c, cn, torch.eye(d), w, False)
     assert torch.equal(fvals.cpu(), pv[0]) and torch.equal(fcells.cpu(), pv[1])
     assert torch.equal(fv.cpu(), pv[2]) and torch.equal(frn.cpu(), pv[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,kc,d,w", [
+    (1, 8, 96, 8), (1, 128, 128, 128), (7, 1000, 100, 8),
+    (7, 1000, 96, 128), (256, 1024, 128, 8), (256, 1024, 128, 128),
+    (256, 4097, 100, 32), (4096, 1024, 100, 1), (4096, 4097, 96, 32),
+    (7, 65536, 128, 1), (1, 65536, 96, 128), (4096, 65536, 96, 32)])
+def test_coarse_kernels_integer_ties_bit_equal(dev, B, kc, d, w):
+    # kernels 7, 1 and 10 on integer-tie tables at every batch shape the
+    # split plan distinguishes (one query tile, a few, many), held to the
+    # plain versions bit for bit on the card: (vals, cells) for 7, (vals,
+    # cells, v, rn) for 1, and kernel 10's cells equal to kernel 1's; each
+    # wrapper launches exactly once per call
+    rng = np.random.RandomState(B * 7 + kc + d + w)
+    q, c = (t.to(dev) for t in _tie_table(rng, B, kc, d, dev, w))
+    cn = torch.sum(c * c, dim=1)
+    eye = torch.eye(d, device=dev)
+    counts = [k.launches for k in (coarse_scan.TOPW_KERNEL,
+                                   coarse_scan.KERNEL, coarse_scan.V2_KERNEL)]
+    kcells, kd = coarse_scan.coarse_topw(q, c, w)
+    k1 = coarse_scan.coarse_vbase(q, c, cn, eye, w, False)
+    hi, lo = coarse_scan.hi_lo_split(c, eye, False)
+    k10 = coarse_scan.coarse_vbase_v2(q, c, cn, eye, hi, lo, w, False)
+    assert [k.launches for k in (coarse_scan.TOPW_KERNEL, coarse_scan.KERNEL,
+                                 coarse_scan.V2_KERNEL)] == \
+        [n + 1 for n in counts]
+    pvals, pcells = coarse_scan.coarse_topw_plain(q, c, cn, w)
+    qn = torch.sum(q * q, dim=1, keepdim=True)
+    assert torch.equal(kcells, pcells)
+    assert torch.equal(kd, torch.clamp_min(pvals + qn, 0.0))
+    p1 = coarse_scan.coarse_vbase_plain(q, c, cn, eye, w, False)
+    assert all(torch.equal(a, b) for a, b in zip(k1, p1))
+    assert torch.equal(k10[1], k1[1]) and torch.equal(k10[0], k1[0])
+    assert torch.equal(k10[2], k1[2])       # no rotation: v is exact
 
 
 @pytest.mark.cuda
@@ -551,7 +605,7 @@ def test_cell_rank_v2_kernel_exact(dev, kc, P):
 @pytest.mark.parametrize("kc", [1024, 3000])
 @pytest.mark.parametrize("apply_rot", [False, True])
 def test_coarse_probe_v2_kernel(dev, kc, apply_rot):
-    # kc = 3000: not a 128-multiple, more than one 1024-centroid chunk
+    # kc = 3000: not a 128-multiple, more than one split of the table
     rng = np.random.RandomState(kc + int(apply_rot))
     q = torch.from_numpy(rng.randn(256, 128).astype(np.float32))
     c = torch.from_numpy(rng.randn(kc, 128).astype(np.float32))

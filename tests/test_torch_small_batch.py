@@ -190,6 +190,69 @@ def test_coarse_topw_matches_jax(B, d, kc, w):
     assert (np.diff(td.numpy(), axis=1) >= 0).all()
 
 
+def _tie_inputs(B, kc, d, seed):
+    """Integer-valued queries and centroids (entries in -2..2: every f32
+    sum is exact in any order, and most scores tie), with copies of one
+    centroid row on both sides of the kernels' 128-centroid tile and
+    1024-centroid boundaries: the contract is the lowest index first."""
+    rng = np.random.RandomState(seed)
+    q = rng.randint(-2, 3, (B, d)).astype(np.float32)
+    c = rng.randint(-2, 3, (kc, d)).astype(np.float32)
+    for at in (127, 128, 1023, 1024, kc - 1):
+        if at < kc:
+            c[at] = c[0]
+    return q, c
+
+
+@pytest.mark.parametrize("B,d,kc,w", [
+    (8, 128, 2048, 8),       # kc > 1024: the JAX package's fused kernel
+    (8, 96, 1280, 128),      # w = 128: its pairwise + top-k route
+    (16, 128, 128, 128),     # w = kc
+    (1, 96, 1152, 32),       # B = 1
+    (1, 100, 100, 100),      # w = kc off the 128 grid
+])
+def test_coarse_probes_break_integer_ties_as_jax(B, d, kc, w):
+    # the contract the CUDA kernels are held to on the card: the exact
+    # top-w by (distance, lowest index), here through the plain versions
+    # against the JAX package's naive coarse search
+    from ivfadc_tpu.models.coarse import NaiveCoarseQuantizer
+    from ivfadc_tpu.ops.metrics import get_metric
+    q, c = _tie_inputs(B, kc, d, seed=B + kc + d + w)
+    jc, jd = NaiveCoarseQuantizer(jnp.asarray(c), get_metric(
+        "sqeuclidean")).search(jnp.asarray(q), w)
+    jc, jd = np.asarray(jc), np.asarray(jd)
+    tq, tc = torch.from_numpy(q), torch.from_numpy(c)
+    cells, dists = t_coarse.coarse_topw(tq, tc, w)
+    np.testing.assert_array_equal(cells.numpy(), jc)
+    np.testing.assert_allclose(dists.numpy(), jd, rtol=1e-6)
+    for engine in ("v1", "v2"):
+        fc, fd, fv, fb = t_coarse.coarse_probe_vbase(
+            tq, tc, w, torch.eye(d), False, True, engine=engine)
+        np.testing.assert_array_equal(fc.numpy(), jc)
+        np.testing.assert_allclose(fd.numpy(), jd, rtol=1e-6)
+        # v = bf16(-2 (q - c)) of each winning cell: small integers, exact
+        np.testing.assert_array_equal(
+            fv.float().numpy(), -2.0 * (q[:, None, :] - c[jc]))
+
+
+@pytest.mark.parametrize("B,kc,splits,tps", [
+    (1, 1024, 8, 1),              # one query tile: a split per tile
+    (256, 1024, 8, 1),            # 4 query tiles x 8 splits
+    (4096, 1 << 18, 4, 512),      # 64 query tiles x 4: one wave
+    (16384, 1024, 1, 8),          # 256 query tiles fill the card alone
+    (1, 1 << 18, 256, 8),         # tiles spread evenly over the splits
+    (100000, 1024, 1, 8),         # more query tiles than resident blocks
+    (0, 1024, 1, 8),
+])
+def test_coarse_split_plan_fills_one_wave(B, kc, splits, tps):
+    # 132 SMs x 2 resident blocks, query tiles of 64, centroid tiles of 128
+    slots, bq, bc = 264, 64, 128
+    assert t_coarse.split_plan(B, kc, bq, bc, slots) == (splits, tps)
+    tiles, qtiles = -(-kc // bc), -(-B // bq)
+    assert (splits - 1) * tps < tiles <= splits * tps   # no empty split
+    assert qtiles * splits <= max(slots, qtiles)        # one wave
+
+
 def test_coarse_topw_equals_fused_probe_cells():
     # the two probe kernels share their score code: same cells, same
     # distances, on the plain versions as on the card
