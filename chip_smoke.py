@@ -31,7 +31,11 @@ phases, printing one JSON line per phase; any failure raises (exit != 0):
            coarse kernels 1, 7 and 10 also the launch plan (query tile,
            centroid tile, splits of the table, grid) and the share of the
            bound, and at B=256 an integer-valued table on which kernels 7,
-           1 and 10 must equal the plain versions bit for bit
+           1 and 10 must equal the plain versions bit for bit; for the
+           grouped scans (3, 8a-8e, 9) the kernel's device time, its share
+           of the bound and its launch shape (blocks per SM, shared bytes,
+           staged tiles, fold buffer, registers, spills); for kernel 6 and
+           torch.topk at B=256 their device times
   search   with every launch count zeroed: search_padded of 1000 queries,
            recall@10 against brute force and against the NumPy oracle of
            the reference algorithm, QPS over back-to-back B=16384 batches
@@ -177,11 +181,12 @@ def cuda_ms(fn, reps: int = 5, inner: int = 1) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, calls: int = 10) -> float:
+def device_ms(fn, calls: int = 10, match: str | None = None) -> float:
     """Device time of fn() per call: the summed device time of the
     operations it launches (torch.profiler's CUDA trace), after one
-    warm-up. Unlike CUDA events around back-to-back calls it leaves out
-    the host's time, which bounds calls of a few microseconds."""
+    warm-up; with `match`, of the kernels whose name holds it. Unlike CUDA
+    events around back-to-back calls it leaves out the host's time, which
+    bounds calls of a few microseconds."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -193,7 +198,8 @@ def device_ms(fn, calls: int = 10) -> float:
         torch.cuda.synchronize()
     us = 0.0
     for e in prof.key_averages():
-        if getattr(e, "device_type", None) == DeviceType.CUDA:
+        if getattr(e, "device_type", None) == DeviceType.CUDA and (
+                match is None or match in e.key):
             t = getattr(e, "self_device_time_total", None)
             us += t if t is not None else getattr(e, "self_cuda_time_total",
                                                   0.0)
@@ -287,6 +293,23 @@ def coarse_layout(rec: dict, kind: str, B: int, kc: int, d: int,
     p = coarse_scan.plan(B, d, kc, w, kind, torch.device("cuda"))
     return dict(rec, plan=p, bq=p["bq"], bc=p["bc"], splits=p["splits"],
                 grid=p["grid"], share_of_bound=rec["bound_ms"] / rec["ms"])
+
+
+def scan_layout(rec: dict, fn, kern, d: int, pb: int, nf: int,
+                k_out: int = 0, calls: int = 10) -> dict:
+    """A grouped-scan record with the kernel's device time per call, its
+    share of the bound (bound_ms / device_ms) and its launch shape
+    (resident blocks per SM from the occupancy API, shared bytes, staged
+    tiles, fold buffer, registers, spilled bytes)."""
+    from ivfadc_tpu_torch.ops import dense_scan
+    dms, by = device_ms(fn, calls, match="grouped_scan"), "profiler"
+    if dms == 0.0:
+        # the trace kept no event of the kernel: CUDA events around single
+        # calls instead (the calls that reach here take milliseconds)
+        dms, by = cuda_ms(fn, reps=calls), "cuda_events"
+    return dict(rec, device_ms=dms, device_ms_by=by,
+                share_of_bound=rec["bound_ms"] / dms,
+                launch_shape=dense_scan.scan_fit(kern.fn, d, pb, nf, k_out))
 
 
 def coarse_integer_ties(B: int, kc: int, d: int, w: int, n_plain: int,
@@ -480,6 +503,10 @@ def phase_kernels(index, queries):
         **bound(cell_rows * (D + 8) + live_tiles * pb * (2 * D + 4)
                 + 8 * tsize.numel() + kd.numel() * 8,
                 2.0 * D * probe_rows, PEAK_BF16))
+    records["grouped_scan"] = scan_layout(
+        records["grouped_scan"],
+        lambda: dense_scan.grouped_scan(*scan_args, **kw), dense_scan.KERNEL,
+        D, pb, nf)
 
     # 8a at these tiles (what IVFADC_NORMS=off runs): the same scan with the
     # row norms computed in the kernel; its record is completed at stage 2's
@@ -508,6 +535,10 @@ def phase_kernels(index, queries):
                 + 8 * tsize.numel() + nd.numel() * 8,
                 2.0 * D * probe_rows + 2.0 * D * int(
                     (tsize.to(torch.int64)).sum().item()), PEAK_BF16))
+    records["grouped_scan_knorm@posting"] = scan_layout(
+        records["grouped_scan_knorm@posting"],
+        lambda: dense_scan.grouped_scan(*knorm_args, **kw),
+        dense_scan.NORMS_KERNEL, D, pb, nf)
 
     # 8b at these tiles, without the id stream: pos8 block-index payloads
     # (the variant large-kc batches run, checked at their own shape in the
@@ -542,6 +573,10 @@ def phase_kernels(index, queries):
         **bound(cell_rows * D + live_tiles * pb * (2 * D + 4)
                 + 8 * tsize.numel() + ek[0].numel() * 8,
                 2.0 * D * (probe_rows + tile_rows), PEAK_BF16))
+    records["grouped_scan_exact"] = scan_layout(
+        records["grouped_scan_exact"],
+        lambda: dense_scan.grouped_scan(*ex_args, **ekw),
+        dense_scan.GROUPED_KERNELS["exact", "int8"], D, pb, 128, TOPK)
     del ek, ep
 
     # 8e: in-kernel extraction at k = 10 (ids2d, in-kernel norms): each
@@ -565,6 +600,10 @@ def phase_kernels(index, queries):
         **bound(cell_rows * (D + 4) + live_tiles * pb * (2 * D + 4)
                 + 8 * tsize.numel() + xk[0].numel() * 8,
                 2.0 * D * (probe_rows + tile_rows), PEAK_BF16))
+    records["grouped_scan_extract"] = scan_layout(
+        records["grouped_scan_extract"],
+        lambda: dense_scan.grouped_scan(*knorm_args, **xkw),
+        dense_scan.GROUPED_KERNELS["extract", "int8"], D, pb, nf, TOPK)
     del xk, xp
 
     # 8c: the bf16 cache (rows read as they are) through kernel 3's and
@@ -575,13 +614,14 @@ def phase_kernels(index, queries):
     b_args = (tstart, tsize, v_t, b_t, bview["decoded"], None,
               bview["ids2d"], bview["norms2d"])
     dec_b = dec_i.to(torch.bfloat16)
-    for name, args_b, int_b, nbytes, nops in (
+    for name, args_b, int_b, nbytes, nops, variant in (
             ("grouped_scan_bf16", b_args,
              (tstart, tsize, v_i, b_i, dec_b, None, view["ids2d"], n_i),
-             cell_rows * (2 * D + 8), 2.0 * D * probe_rows),
+             cell_rows * (2 * D + 8), 2.0 * D * probe_rows, "ids"),
             ("grouped_scan_knorm_bf16", b_args[:7] + (None,),
              (tstart, tsize, v_i, b_i, dec_b, None, view["ids2d"], None),
-             cell_rows * (2 * D + 4), 2.0 * D * (probe_rows + tile_rows))):
+             cell_rows * (2 * D + 4), 2.0 * D * (probe_rows + tile_rows),
+             "knorm")):
         bk = dense_scan.grouped_scan(*args_b, **kw)
         bp = dense_scan.grouped_scan_plain(*args_b, **kw)
         b_err, b_agree = close_scan(bk, bp, name)
@@ -600,6 +640,9 @@ def phase_kernels(index, queries):
             **bound(nbytes + live_tiles * pb * (2 * D + 4)
                     + 8 * tsize.numel() + bk[0].numel() * 8, nops,
                     PEAK_BF16))
+        records[name] = scan_layout(
+            records[name], lambda: dense_scan.grouped_scan(*args_b, **kw),
+            dense_scan.GROUPED_KERNELS[variant, "bf16"], D, pb, nf)
         del bk, bp
     records["grouped_scan_pos8@sift1m_integer"] = dict(
         integer_case_bit_exact=True, max_block=pos8_int_blocks)
@@ -785,6 +828,10 @@ def phase_kernels_engines(index, queries, cells16k, view, bview):
                         2.0 * D * (probe_rows + tile_rows)
                         + (2.0 * D * D * live_slots if apply_rot else 0.0),
                         PEAK_BF16))
+            part = scan_layout(
+                part, lambda: dense_scan.grouped_scan_qc(*args, **kw),
+                dense_scan.QC_KERNELS["int8" if dec_ok else "bf16"], D, pb,
+                nf)
             # integer-valued inputs on the same tiles: bit for bit
             gi = torch.Generator(device=dev).manual_seed(17)
             dec_i = torch.randint(-3, 4, vw["decoded"].shape, generator=gi,
@@ -1018,6 +1065,9 @@ def phase_kernels_small(index, queries, bview):
         plain_ms=cuda_ms(lambda: topk.topk_lastdim_plain(flat_d, TOPK)),
         library_ms=cuda_ms(lambda: torch.topk(flat_d, TOPK, dim=1,
                                               largest=False), inner=10),
+        device_ms=device_ms(lambda: topk.topk_lastdim(flat_d, TOPK)),
+        library_device_ms=device_ms(lambda: torch.topk(flat_d, TOPK, dim=1,
+                                                       largest=False)),
         **bound(4 * flat_d.numel() + 8 * B_SMALL * TOPK,
                 float(flat_d.numel()) * TOPK, PEAK_F32))
     return records
@@ -1420,6 +1470,8 @@ def phase_two_level(zero_counts, read_counts, posting: dict) -> dict:
                 + 8 * tsize.numel() + kd.numel() * 8,
                 2.0 * d_pad * (probe_rows + tile_rows), PEAK_BF16),
         posting_shape=posting)
+    record = scan_layout(record, lambda: dense_scan.grouped_scan(*args, **kw),
+                         dense_scan.NORMS_KERNEL, d_pad, pb, nf)
     # 8e at stage 2's tiles (IVFADC_EXTRACT=1): each group probe's W3 best
     # leave the kernel; integer-valued, bit for bit
     xkw = dict(kw, extract_k=W3)
@@ -1439,6 +1491,9 @@ def phase_two_level(zero_counts, read_counts, posting: dict) -> dict:
         **bound(group_rows * (d_pad + 4) + live_tiles * pb * (2 * d_pad + 4)
                 + 8 * tsize.numel() + xk[0].numel() * 8,
                 2.0 * d_pad * (probe_rows + tile_rows), PEAK_BF16))
+    extract_stage2 = scan_layout(
+        extract_stage2, lambda: dense_scan.grouped_scan(*args, **xkw),
+        dense_scan.GROUPED_KERNELS["extract", "int8"], d_pad, pb, nf, W3)
     del xk, xp, xi, xq
     # 4 at the stage-2 merge: (NQ3, gp * nf), k = W3
     flat_d = kd[row].reshape(NQ3, gp * nf)
@@ -1839,6 +1894,10 @@ def phase_two_level(zero_counts, read_counts, posting: dict) -> dict:
         **bound(cell_rows * d_dec + live_tiles * pbp * 2 * d_dec
                 + T * pbp * 4 + 8 * T + T * pbp * nfp * 5,
                 2.0 * d_dec * (probe_rows + tile_rows), PEAK_BF16))
+    record8b = scan_layout(
+        record8b, lambda: dense_scan.grouped_scan(*pargs, **pkw),
+        dense_scan.GROUPED_KERNELS["pos8", "int8"], d_dec, pbp, nfp,
+        calls=3)
     del pargs, sargs, v_t, b_t, tstart, tsize
     emit("two_level_grouped", queries=NQ3_BIG, w=W3, k=TOPK,
          route="sort prep -> 8b pos8 -> kernel 6", launches=counts_g,

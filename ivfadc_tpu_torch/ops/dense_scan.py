@@ -47,6 +47,9 @@ tensor code: the CPU runs them, the card only compares against them.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from ivfadc_tpu_torch import _build
@@ -82,6 +85,25 @@ QC_KERNELS = {
 KERNEL = GROUPED_KERNELS["ids", "int8"]
 NORMS_KERNEL = GROUPED_KERNELS["knorm", "int8"]
 PROBE_KERNEL = PROBE_KERNELS["fold", "int8"]
+
+
+@functools.lru_cache(maxsize=None)
+def scan_fit(entry: str, d: int, pb: int, nf: int, k_out: int = 0,
+             device_index: int = 0) -> dict:
+    """The launch shape of a grouped-scan C entry point (`Kernel.fn` of
+    GROUPED_KERNELS or QC_KERNELS) at (d, pb, nf, k_out) on a CUDA device:
+    resident blocks per SM (the occupancy API), shared bytes a block, bf16
+    tiles in turn (int8: 2 converted tiles, or 1 where shared memory holds
+    one; bf16: 3 ring slots, or 2), where the fold buffer lives, registers
+    a thread and local (spilled) bytes a thread."""
+    out = (ctypes.c_int * 6)()
+    fit = _build.HostFn("dense_scan", entry + "_fit",
+                        [_build.I] * 4 + [_build.P])
+    with torch.cuda.device(device_index):
+        fit(d, pb, nf, k_out, ctypes.addressof(out))
+    return dict(blocks_per_sm=out[0], smem_bytes=out[1], tile_stages=out[2],
+                fold="registers" if out[3] else "shared",
+                registers=out[4], local_bytes=out[5])
 
 
 def _elem(decoded, scale) -> str:

@@ -48,11 +48,13 @@ OLD_FN = {"vbase": "coarse_vbase", "vbase_v2": "coarse_vbase_v2",
           "topw": "coarse_topw"}
 
 
-def build_old(src: str, out_dir: str) -> ctypes.CDLL:
-    lib = os.path.join(out_dir, "libcoarse_old.so")
+def build_old(src: str, out_dir: str, name: str = "coarse_old") -> str:
+    """nvcc builds an earlier source beside this tree's headers; returns
+    the library's path."""
+    lib = os.path.join(out_dir, f"lib{name}.so")
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC,
                     "-o", lib, src], check=True)
-    return ctypes.CDLL(lib)
+    return lib
 
 
 def inputs(B, kc, d, rotation, integer, seed):
@@ -140,9 +142,10 @@ def cuda_ms(fn, reps: int) -> list:
     return times
 
 
-def kernel_ms(fn, calls: int = 5) -> float:
-    """Device time of the coarse kernels per call of fn (torch.profiler's
-    CUDA trace), without the wrapper's host time and other operations."""
+def kernel_ms(fn, calls: int = 5, match: str = "coarse") -> float:
+    """Device time of the kernels whose name holds `match` per call of fn
+    (torch.profiler's CUDA trace), without the wrapper's host time and
+    other operations."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -154,7 +157,7 @@ def kernel_ms(fn, calls: int = 5) -> float:
     us = 0.0
     for e in prof.key_averages():
         if getattr(e, "device_type", None) == DeviceType.CUDA \
-                and "coarse" in e.key:
+                and match in e.key:
             t = getattr(e, "self_device_time_total", None)
             us += t if t is not None else getattr(e, "self_cuda_time_total", 0)
     return us / 1e3 / calls
@@ -175,7 +178,7 @@ def main() -> None:
     wanted = set(args.shapes.split(","))
     res = {}
     with tempfile.TemporaryDirectory() as tmp:
-        lib = build_old(args.old_src, tmp)
+        lib = ctypes.CDLL(build_old(args.old_src, tmp))
         for name, kind, B, kc, d, w, rotation in SHAPES:
             if name not in wanted:
                 continue

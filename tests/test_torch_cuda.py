@@ -700,3 +700,145 @@ def test_grouped_scan_qc_kernel(dev, pb, d, apply_rot, elem, integer):
     # rotated r in another order than the plain matmul's)
     torch.testing.assert_close(kd[fin], pd[fin], rtol=1e-4, atol=1e-3)
     assert (kp == pp).float().mean().item() >= 0.999
+
+
+def _edge_tiles(rng, integer: bool, elem: str, pb: int, d: int):
+    """Hand-placed grouped-scan tiles at the kernel's edges: cells of 1000,
+    1, 127, 129, 0 and 300 rows (128-row aligned starts); dead probes (+inf
+    base) scattered inside tiles, whole 16-probe m-tiles dead beside live
+    ones, an all-dead tile and an empty tile with live probes."""
+    sizes = np.array([1000, 1, 127, 129, 0, 300])
+    caps = np.maximum(1, -(-sizes // 128)) * 128
+    offsets = np.concatenate([[0], np.cumsum(caps[:-1])])
+    rows = int(caps.sum()) + 128
+    slots = np.arange(pb)
+    tiles = [(0, (slots == 1) | (slots == 5) | ((slots >= 16) & (slots < 32))),
+             (1, slots < 0), (2, slots == pb - 1), (3, slots == 0),
+             (4, slots < 0), (5, slots >= 0), (0, slots < 16),
+             (5, slots % 2 == 0)]
+    T = len(tiles)
+    tstart = np.array([offsets[c] for c, _ in tiles], np.int32)
+    tsize = np.array([sizes[c] for c, _ in tiles], np.int32)
+    dead = np.concatenate([m for _, m in tiles])
+    if integer:
+        decoded = rng.randint(-3, 4, (rows, d)).astype(np.int8)
+        scale = np.ones(d, np.float32)
+        v = rng.randint(-4, 5, (T * pb, d)).astype(np.float32)
+        base = rng.randint(0, 100, T * pb).astype(np.float32)
+        norms = rng.randint(0, 50, rows).astype(np.float32)
+    else:
+        decoded = rng.randint(-127, 128, (rows, d)).astype(np.int8)
+        scale = (0.01 + 0.02 * rng.rand(d)).astype(np.float32)
+        v = rng.randn(T * pb, d).astype(np.float32)
+        base = (10 + rng.rand(T * pb)).astype(np.float32)
+        norms = (5 + rng.rand(rows)).astype(np.float32)
+    base[dead] = np.inf
+    dec = torch.from_numpy(decoded)
+    sc = torch.from_numpy(scale)
+    if elem == "bf16":
+        dec = (dec.float() * sc.to(torch.bfloat16).float()).to(torch.bfloat16)
+        sc = None
+    ids2d = torch.from_numpy(rng.permutation(rows).astype(np.int32)
+                             .reshape(-1, 128))
+    return [torch.from_numpy(tstart), torch.from_numpy(tsize),
+            torch.from_numpy(v).to(torch.bfloat16),
+            torch.from_numpy(base).reshape(-1, 1), dec, sc, ids2d,
+            torch.from_numpy(norms).reshape(-1, 128)]
+
+
+_EDGE_VARIANTS = {"ids": {}, "knorm": dict(norms=False),
+                  "pos": dict(ids=False, norms=False),
+                  "exact": dict(ids=False, norms=False, merge="exact",
+                                k_out=10),
+                  "extract": dict(norms=False, extract_k=10)}
+
+
+_EDGE_SHAPES = [(pb, d, nf, variant)
+                for pb, d, nf in [(8, 128, 128), (24, 128, 128),
+                                  (64, 128, 128), (64, 256, 128),
+                                  (16, 128, 512), (16, 128, 1024)]
+                for variant in _EDGE_VARIANTS
+                if variant != "exact" or nf == 128]   # exact: nf = 128
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pb,d,nf,variant", _EDGE_SHAPES)
+@pytest.mark.parametrize("elem", ["int8", "bf16"])
+@pytest.mark.parametrize("integer", [True, False])
+def test_grouped_scan_kernel_edges(dev, pb, d, nf, variant, elem, integer):
+    # the tensor-core scan's edges: partial m-tiles (pb 8, 24), skipped
+    # m-tiles beside live ones, two feature blocks (d 256), fold buffers in
+    # shared memory (nf 512, 1024: one staged tile), cells of 1, 127, 129,
+    # 1000 rows, an empty and an all-dead tile
+    kw = dict(_EDGE_VARIANTS[variant])
+    rng = np.random.RandomState(pb + d + nf + len(variant))
+    args = _edge_tiles(rng, integer, elem, pb, d)
+    if not kw.pop("ids", True):
+        args[6] = None
+    if not kw.pop("norms", True):
+        args[7] = None
+    call = dict(pb=pb, nf=nf, norm_coef=1.0, **kw)
+    kern = dense_scan.GROUPED_KERNELS[variant, elem]
+    n0 = kern.launches
+    kd, kp = dense_scan.grouped_scan(
+        *[None if a is None else a.to(dev) for a in args], **call)
+    assert kern.launches == n0 + 1
+    pd, pp = dense_scan.grouped_scan(*args, **call)
+    kd, kp = kd.cpu(), kp.cpu()
+    width = kd.shape[1]
+    dead = torch.isinf(args[3].reshape(-1))
+    empty = torch.repeat_interleave(args[1] == 0, pb)
+    assert torch.isinf(pd[dead | empty]).all()
+    assert (pp[dead | empty] == -1).all()
+    assert kd.shape == pd.shape == (8 * pb, width)
+    if integer:             # every f32 sum exact: bit for bit
+        assert torch.equal(kd, pd) and torch.equal(kp, pp)
+    elif variant == "exact":
+        _close_topk(kd, kp, pd, pp, 10)
+    else:                   # f32 sums in another order
+        fin = torch.isfinite(pd)
+        assert torch.equal(torch.isfinite(kd), fin)
+        torch.testing.assert_close(kd[fin], pd[fin], rtol=1e-5, atol=1e-4)
+        assert (kp == pp).float().mean() >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pb", [8, 24])
+@pytest.mark.parametrize("elem", ["int8", "bf16"])
+@pytest.mark.parametrize("integer", [True, False])
+def test_grouped_scan_qc_kernel_partial_m_tiles(dev, pb, elem, integer):
+    # the qc kernel at tile sizes that leave a partial 16-probe m-tile
+    rng = np.random.RandomState(pb + 3)
+    args = _qc_case(rng, integer, 128, pb, elem, False, dev)
+    kw = dict(pb=pb, nf=128, norm_coef=1.0, base_mult=2.0, apply_rot=False)
+    kern = dense_scan.QC_KERNELS[elem]
+    n0 = kern.launches
+    kd, kp = dense_scan.grouped_scan_qc(*args, **kw)
+    assert kern.launches == n0 + 1
+    pd, pp = dense_scan.grouped_scan_qc_plain(
+        *[None if a is None else a.cpu() for a in args], **kw)
+    kd, kp = kd.cpu(), kp.cpu()
+    if integer:
+        assert torch.equal(kd, pd) and torch.equal(kp, pp)
+        return
+    fin = torch.isfinite(pd)
+    assert torch.equal(torch.isfinite(kd), fin)
+    torch.testing.assert_close(kd[fin], pd[fin], rtol=1e-4, atol=1e-3)
+    assert (kp == pp).float().mean().item() >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,elem", [("ids", "int8"), ("knorm", "int8"),
+                                          ("exact", "int8"),
+                                          ("extract", "int8"),
+                                          ("ids", "bf16")])
+def test_grouped_scan_launch_shape(dev, variant, elem):
+    # the main paths' shape (pb 64, nf 128, d 128): staged tiles in turn
+    # (int8: two converted tiles; bf16: three ring slots), the
+    # fold in registers (shared memory for the exact merge), the block's
+    # 512 threads resident
+    fit = dense_scan.scan_fit(dense_scan.GROUPED_KERNELS[variant, elem].fn,
+                              128, 64, 128, 10)
+    assert fit["blocks_per_sm"] >= 1
+    assert fit["tile_stages"] == (2 if elem == "int8" else 3)
+    assert fit["fold"] == ("shared" if variant == "exact" else "registers")
