@@ -34,7 +34,11 @@ phases, printing one JSON line per phase; any failure raises (exit != 0):
            1 and 10 must equal the plain versions bit for bit; for the
            grouped scans (3, 8a-8e, 9) the kernel's device time, its share
            of the bound and its launch shape (blocks per SM, shared bytes,
-           staged tiles, fold buffer, registers, spills); for kernel 6 and
+           staged tiles, fold buffer, registers, spills); for kernel 5
+           and its per-probe 8c / 8d (and kernel 5 at the posting shape)
+           the device time, its share of the bound and the launch shape
+           (`probe_fit`: blocks per SM, the persistent grid,
+           shared bytes, ring stages, registers, spills); for kernel 6 and
            torch.topk at B=256 their device times
   search   with every launch count zeroed: search_padded of 1000 queries,
            recall@10 against brute force and against the NumPy oracle of
@@ -302,14 +306,30 @@ def scan_layout(rec: dict, fn, kern, d: int, pb: int, nf: int,
     (resident blocks per SM from the occupancy API, shared bytes, staged
     tiles, fold buffer, registers, spilled bytes)."""
     from ivfadc_tpu_torch.ops import dense_scan
-    dms, by = device_ms(fn, calls, match="grouped_scan"), "profiler"
-    if dms == 0.0:
-        # the trace kept no event of the kernel: CUDA events around single
-        # calls instead (the calls that reach here take milliseconds)
-        dms, by = cuda_ms(fn, reps=calls), "cuda_events"
-    return dict(rec, device_ms=dms, device_ms_by=by,
-                share_of_bound=rec["bound_ms"] / dms,
+    return dict(rec, **scan_device_ms(rec, fn, "grouped_scan", calls),
                 launch_shape=dense_scan.scan_fit(kern.fn, d, pb, nf, k_out))
+
+
+def scan_device_ms(rec: dict, fn, match: str, calls: int) -> dict:
+    """A scan kernel's device time per call of fn (torch.profiler; where
+    the trace kept no event of the kernel, CUDA events around single
+    calls, which take long enough there) and its share of the bound."""
+    dms, by = device_ms(fn, calls, match=match), "profiler"
+    if dms == 0.0:
+        dms, by = cuda_ms(fn, reps=calls), "cuda_events"
+    return dict(device_ms=dms, device_ms_by=by,
+                share_of_bound=rec["bound_ms"] / dms)
+
+
+def probe_layout(rec: dict, fn, kern, d: int, nf: int, k_out: int = 0,
+                 calls: int = 10) -> dict:
+    """A per-probe scan record with the kernel's device time per call, its
+    share of the bound (bound_ms / device_ms) and its launch shape
+    (`dense_scan.probe_fit`: resident blocks per SM, the
+    persistent grid, shared bytes, ring stages, registers, spills)."""
+    from ivfadc_tpu_torch.ops import dense_scan
+    return dict(rec, **scan_device_ms(rec, fn, "probe_scan", calls),
+                launch_shape=dense_scan.probe_fit(kern.fn, d, nf, k_out))
 
 
 def coarse_integer_ties(B: int, kc: int, d: int, w: int, n_plain: int,
@@ -992,6 +1012,10 @@ def phase_kernels_small(index, queries, bview):
         library_ms=None,             # no single PyTorch call scans CSR cells
         **bound(cell_rows * D + P * (2 * D + 12) + P * nf * 8,
                 4.0 * D * probe_rows, PEAK_BF16))
+    records["probe_scan"] = probe_layout(
+        records["probe_scan"], lambda: dense_scan.dense_scan(
+            starts, sizes, v_q, base_q, view["decoded"], view["scale"],
+            norm_coef=1.0, **kw), dense_scan.PROBE_KERNEL, D, nf)
 
     # 8d per probe: the exact merge (slot payloads); 8c per probe: the bf16
     # cache. Integer-valued inputs bit for bit
@@ -1023,6 +1047,11 @@ def phase_kernels_small(index, queries, bview):
         library_ms=None,
         **bound(cell_rows * D + P * (2 * D + 12) + P * 128 * 8,
                 4.0 * D * probe_rows, PEAK_BF16))
+    records["probe_scan_exact"] = probe_layout(
+        records["probe_scan_exact"], lambda: dense_scan.dense_scan(
+            starts, sizes, v_q, base_q, view["decoded"], view["scale"],
+            norm_coef=1.0, **ekw), dense_scan.PROBE_KERNELS["exact", "int8"],
+        D, 128, TOPK)
     b_plain = plain_args[:4] + (bview["decoded"], None)
     bk = dense_scan.dense_scan(starts, sizes, v_q, base_q, bview["decoded"],
                                None, norm_coef=1.0, **kw)
@@ -1050,6 +1079,11 @@ def phase_kernels_small(index, queries, bview):
         library_ms=None,
         **bound(cell_rows * 2 * D + P * (2 * D + 12) + P * nf * 8,
                 4.0 * D * probe_rows, PEAK_BF16))
+    records["probe_scan_bf16"] = probe_layout(
+        records["probe_scan_bf16"], lambda: dense_scan.dense_scan(
+            starts, sizes, v_q, base_q, bview["decoded"], None,
+            norm_coef=1.0, **kw), dense_scan.PROBE_KERNELS["fold", "bf16"],
+        D, nf)
 
     # 6. top-k with indices on the scan's candidate rows (ties and +inf
     # included): exact
@@ -1556,9 +1590,13 @@ def phase_two_level(zero_counts, read_counts, posting: dict) -> dict:
             *plain_args, nf=nfp, norm_coef=1.0), reps=3),
         library_ms=None,
         **bound(int(vsizes[torch.unique(cells64)].sum().item()) * 128
-                + P * (2 * 128 + 12) + P * nfp * 8,
+                + P * (2 * v_q.shape[-1] + 12) + P * nfp * 8,
                 4.0 * 128 * int(sizes.to(torch.int64).sum().item()),
                 PEAK_BF16))
+    shapes["probe_scan@posting"] = probe_layout(
+        shapes["probe_scan@posting"], lambda: dense_scan.dense_scan(
+            starts, sizes, v_q, base_q, view["decoded"], view["scale"],
+            **skw), dense_scan.PROBE_KERNEL, view["decoded"].shape[1], nfp)
     # 6 at the final merge: (NQ3, W3 * nf), k = TOPK
     fd = ksd.reshape(NQ3, W3 * nfp)
     kt = topk.topk_lastdim(fd, TOPK)

@@ -37,7 +37,8 @@ the placement: each slot carries only its query's index, and the kernel
 
 `dense_scan` is the per-probe scan of batches too small to share cells
 (B*w < 4*kc, single queries included): one kernel launch over all probes
-(`csrc/probe_scan.cu`, `PROBE_KERNELS`), fold merge with cell-relative
+(`csrc/probe_scan.cu`, `PROBE_KERNELS`: persistent blocks whose warps
+share out the probes' groups, launch shape in `probe_fit`), fold merge with cell-relative
 block-index payloads or the exact merge with absolute slots, row norms
 computed in the kernel, int8 or bf16 cache.
 
@@ -59,7 +60,7 @@ _CAND = 128          # lanes per fold bank (rows per group)
 _ELEMS = {torch.int8: "int8", torch.bfloat16: "bf16"}
 
 _GROUPED_ARGS = [_build.P] * 8 + [_build.I] * 5 + [_build.F] + [_build.P] * 3
-_PROBE_ARGS = [_build.P] * 6 + [_build.I] * 4 + [_build.F] + [_build.P] * 3
+_PROBE_ARGS = [_build.P] * 6 + [_build.I] * 5 + [_build.F] + [_build.P] * 3
 
 
 def _entry(prefix: str, variant: str, elem: str) -> str:
@@ -104,6 +105,26 @@ def scan_fit(entry: str, d: int, pb: int, nf: int, k_out: int = 0,
     return dict(blocks_per_sm=out[0], smem_bytes=out[1], tile_stages=out[2],
                 fold="registers" if out[3] else "shared",
                 registers=out[4], local_bytes=out[5])
+
+
+@functools.lru_cache(maxsize=None)
+def probe_fit(entry: str, d: int, nf: int, k_out: int = 0,
+              device_index: int = 0) -> dict:
+    """The launch shape of a per-probe scan C entry point (`Kernel.fn` of
+    PROBE_KERNELS) at (d, nf, k_out) on a CUDA device: resident blocks
+    per SM from the occupancy API, the grid of a large batch (that times
+    the SM count; smaller batches launch one block per probe), shared
+    bytes a block, ring stages and rows per stage of each warp, threads a
+    block, registers and local (spilled) bytes a thread."""
+    out = (ctypes.c_int * 8)()
+    fit = _build.HostFn("probe_scan", entry + "_fit",
+                        [_build.I] * 3 + [_build.P])
+    with torch.cuda.device(device_index):
+        fit(d, nf, k_out, ctypes.addressof(out))
+    return dict(blocks_per_sm=out[0], grid=out[0] * out[7],
+                smem_bytes=out[1], ring_stages=out[2], stage_rows=out[3],
+                threads=out[4], registers=out[5], local_bytes=out[6],
+                sms=out[7])
 
 
 def _elem(decoded, scale) -> str:
@@ -493,8 +514,9 @@ def dense_scan(starts, sizes, v, base, decoded, scale=None, *, k_out: int,
 
     starts / sizes (B, w) i32 slot ranges of the probed cells; v (B, w, d);
     base (B, w) f32; decoded (rows, d_pad) int8 with scale (d_pad,) f32, or
-    bf16 with scale None; d_pad a 128-multiple >= d (v is zero-padded up to
-    it here). Returns (dists (B, w, nf) f32 with +inf padding, positions
+    bf16 with scale None; d_pad a 128-multiple >= d (the kernel reads v at
+    its own width and takes the missing features as 0; the plain version
+    pads v). Returns (dists (B, w, nf) f32 with +inf padding, positions
     (B, w, nf) i32, -1 padding): under the fold the cell-relative 128-row
     block index of each lane's best row; under merge="exact" (nf = 128,
     k_out passes) absolute slots, the buffer holding each probe's true
@@ -512,24 +534,30 @@ def dense_scan(starts, sizes, v, base, decoded, scale=None, *, k_out: int,
                          f"got nf={nf}, chunk={chunk}")
     elem = _elem(decoded, scale)
     d_dec = decoded.shape[-1]
-    if v.shape[-1] != d_dec:
-        v = torch.nn.functional.pad(v, (0, d_dec - v.shape[-1]))
-    B, w, d = v.shape
-    P = B * w
     dev = v.device
+    if v.shape[-1] > d_dec:
+        raise ValueError(f"v is wider ({v.shape[-1]}) than the decoded "
+                         f"cache ({d_dec})")
+    # the plain version needs v at the cache's width, the kernel at a
+    # multiple of 8 features (16-byte rows for its bulk copies)
+    pad_to = d_dec if dev.type == "cpu" else -(-v.shape[-1] // 8) * 8
+    if v.shape[-1] != pad_to:
+        v = torch.nn.functional.pad(v, (0, pad_to - v.shape[-1]))
+    B, w, dv = v.shape
+    P = B * w
     args = [starts.reshape(P).to(torch.int32),
             sizes.reshape(P).to(torch.int32),
             base.reshape(P).to(torch.float32),
-            v.reshape(P, d).to(torch.bfloat16), decoded,
+            v.reshape(P, dv).to(torch.bfloat16), decoded,
             None if elem == "bf16"
             else scale.to(torch.bfloat16).to(torch.float32)]
     if dev.type == "cpu":
         out_d, out_p = probe_scan_plain(*args, nf=nf, norm_coef=norm_coef,
                                         merge=merge, k_out=k_out)
         return out_d.reshape(B, w, nf), out_p.reshape(B, w, nf)
-    if d % 128:
+    if d_dec % 128:
         raise ValueError(f"the decoded cache's feature dim must be a "
-                         f"128-multiple, got {d}")
+                         f"128-multiple, got {d_dec}")
     args = [None if a is None else a.contiguous() for a in args]
     for a in args:
         if a is None:
@@ -541,8 +569,8 @@ def dense_scan(starts, sizes, v, base, decoded, scale=None, *, k_out: int,
     out_d = torch.empty((P, nf), dtype=torch.float32, device=dev)
     out_p = torch.empty((P, nf), dtype=torch.int32, device=dev)
     PROBE_KERNELS[merge, elem](
-        *(None if a is None else a.data_ptr() for a in args), P, d, nf,
-        k_out, float(norm_coef), out_d.data_ptr(), out_p.data_ptr(),
+        *(None if a is None else a.data_ptr() for a in args), P, d_dec, dv,
+        nf, k_out, float(norm_coef), out_d.data_ptr(), out_p.data_ptr(),
         _build.stream_ptr(dev))
     return out_d.reshape(B, w, nf), out_p.reshape(B, w, nf)
 

@@ -59,13 +59,13 @@ SHAPES = {"k3": ("ids", "int8", "b16384"),
           "8b_large_kc": ("pos8", "int8", "large_kc")}
 
 
-def sass_counts(lib: str) -> dict:
-    """Tensor-core and f32 FMA instructions in a library's SASS."""
+def sass_counts(lib: str, ops=("HMMA", "HGMMA", "FFMA")) -> dict:
+    """Counts of the named instructions (tensor-core and f32 FMA by
+    default) in a library's SASS."""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, check=True).stdout
-    return {op.lower(): len(re.findall(rf"\b{op}\b", sass))
-            for op in ("HMMA", "HGMMA", "FFMA")}
+    return {op.lower(): len(re.findall(rf"\b{op}\b", sass)) for op in ops}
 
 
 def old_kernels(lib_path: str) -> dict:

@@ -7,6 +7,8 @@ where only PyTorch is installed:
     python -m pytest tests/test_torch_cuda.py -q --noconftest -o addopts=""
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -498,6 +500,7 @@ def test_probe_scan_variant_kernels(dev, merge, elem, integer):
     n0 = kern.launches
     kd, kp = dense_scan.dense_scan(
         *[None if a is None else a.to(dev) for a in args], **kw)
+    _finish()
     assert kern.launches == n0 + 1
     pd, pp = dense_scan.dense_scan(*args, **kw)
     kd, kp = kd.cpu(), kp.cpu()
@@ -842,3 +845,190 @@ def test_grouped_scan_launch_shape(dev, variant, elem):
     assert fit["blocks_per_sm"] >= 1
     assert fit["tile_stages"] == (2 if elem == "int8" else 3)
     assert fit["fold"] == ("shared" if variant == "exact" else "registers")
+
+
+# The per-probe scan's shapes: cells of every size class (empty, one row,
+# under and over one 32-row stage and one 128-row group, many groups),
+# fold widths 128-512, cache widths 128 / 256, v narrower than the cache,
+# one probe, and far more probes than the persistent grid holds: small
+# cells (posting), and 1000-4000-row cells whose groups the fold splits
+# over a block's warps, several split probes a block, so the merge slots
+# are reused (big).
+_PROBE_SIZES = np.array([0, 1, 7, 8, 27, 127, 128, 129, 1000, 4000])
+_PROBE_CASES = {
+    "nf128_d128": dict(nf=128, d=128, dv=128, P=96),
+    "nf256_d128": dict(nf=256, d=128, dv=128, P=96),
+    "nf512_d256": dict(nf=512, d=256, dv=256, P=96),
+    "nf128_d256": dict(nf=128, d=256, dv=200, P=96),
+    "p1": dict(nf=128, d=128, dv=128, P=1),
+    "p131072_dv96": dict(nf=128, d=128, dv=96, P=131072, cells="posting"),
+    "p4096_big_nf128": dict(nf=128, d=128, dv=128, P=4096, cells="big"),
+    "p4096_big_nf512": dict(nf=512, d=128, dv=128, P=4096, cells="big"),
+}
+
+
+def _probe_plain(args, held, kw, dev):
+    """probe_scan_plain on the card, on the held probes: v padded to the
+    cache's width, the int8 scales rounded to bf16 as the wrapper does."""
+    starts, sizes, v, base, decoded, scale = args
+    d = decoded.shape[1]
+    v = torch.nn.functional.pad(v.reshape(v.shape[0], -1),
+                                (0, d - v.shape[-1]))
+    sc = None if scale is None else \
+        scale.to(torch.bfloat16).to(torch.float32).to(dev)
+    return dense_scan.probe_scan_plain(
+        starts.reshape(-1)[held].to(dev), sizes.reshape(-1)[held].to(dev),
+        base.reshape(-1)[held].to(dev),
+        v[held].to(torch.bfloat16).to(dev), decoded.to(dev), sc,
+        nf=kw["nf"], norm_coef=kw["norm_coef"], merge=kw["merge"],
+        k_out=kw["k_out"])
+
+
+def _probe_case(case: str, integer: bool, elem: str, seed: int):
+    """(args of dense_scan, nf, probes to hold against the plain version):
+    8-row-aligned cells, no guard rows past the last one; runs of
+    consecutive probes of one cell; two +inf bases."""
+    c = _PROBE_CASES[case]
+    rng = np.random.RandomState(seed)
+    d, dv, P = c["d"], c["dv"], c["P"]
+    if c.get("cells") == "posting":          # cells of ~28 rows
+        sizes = np.concatenate([_PROBE_SIZES[:5],
+                                rng.randint(1, 60, 4091)]).astype(np.int32)
+    elif c.get("cells") == "big":
+        sizes = np.concatenate([[0, 1000, 4000],
+                                rng.randint(1000, 4001, 29)]).astype(np.int32)
+    else:
+        sizes = _PROBE_SIZES.astype(np.int32)
+    caps = (sizes + 7) // 8 * 8
+    offsets = np.concatenate([[0], np.cumsum(caps[:-1])]).astype(np.int32)
+    rows = int(caps.sum())
+    if P == 1:
+        cells = np.array([len(sizes) - 1])
+    else:
+        cells = np.repeat(rng.randint(0, len(sizes), P // 4 + 1), 4)[:P]
+        cells[:len(sizes)] = np.arange(len(sizes))    # every size, in turn
+        cells[len(sizes):len(sizes) + 3] = len(sizes) - 1
+    if integer:
+        decoded = rng.randint(-3, 4, (rows, d)).astype(np.int8)
+        scale = np.ones(d, np.float32)
+        v = rng.randint(-4, 5, (P, 1, dv)).astype(np.float32)
+        base = rng.randint(0, 100, (P, 1)).astype(np.float32)
+    else:
+        decoded = rng.randint(-127, 128, (rows, d)).astype(np.int8)
+        scale = (0.01 + 0.02 * rng.rand(d)).astype(np.float32)
+        v = rng.randn(P, 1, dv).astype(np.float32)
+        base = (10 + rng.rand(P, 1)).astype(np.float32)
+    if P > 2:
+        base[[1, P // 2]] = np.inf          # padded probes
+    args = [torch.from_numpy(a) for a in (
+        offsets[cells].reshape(P, 1), sizes[cells].reshape(P, 1), v, base,
+        decoded, scale)]
+    if elem == "bf16":
+        args[4] = (args[4].float() * args[5].to(torch.bfloat16).float()) \
+            .to(torch.bfloat16)
+        args[5] = None
+    held = torch.arange(0, P, 64 if c.get("cells") == "posting" else 1)
+    return args, c["nf"], held
+
+
+def _finish(seconds: float = 60.0):
+    """Wait for the card's queued work, failing (not hanging) if a kernel
+    has not finished within `seconds`."""
+    done = torch.cuda.Event()
+    done.record()
+    t0 = time.monotonic()
+    while not done.query():
+        if time.monotonic() - t0 > seconds:
+            pytest.fail(f"kernel still running after {seconds} s")
+        time.sleep(0.001)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_PROBE_CASES))
+@pytest.mark.parametrize("merge", ["fold", "exact"])
+@pytest.mark.parametrize("elem", ["int8", "bf16"])
+@pytest.mark.parametrize("integer", [True, False])
+def test_probe_scan_kernel_shapes(dev, case, merge, elem, integer):
+    # the four per-probe variants against their plain version: integer-
+    # valued inputs bit for bit, real ones to f32 rounding
+    args, nf, held = _probe_case(case, integer, elem, seed=len(case))
+    if merge == "exact":
+        nf = 128
+    kw = dict(k_out=10, chunk=512, norm_coef=1.0, nf=nf, merge=merge)
+    kern = dense_scan.PROBE_KERNELS[merge, elem]
+    n0 = kern.launches
+    kd, kp = dense_scan.dense_scan(
+        *[None if a is None else a.to(dev) for a in args], **kw)
+    _finish()
+    assert kern.launches == n0 + 1
+    kd, kp = kd[held.to(dev), 0], kp[held.to(dev), 0]
+    pd, pp = _probe_plain(args, held, kw, dev)
+    empty = (args[1].reshape(-1)[held] == 0).to(dev)
+    assert empty.any() or case == "p1"
+    assert torch.isinf(kd[empty]).all() and (kp[empty] == -1).all()
+    if integer:
+        assert torch.equal(kd, pd) and torch.equal(kp, pp)
+    elif merge == "exact":
+        _close_topk(kd, kp, pd, pp, 10)
+    else:
+        fin = torch.isfinite(pd)
+        assert torch.equal(torch.isfinite(kd), fin)
+        torch.testing.assert_close(kd[fin], pd[fin], rtol=1e-5, atol=1e-3)
+        assert (kp == pp).float().mean() >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("merge", ["fold", "exact"])
+@pytest.mark.parametrize("elem", ["int8", "bf16"])
+def test_probe_scan_launch_shape(dev, merge, elem):
+    # four warps a block, at least two blocks resident per SM, a ring of
+    # at least three stages of 32 rows a warp, nothing spilled
+    fit = dense_scan.probe_fit(dense_scan.PROBE_KERNELS[merge, elem].fn, 128,
+                               128, 10)
+    assert fit["threads"] == 128 and fit["blocks_per_sm"] >= 2
+    assert fit["ring_stages"] >= 3 and fit["stage_rows"] == 32
+    assert fit["grid"] == fit["blocks_per_sm"] * fit["sms"]
+    assert fit["local_bytes"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_out", [1, 10, 128])
+@pytest.mark.parametrize("elem", ["int8", "bf16"])
+@pytest.mark.parametrize("integer", [True, False])
+def test_probe_scan_exact_k_out(dev, k_out, elem, integer):
+    # the exact merge at every k_out on cells of up to 71 groups (one warp
+    # walks a probe's groups in order) against the sequential merge of
+    # the plain version
+    rng = np.random.RandomState(k_out)
+    sizes = np.array([0, 129, 640, 1000, 8300, 9000], np.int32)
+    caps = (sizes + 7) // 8 * 8
+    offsets = np.concatenate([[0], np.cumsum(caps[:-1])]).astype(np.int32)
+    rows, d, P = int(caps.sum()), 128, 40
+    cells = np.repeat(rng.randint(0, len(sizes), P // 2), 2)
+    cells[:len(sizes)] = np.arange(len(sizes))
+    if integer:
+        decoded = rng.randint(-3, 4, (rows, d)).astype(np.int8)
+        scale = np.ones(d, np.float32)
+        v = rng.randint(-4, 5, (P, 1, d)).astype(np.float32)
+        base = rng.randint(0, 100, (P, 1)).astype(np.float32)
+    else:
+        decoded = rng.randint(-127, 128, (rows, d)).astype(np.int8)
+        scale = (0.01 + 0.02 * rng.rand(d)).astype(np.float32)
+        v = rng.randn(P, 1, d).astype(np.float32)
+        base = (10 + rng.rand(P, 1)).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (
+        offsets[cells].reshape(P, 1), sizes[cells].reshape(P, 1), v, base,
+        decoded, scale)]
+    if elem == "bf16":
+        args[4] = (args[4].float() * args[5].to(torch.bfloat16).float()) \
+            .to(torch.bfloat16)
+        args[5] = None
+    kw = dict(k_out=k_out, chunk=512, norm_coef=1.0, nf=128, merge="exact")
+    kd, kp = dense_scan.dense_scan(
+        *[None if a is None else a.to(dev) for a in args], **kw)
+    pd, pp = _probe_plain(args, torch.arange(P), kw, dev)
+    kd, kp = kd[:, 0], kp[:, 0]
+    if integer:
+        assert torch.equal(kd, pd) and torch.equal(kp, pp)
+    else:
+        _close_topk(kd, kp, pd, pp, min(k_out, 10))

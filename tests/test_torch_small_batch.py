@@ -26,7 +26,9 @@ torch.set_num_threads(2)
 
 
 # ---------------------------------------------------------- per-probe scan
-def _probe_inputs(rng, kind: str, chunk: int):
+def _probe_inputs(rng, kind: str, chunk: int, dv: int = 128):
+    """(B, w) probes over 8 cells of a 128-wide cache; v of width dv <= 128
+    (the wrappers take v's missing features as 0)."""
     kc, d, B, w = 8, 128, 8, 4
     caps = np.full(kc, 512)
     offsets = np.concatenate([[0], np.cumsum(caps[:-1])]).astype(np.int32)
@@ -41,7 +43,7 @@ def _probe_inputs(rng, kind: str, chunk: int):
         # two packages must agree bit for bit
         decoded = rng.randint(-3, 4, (rows, d)).astype(np.int8)
         scale = np.ones(d, np.float32)
-        v = rng.randint(-4, 5, (B, w, d)).astype(np.float32)
+        v = rng.randint(-4, 5, (B, w, dv)).astype(np.float32)
         base = rng.randint(0, 100, (B, w)).astype(np.float32)
     else:
         decoded = rng.randint(-127, 128, (rows, d)).astype(np.int8)
@@ -51,21 +53,30 @@ def _probe_inputs(rng, kind: str, chunk: int):
             scale = (2.0 ** -rng.randint(5, 8, d)).astype(np.float32)
         else:
             scale = (0.01 + 0.02 * rng.rand(d)).astype(np.float32)
-        v = rng.randn(B, w, d).astype(np.float32)
+        v = rng.randn(B, w, dv).astype(np.float32)
         base = (10 + rng.rand(B, w)).astype(np.float32)
     base[1, 0] = np.inf                           # a padded probe
     return dict(starts=offsets[cells], sizes=sizes[cells], v=v, base=base,
                 decoded=decoded, scale=scale)
 
 
+_PROBE_PARAMS = [
+    (128, 128, "integer", 128), (128, 256, "integer", 128),
+    (256, 256, "integer", 128), (256, 512, "integer", 128),
+    (128, 256, "pow2", 128), (256, 256, "pow2", 128),
+    (128, 256, "float", 128), (256, 256, "float", 128),
+    # v narrower than the cache
+    (128, 256, "integer", 96), (256, 256, "integer", 100),
+    (128, 256, "float", 96)]
+
+
 @pytest.mark.parametrize("norm_coef", [1.0, 0.0])
-@pytest.mark.parametrize("nf,chunk,kind", [
-    (128, 128, "integer"), (128, 256, "integer"), (256, 256, "integer"),
-    (256, 512, "integer"), (128, 256, "pow2"), (256, 256, "pow2"),
-    (128, 256, "float"), (256, 256, "float")])
-def test_dense_scan_matches_jax(nf, chunk, kind, norm_coef):
+@pytest.mark.parametrize("nf,chunk,kind,dv", _PROBE_PARAMS, ids=[
+    "-".join(map(str, p[:3])) + ("" if p[3] == 128 else f"-dv{p[3]}")
+    for p in _PROBE_PARAMS])
+def test_dense_scan_matches_jax(nf, chunk, kind, dv, norm_coef):
     rng = np.random.RandomState(nf + chunk)
-    a = _probe_inputs(rng, kind, chunk)
+    a = _probe_inputs(rng, kind, chunk, dv)
     kw = dict(k_out=10, chunk=chunk, norm_coef=norm_coef, merge="fold", nf=nf)
     jd, jp = j_scan.dense_scan(
         jnp.asarray(a["starts"]), jnp.asarray(a["sizes"]),
@@ -120,6 +131,14 @@ def test_dense_scan_unported_variants_raise():
     out = t_scan.dense_scan(z, z, v, base, dec8.to(torch.bfloat16), None,
                             k_out=10, chunk=128, merge="exact")
     assert torch.isinf(out[0]).all() and (out[1] == -1).all()
+
+
+def test_dense_scan_v_wider_than_the_cache_raises():
+    a = _probe_inputs(np.random.RandomState(0), "integer", 128, dv=136)
+    t = {k: torch.from_numpy(x) for k, x in a.items()}
+    with pytest.raises(ValueError, match="wider"):
+        t_scan.dense_scan(t["starts"], t["sizes"], t["v"], t["base"],
+                          t["decoded"], t["scale"], k_out=10, chunk=128)
 
 
 # ------------------------------------------------------ top-k with indices
