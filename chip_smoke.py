@@ -38,8 +38,12 @@ phases, printing one JSON line per phase; any failure raises (exit != 0):
            and its per-probe 8c / 8d (and kernel 5 at the posting shape)
            the device time, its share of the bound and the launch shape
            (`probe_fit`: blocks per SM, the persistent grid,
-           shared bytes, ring stages, registers, spills); for kernel 6 and
-           torch.topk at B=256 their device times
+           shared bytes, ring stages, registers, spills); for kernels 4
+           and 6 at each of their five shapes (here and in two_level) the
+           device time, its share of the bound (bytes: the values once, the
+           winners' payloads, the outputs) and the launch shape (`topk_fit`:
+           warps a block, blocks per SM, shared bytes, registers, spills),
+           and torch.topk's device time at B=256
   search   with every launch count zeroed: search_padded of 1000 queries,
            recall@10 against brute force and against the NumPy oracle of
            the reference algorithm, QPS over back-to-back B=16384 batches
@@ -311,13 +315,18 @@ def scan_layout(rec: dict, fn, kern, d: int, pb: int, nf: int,
 
 
 def scan_device_ms(rec: dict, fn, match: str, calls: int) -> dict:
-    """A scan kernel's device time per call of fn (torch.profiler; where
-    the trace kept no event of the kernel, CUDA events around single
-    calls, which take long enough there) and its share of the bound."""
-    dms, by = device_ms(fn, calls, match=match), "profiler"
-    if dms == 0.0:
-        dms, by = cuda_ms(fn, reps=calls), "cuda_events"
-    return dict(device_ms=dms, device_ms_by=by,
+    """A kernel's device time per call of fn and its share of the bound.
+    torch.profiler's trace at times keeps no event of the kernel (seen in
+    the two_level phase), so it is asked up to five times; then CUDA
+    events around single calls stand in, which hold host time too and are
+    close to the kernel's only where it runs long (the scans)."""
+    for _ in range(5):
+        dms = device_ms(fn, calls, match=match)
+        if dms > 0.0:
+            return dict(device_ms=dms, device_ms_by="profiler",
+                        share_of_bound=rec["bound_ms"] / dms)
+    dms = cuda_ms(fn, reps=calls)
+    return dict(device_ms=dms, device_ms_by="cuda_events",
                 share_of_bound=rec["bound_ms"] / dms)
 
 
@@ -330,6 +339,23 @@ def probe_layout(rec: dict, fn, kern, d: int, nf: int, k_out: int = 0,
     from ivfadc_tpu_torch.ops import dense_scan
     return dict(rec, **scan_device_ms(rec, fn, "probe_scan", calls),
                 launch_shape=dense_scan.probe_fit(kern.fn, d, nf, k_out))
+
+
+def topk_layout(rec: dict, fn, B: int, N: int, k: int, payload: bool,
+                calls: int = 10) -> dict:
+    """A top-k record with the kernel's device time per call, its share of
+    the bound (bound_ms / device_ms) and its launch shape
+    (`topk.topk_fit`: warps a block, resident blocks per SM, shared bytes,
+    registers, spills, the grid)."""
+    from ivfadc_tpu_torch.ops import topk
+    return dict(rec, **scan_device_ms(rec, fn, "topk", calls),
+                launch_shape=topk.topk_fit(B, N, k, payload))
+
+
+def topk_bytes(B: int, N: int, k: int, payload: bool) -> int:
+    """Bytes a top-k call must move: the (B, N) values once, the k
+    winners' payloads (kernel 4) and the (B, k) outputs."""
+    return 4 * B * N + (4 * B * k if payload else 0) + 8 * B * k
 
 
 def coarse_integer_ties(B: int, kc: int, d: int, w: int, n_plain: int,
@@ -683,8 +709,12 @@ def phase_kernels(index, queries):
             flat_d, flat_p, TOPK)),
         library_ms=cuda_ms(lambda: torch.gather(
             flat_p, 1, torch.topk(flat_d, TOPK, dim=1, largest=False)[1])),
-        **bound(8 * flat_d.numel() + 8 * BATCH * TOPK,
-                float(flat_d.numel()) * TOPK, PEAK_F32))
+        **bound(topk_bytes(BATCH, W * nf, TOPK, True),
+                float(flat_d.numel()), PEAK_F32))
+    records["topk_payload"] = topk_layout(
+        records["topk_payload"],
+        lambda: topk.topk_lastdim_payload(flat_d, flat_p, TOPK), BATCH,
+        W * nf, TOPK, True)
     records.update(phase_kernels_small(index, queries, bview))
     records.update(phase_kernels_engines(index, queries, kv[1], view, bview))
     return records
@@ -1099,11 +1129,13 @@ def phase_kernels_small(index, queries, bview):
         plain_ms=cuda_ms(lambda: topk.topk_lastdim_plain(flat_d, TOPK)),
         library_ms=cuda_ms(lambda: torch.topk(flat_d, TOPK, dim=1,
                                               largest=False), inner=10),
-        device_ms=device_ms(lambda: topk.topk_lastdim(flat_d, TOPK)),
         library_device_ms=device_ms(lambda: torch.topk(flat_d, TOPK, dim=1,
                                                        largest=False)),
-        **bound(4 * flat_d.numel() + 8 * B_SMALL * TOPK,
-                float(flat_d.numel()) * TOPK, PEAK_F32))
+        **bound(topk_bytes(B_SMALL, W * nf, TOPK, False),
+                float(flat_d.numel()), PEAK_F32))
+    records["topk_index"] = topk_layout(
+        records["topk_index"], lambda: topk.topk_lastdim(flat_d, TOPK),
+        B_SMALL, W * nf, TOPK, False)
     return records
 
 
@@ -1424,8 +1456,11 @@ def phase_two_level(zero_counts, read_counts, posting: dict) -> dict:
         plain_ms=cuda_ms(lambda: topk.topk_lastdim_plain(gdist, gp)),
         library_ms=cuda_ms(lambda: torch.topk(gdist, gp, dim=1,
                                               largest=False)),
-        **bound(4 * gdist.numel() + 8 * NQ3 * gp, float(gdist.numel()) * gp,
+        **bound(topk_bytes(NQ3, g, gp, False), float(gdist.numel()),
                 PEAK_F32))
+    shapes["topk_index@stage1"] = topk_layout(
+        shapes["topk_index@stage1"], lambda: topk.topk_lastdim(gdist, gp),
+        NQ3, g, gp, False)
     # 2 on stage 2's group ids: "kc" = g
     gflat = gids.reshape(-1)
     kr = cell_rank.cell_ranks(gflat, kc=g)
@@ -1543,8 +1578,12 @@ def phase_two_level(zero_counts, read_counts, posting: dict) -> dict:
             flat_d, flat_p, W3), reps=3),
         library_ms=cuda_ms(lambda: torch.gather(
             flat_p, 1, torch.topk(flat_d, W3, dim=1, largest=False)[1])),
-        **bound(8 * flat_d.numel() + 8 * NQ3 * W3,
-                float(flat_d.numel()) * W3, PEAK_F32))
+        **bound(topk_bytes(NQ3, gp * nf, W3, True), float(flat_d.numel()),
+                PEAK_F32))
+    shapes["topk_payload@stage2"] = topk_layout(
+        shapes["topk_payload@stage2"],
+        lambda: topk.topk_lastdim_payload(flat_d, flat_p, W3), NQ3,
+        gp * nf, W3, True)
     del flat_d, flat_p, kd, kp, pd, pp, ki, pi, dec_i, v_i, b_i, v_t, b_t, v
     # 5 on the posting scan's own probes (cells of ~8 rows at any 8-row
     # start); the plain version on every 16th probe, first to last
@@ -1609,8 +1648,11 @@ def phase_two_level(zero_counts, read_counts, posting: dict) -> dict:
         plain_ms=cuda_ms(lambda: topk.topk_lastdim_plain(fd, TOPK)),
         library_ms=cuda_ms(lambda: torch.topk(fd, TOPK, dim=1,
                                               largest=False)),
-        **bound(4 * fd.numel() + 8 * NQ3 * TOPK, float(fd.numel()) * TOPK,
+        **bound(topk_bytes(NQ3, W3 * nfp, TOPK, False), float(fd.numel()),
                 PEAK_F32))
+    shapes["topk_index@merge"] = topk_layout(
+        shapes["topk_index@merge"], lambda: topk.topk_lastdim(fd, TOPK),
+        NQ3, W3 * nfp, TOPK, False)
     del fd, ksd, ksp, psd, psp, v_sub, plain_args, v_q
     # 7 and 1 over the whole centroid table, the shape of the naive-coarse
     # checks below: the kernels split the table over blocks, each with a

@@ -3,12 +3,19 @@
 Port of `ivfadc_tpu/ops/topk.py`: `topk_lastdim_payload` is the grouped
 dense search's final merge, `topk_lastdim` the small-batch merge over
 position payloads and the coarse quantizer's pairwise fallback. The CUDA
-kernels are in `csrc/topk.cu`; the `*_plain` functions are the same
-functions written as plain tensor code (k min-extract passes, the lowest
-index winning ties, the winner masked to +inf).
+kernels are in `csrc/topk.cu` (one streamed read of each row, a running
+top-k list with a threshold, merges by rank); the `*_plain` functions are
+the same functions written as plain tensor code (k min-extract passes, the
+lowest index winning ties, the winner masked to +inf), which define the
+result the kernels equal bit for bit: ascending (value, index) order with
+-0.0 == +0.0, each winner's own bits, and (+inf, index 0) where a row holds
+fewer than k entries below +inf.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -21,13 +28,31 @@ INDEX_KERNEL = _build.Kernel("topk", "topk_index",
                              [_build.P, _build.P, _build.P,
                               _build.I, _build.I, _build.I, _build.P])
 
-# longest row the kernels stage in shared memory (f32 elements)
+# longest row routed to the kernels (f32 elements; they take any length):
+# longer rows take the stable sort, as k > 128 does
 MAX_N = 49152
+
+
+@functools.lru_cache(maxsize=None)
+def topk_fit(B: int, N: int, k: int, payload: bool,
+             device_index: int = 0) -> dict:
+    """The launch shape of a (B, N) selection of k on a CUDA device
+    (payload: kernel 4, else kernel 6): warps (rows) a block, resident
+    blocks per SM (the occupancy API), shared bytes a block, registers and
+    local (spilled) bytes a thread, the grid and the SM count."""
+    out = (ctypes.c_int * 7)()
+    fit = _build.HostFn("topk", "topk_fit", [_build.I] * 4 + [_build.P])
+    with torch.cuda.device(device_index):
+        fit(B, N, k, int(payload), ctypes.addressof(out))
+    return dict(warps=out[0], blocks_per_sm=out[1], smem_bytes=out[2],
+                registers=out[3], local_bytes=out[4], grid=out[5],
+                sms=out[6])
 
 
 def topk_lastdim_payload_plain(x: torch.Tensor, payload: torch.Tensor,
                                k: int):
-    """Plain version of the kernel: same passes, same tie and +inf rules."""
+    """Plain version of the kernel: the TPU kernel's k min-extract passes,
+    whose result (ties, +inf tail, a winner's own bits) the kernel equals."""
     xs = x.to(torch.float32).clone()
     B = xs.shape[0]
     rows = torch.arange(B, device=xs.device)
@@ -44,9 +69,8 @@ def topk_lastdim_payload_plain(x: torch.Tensor, payload: torch.Tensor,
 def topk_lastdim_payload(x: torch.Tensor, payload: torch.Tensor, k: int):
     """Smallest-k of x (B, N) f32 along the last dim, carrying `payload`
     (B, N) i32 for the winners: returns (vals (B, k) ascending, payload
-    (B, k)). Rows with fewer than k finite entries re-select +inf lanes, so
-    payloads of +inf entries are meaningful only if the input used -1
-    padding: callers mask by isfinite(vals).
+    (B, k)). Rows with fewer than k entries below +inf end in (+inf,
+    payload[row, 0]): callers mask by isfinite(vals).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel."""
     B, N = x.shape
@@ -68,8 +92,8 @@ def topk_lastdim_payload(x: torch.Tensor, payload: torch.Tensor, k: int):
 
 
 def topk_lastdim_plain(x: torch.Tensor, k: int):
-    """Plain version of the index kernel: same passes, same tie and +inf
-    rules -> (vals (B, k) f32 ascending, idx (B, k) i32)."""
+    """Plain version of the index kernel: the TPU kernel's k min-extract
+    passes -> (vals (B, k) f32 ascending, idx (B, k) i32)."""
     xs = x.to(torch.float32).clone()
     B = xs.shape[0]
     rows = torch.arange(B, device=xs.device)
@@ -86,8 +110,8 @@ def topk_lastdim_plain(x: torch.Tensor, k: int):
 def topk_lastdim(x: torch.Tensor, k: int):
     """Smallest-k of x (B, N) along the last dim -> (vals (B, k) f32
     ascending, idx (B, k) i32), equal values in index order. When a row
-    holds fewer than k finite entries the +inf tail's indices may repeat:
-    callers mask by isfinite(vals).
+    holds fewer than k entries below +inf the kernel's tail is (+inf, 0),
+    repeated: callers mask by isfinite(vals).
 
     k <= 128 on rows of at most 49152 entries is the kernel's range (CPU
     tensors run its plain version, CUDA tensors launch it). Beyond it,

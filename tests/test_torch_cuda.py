@@ -171,6 +171,111 @@ def test_topk_index_kernel_exact(dev):
             assert torch.equal(kv.cpu(), pv) and torch.equal(ki.cpu(), pi)
 
 
+def _topk_rows(B: int, N: int, seed: int):
+    """(B, N) f32 rows cycling through the kinds of the top-k contract:
+    integer ties with zeros of both signs, +0 / -0 tied at the minimum in
+    both orders, -inf entries, all +inf, three entries below +inf, all
+    equal, descending, random normals with +inf tails, ascending normals."""
+    rng = np.random.RandomState(seed)
+    x = rng.randint(1, 50, (B, N)).astype(np.float32)
+    kinds = np.arange(B) % 9
+    zero = rng.rand(B, N) < 0.2
+    x[(kinds == 0)[:, None] & zero] = 0.0
+    x[(kinds == 0)[:, None] & zero & (rng.rand(B, N) < 0.5)] = -0.0
+    for r in np.flatnonzero(kinds == 1):
+        i, j = sorted(rng.choice(N, 2, replace=False)) if N > 1 else (0, 0)
+        x[r, i], x[r, j] = (0.0, -0.0) if r % 2 else (-0.0, 0.0)
+    x[(kinds == 2)[:, None] & (rng.rand(B, N) < 0.05)] = -np.inf
+    x[kinds == 3] = np.inf
+    for r in np.flatnonzero(kinds == 4):
+        x[r] = np.inf
+        x[r, rng.randint(0, N, 3)] = rng.randint(-5, 5, 3)
+    x[kinds == 5] = 7.0
+    x[kinds == 6] = np.arange(N, 0, -1, dtype=np.float32)
+    rnd = kinds == 7
+    x[rnd] = rng.randn(int(rnd.sum()), N).astype(np.float32)
+    x[rnd[:, None] & (np.arange(N)[None, :] >= N - N // 8)] = np.inf
+    x[kinds == 8] = np.sort(rng.randn(int((kinds == 8).sum()), N), axis=1) \
+        .astype(np.float32)
+    return torch.from_numpy(x)
+
+
+def _topk_both(x, k, dev, seed=0):
+    """Both top-k kernels on x (a CUDA tensor) against their plain
+    versions on the card, bit for bit (values compared as int32 bits, so
+    a zero's sign counts), each launching its kernel once."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = torch.randint(0, 1 << 30, x.shape, generator=g, device=dev,
+                      dtype=torch.int32)
+    n0 = (topk.KERNEL.launches, topk.INDEX_KERNEL.launches)
+    kv, kp = topk.topk_lastdim_payload(x, p, k)
+    iv, ii = topk.topk_lastdim(x, k)
+    assert (topk.KERNEL.launches, topk.INDEX_KERNEL.launches) == \
+        (n0[0] + 1, n0[1] + 1)
+    pv, pp = topk.topk_lastdim_payload_plain(x, p, k)
+    qv, qi = topk.topk_lastdim_plain(x, k)
+    bits = lambda t: t.contiguous().view(torch.int32)   # noqa: E731
+    assert torch.equal(bits(kv), bits(pv)) and torch.equal(kp, pp)
+    assert torch.equal(bits(iv), bits(qv)) and torch.equal(ii, qi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,k", [(1, 1), (100, 1), (100, 10), (100, 32),
+                                 (100, 100), (1024, 1), (1024, 10),
+                                 (1024, 32), (1024, 128), (4097, 1),
+                                 (4097, 10), (4097, 32), (4097, 128),
+                                 (49152, 10), (49152, 128)])
+def test_topk_kernels_edge_rows(dev, N, k):
+    for B in (1, 7, 33):
+        _topk_both(_topk_rows(B, N, seed=N + k + B).to(dev), k, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,k", [(1024, 10), (4097, 32), (512, 128)])
+def test_topk_kernels_many_rows(dev, N, k):
+    _topk_both(_topk_rows(4096, N, seed=N + k).to(dev), k, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,k", [(16384, 1024, 10), (4096, 4096, 32),
+                                   (4096, 4096, 10), (4096, 512, 32),
+                                   (256, 1024, 10)])
+def test_topk_kernels_path_shapes(dev, B, N, k):
+    """The five shapes the search paths give the kernels, on rows shaped
+    like w probes' fold buffers (probe u's 128 lanes near u, empty lanes
+    +inf) and on random normals."""
+    g = torch.Generator(device=dev).manual_seed(B + N + k)
+    lanes = torch.arange(N, device=dev) // 128
+    x = lanes + torch.rand((B, N), generator=g, device=dev)
+    x[torch.rand((B, N), generator=g, device=dev) < 0.05] = float("inf")
+    _topk_both(x, k, dev)
+    _topk_both(torch.randn((B, N), generator=g, device=dev), k, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("off", [1, 2, 3])
+def test_topk_kernels_rows_off_alignment(dev, off):
+    """Rows that start off 16 bytes: a view at an offset of 1-3 floats
+    (contiguous, so the wrapper passes it as it is), N = 1024 and 1027."""
+    for N in (1024, 1027):
+        flat = _topk_rows(40, N, seed=off).reshape(-1).to(dev)
+        buf = torch.cat([torch.zeros(off, device=dev), flat])
+        x = buf[off:].view(40, N)
+        assert x.is_contiguous() and x.data_ptr() % 16 == 4 * off
+        _topk_both(x, 10, dev)
+
+
+@pytest.mark.cuda
+def test_topk_fit_reports_no_spills(dev):
+    for B, N, k in ((16384, 1024, 10), (4096, 4096, 32), (256, 1024, 10),
+                    (1, 100, 100)):
+        for payload in (True, False):
+            fit = topk.topk_fit(B, N, k, payload)
+            assert fit["local_bytes"] == 0, fit
+            assert fit["blocks_per_sm"] >= 1 and fit["warps"] >= 1
+            assert fit["grid"] * fit["warps"] >= B
+
+
 def _probe_inputs(rng, integer: bool):
     kc, d, B, w = 8, 256, 8, 4
     caps = np.full(kc, 512)

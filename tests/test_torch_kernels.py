@@ -306,3 +306,62 @@ def test_topk_lastdim_payload_matches_jax(N, k):
                                          torch.from_numpy(p), k)
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+
+
+def _edge_rows(N: int):
+    """(8, N) f32 rows of the kinds the top-k contract names: +0 then -0
+    tied at the minimum, -0 then +0, -inf entries, all +inf, fewer than k
+    entries below +inf, all equal, descending, and zeros of both signs
+    among ties."""
+    rng = np.random.RandomState(N)
+    x = rng.randint(1, 50, (8, N)).astype(np.float32)
+    x[0, 5], x[0, 9] = 0.0, -0.0
+    x[1, 3], x[1, 5] = -0.0, 0.0
+    x[2, [4, 17, N - 1]] = -np.inf
+    x[3] = np.inf
+    x[4] = np.inf
+    x[4, [2, N - 2]] = (3.0, -1.0)
+    x[5] = 7.0
+    x[6] = np.arange(N, 0, -1, dtype=np.float32)
+    x[7, rng.rand(N) < 0.3] = 0.0
+    x[7, rng.rand(N) < 0.3] = -0.0
+    return x
+
+
+@pytest.mark.parametrize("payload", [False, True])
+@pytest.mark.parametrize("k", [1, 5, 16])
+def test_topk_signed_zeros_and_edge_rows_match_jax(k, payload):
+    """Indices and payloads equal the JAX kernels' (interpret mode), values
+    equal as floats; the port's values are the winners' own bits (JAX
+    writes the row's min, whose sign on a +-0 tie follows XLA's reduction
+    order: ROADMAP C.14), and +inf places carry index 0."""
+    N = 256                   # a multiple of 128 and B = 8: the Pallas path
+    x = _edge_rows(N)
+    B = x.shape[0]
+    if payload:
+        p = (np.arange(N)[None, :] + 1000 * np.arange(B)[:, None]) \
+            .astype(np.int32)
+        jv, jp = j_topk.topk_lastdim_payload(jnp.asarray(x), jnp.asarray(p),
+                                             k, interpret=True)
+        tv, tp = t_topk.topk_lastdim_payload(torch.from_numpy(x),
+                                             torch.from_numpy(p), k)
+        np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+        idx = tp.numpy() - 1000 * np.arange(B)[:, None]
+    else:
+        jv, ji = j_topk.topk_lastdim(jnp.asarray(x), k, interpret=True)
+        tv, ti = t_topk.topk_lastdim(torch.from_numpy(x), k)
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        idx = ti.numpy()
+    tv = tv.numpy()
+    np.testing.assert_array_equal(tv, np.asarray(jv))
+    own = np.take_along_axis(x, idx, axis=1)
+    fin = np.isfinite(tv) | (tv < 0)
+    np.testing.assert_array_equal(tv[fin].view(np.int32),
+                                  own[fin].view(np.int32))
+    assert np.all(tv[~fin] == np.inf) and np.all(idx[~fin] == 0)
+    # the rows whose zero ties decide the winners' signs
+    if k >= 2:
+        assert tv[0, 0].view(np.int32) == 0 and idx[0, 0] == 5
+        assert tv[0, 1].view(np.int32) == np.float32(-0.0).view(np.int32)
+        assert tv[1, 0].view(np.int32) == np.float32(-0.0).view(np.int32)
+    assert np.all(idx[3] == 0)
