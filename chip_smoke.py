@@ -12,7 +12,11 @@ phases, printing one JSON line per phase; any failure raises (exit != 0):
   kernels  kernels 1-11 and the scan variants 8a-8e against their plain
            PyTorch versions on their paths' own inputs (8a and 8b: in the
            two_level phase, and here on kernel 3's tiles). At B=16384
-           queries, w=8: coarse probe, cell ranks, grouped fold scan, its
+           queries, w=8: coarse probe, the cell-rank kernel's fused tile
+           prep (ranks, counts, tile map, row, inv_row in one launch; two
+           calls in a row, both bit-equal to the plain version) and its
+           ranks-only call (device times of both, the fused call's device
+           operations and launch shape), grouped fold scan, its
            exact-merge, extraction (k=10), bf16-cache and pos8 variants
            (each with an integer-valued case that must be bit-exact; exact
            merge: sorted top-10 distances agree, untied payloads equal) and
@@ -20,8 +24,8 @@ phases, printing one JSON line per phase; any failure raises (exit != 0):
            scan and its exact-merge and bf16 variants, top-k with indices
            on that scan's candidate rows, exact top-w probe (also against
            the fused probe's cells). The opt-in engines: v2 cell ranks on
-           the B=16384 probe's cells (bit-equal to kernel 2 and the plain
-           version), the v2 coarse probe at B=16384 with and without a
+           the B=16384 probe's cells, ranks-only and fused (bit-equal
+           to kernel 2 and the plain version), the v2 coarse probe at B=16384 with and without a
            random orthogonal rotation (kernel 1's cells; v within one bf16
            ulp; base = 2 cdist), the qc scan (int8 and bf16 caches, and
            under the rotation) on every tile of a B=8192 batch, beside
@@ -90,7 +94,8 @@ phases, printing one JSON line per phase; any failure raises (exit != 0):
            searches (torch.profiler)
   two_level  the large-kc configuration at the Deep1B-shard shape: n=2M,
            d=96, kc=2^18 (k-means|| seeding, 8-row cells), m=16, k=256,
-           coarse_quantizer="hnsw"; kernel 8a and kernels 2, 4, 5, 6
+           coarse_quantizer="hnsw"; kernel 8a and kernels 2 (and 11: the
+           fused prep at stage 2's group ids, pb=64), 4, 5, 6
            against their plain versions at this path's shapes, kernels 7
            and 1 over the whole centroid table (the naive-coarse checks'
            shape, split over blocks; with an integer-valued table they
@@ -358,6 +363,85 @@ def topk_bytes(B: int, N: int, k: int, payload: bool) -> int:
     return 4 * B * N + (4 * B * k if payload else 0) + 8 * B * k
 
 
+def rank_record(cells, offsets, sizes, kc: int, pb: int,
+                engine: str) -> dict:
+    """Kernel 2 (engine v1) or 11 (v2) on one path's cells: the fused tile
+    prep (`cell_rank.tile_slots`, one launch: counts, tile map, row,
+    inv_row) and the ranks-mode call (`cell_ranks`), each bit-equal to its
+    plain version, the fused call twice in a row (the grid barrier resets
+    itself); CUDA-event and device times (torch.profiler) of both, the
+    fused call's device operations, bounds and launch shape."""
+    import torch
+    from ivfadc_tpu_torch.ops import cell_rank
+    P = cells.numel()
+    T = cell_rank.t_max(P, kc, pb)
+
+    def fused():
+        return cell_rank.tile_slots(cells, offsets, sizes, kc=kc, pb=pb,
+                                    engine=engine)
+
+    def plain():
+        return cell_rank.tile_slots_plain(cells, offsets, sizes, kc=kc,
+                                          pb=pb)
+
+    def ranks():
+        return cell_rank.cell_ranks(cells, kc=kc, engine=engine)
+
+    first, second, want = fused(), fused(), plain()
+    check(all(torch.equal(a, b) and torch.equal(a, c)
+              for a, b, c in zip(first, second, want)),
+          f"fused tile prep ({engine}, P={P}, kc={kc}, pb={pb}) differs")
+    kr, pr = ranks(), cell_rank.cell_ranks_plain(cells, kc)
+    check(torch.equal(kr[0], pr[0]) and torch.equal(kr[1], pr[1]),
+          f"cell ranks ({engine}, P={P}, kc={kc}) differ")
+
+    def library():
+        # nearest library route: a stable sort by cell and the histogram
+        return (torch.sort(cells, stable=True),
+                torch.bincount(cells, minlength=kc))
+
+    lib_ms = cuda_ms(library)
+    ranks_mode = dict(
+        ms=cuda_ms(ranks), plain_ms=cuda_ms(
+            lambda: cell_rank.cell_ranks_plain(cells, kc)),
+        library_ms=lib_ms, **bound(8 * P + 4 * kc, P, PEAK_F32))
+    ranks_mode.update(scan_device_ms(ranks_mode, ranks, "rank", 10))
+    ops = device_ops(fused)
+    # cells in, int64 row and inv_row out, offsets and sizes in, counts
+    # and the three tile arrays out
+    rec = dict(
+        source="ivfadc_tpu_torch/csrc/cell_rank.cu", max_abs_err=0.0,
+        engine=engine, probes=P, kc=kc, pb=pb, T_max=T, bit_equal=True,
+        repeat_bit_equal=True, ms=cuda_ms(fused), plain_ms=cuda_ms(plain),
+        device_ms_all_ops=ops["device_ms"], device_ops=ops["ops"],
+        library_ms=lib_ms, ranks_mode=ranks_mode,
+        launch_shape=cell_rank.rank_fit(cells.device, kc, True),
+        **bound(12 * P + 12 * kc + 12 * T + 8 * T * pb, P, PEAK_F32))
+    return dict(rec, **scan_device_ms(rec, fused, "rank", 10))
+
+
+def device_ops(fn, calls: int = 10) -> dict:
+    """Device operations fn() launches per call and their device time
+    (torch.profiler's CUDA trace), after one warm-up."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            us += t if t is not None else getattr(e, "self_cuda_time_total",
+                                                  0.0)
+            n += e.count
+    return dict(device_ms=us / 1e3 / calls, ops=n / calls)
+
+
 def coarse_integer_ties(B: int, kc: int, d: int, w: int, n_plain: int,
                         seed: int) -> dict:
     """Kernels 7, 1 and 10 on an integer-valued table (entries in -2..2:
@@ -476,25 +560,16 @@ def phase_kernels(index, queries):
     records["coarse_probe"] = coarse_layout(records["coarse_probe"], "vbase",
                                             BATCH, KC, D, W)
 
-    # 2. cell ranks on the probe's own cells: exact.
-    cells = kv[1].reshape(-1)
-    kr = cell_rank.cell_ranks(cells, kc=KC)
-    pr = cell_rank.cell_ranks_plain(cells, KC)
-    check(torch.equal(kr[0], pr[0]) and torch.equal(kr[1], pr[1]),
-          "cell ranks differ")
-    records["cell_rank"] = dict(
-        source="ivfadc_tpu_torch/csrc/cell_rank.cu",
-        replaces="ivfadc_tpu/ops/cell_rank.py:54", max_abs_err=0.0,
-        ms=cuda_ms(lambda: cell_rank.cell_ranks(cells, kc=KC)),
-        plain_ms=cuda_ms(lambda: cell_rank.cell_ranks_plain(cells, KC)),
-        library_ms=cuda_ms(lambda: (torch.sort(cells, stable=True),
-                                    torch.bincount(cells, minlength=KC))),
-        **bound(8 * cells.numel() + 4 * KC, cells.numel(), PEAK_F32))
-
-    # 3. grouped scan on the main path's own tiles
+    # 2. cell ranks and the fused tile prep on the probe's own cells and
+    # the view's cells: exact
     view = index.store.device_view_dense(index.quantizer,
                                          index.config.scan_chunk)
     pb, nf = index.config.scan_pb, index.config.scan_fold_lanes
+    records["cell_rank"] = dict(
+        rank_record(kv[1].reshape(-1), view["offsets"], view["sizes"], KC,
+                    pb, "v1"), replaces="ivfadc_tpu/ops/cell_rank.py:54")
+
+    # 3. grouped scan on the main path's own tiles
     cells_q, _, v_q, base_q = coarse_scan.coarse_probe_vbase(
         q, c32, W, rot, False, True)
     tstart, tsize, v_t, b_t, row = dense_scan.place_tiles(
@@ -732,22 +807,21 @@ def phase_kernels_engines(index, queries, cells16k, view, bview):
 
     dev = queries.device
     records = {}
-    # 11. v2 cell ranks: kernel 2's bits and the plain version's
+    # 11. v2 cell ranks and fused prep: kernel 2's bits and the plain
+    # version's
     cells = cells16k.reshape(-1)
+    pb = index.config.scan_pb
     k2 = cell_rank.cell_ranks(cells, kc=KC, engine="v2")
     k1 = cell_rank.cell_ranks(cells, kc=KC, engine="v1")
-    pr = cell_rank.cell_ranks_plain(cells, KC)
-    check(all(torch.equal(a, b) and torch.equal(a, c)
-              for a, b, c in zip(k2, k1, pr)), "v2 cell ranks differ")
+    t2 = cell_rank.tile_slots(cells, view["offsets"], view["sizes"], kc=KC,
+                              pb=pb, engine="v2")
+    t1 = cell_rank.tile_slots(cells, view["offsets"], view["sizes"], kc=KC,
+                              pb=pb, engine="v1")
+    check(all(torch.equal(a, b) for a, b in zip(k2 + t2, k1 + t1)),
+          "v2 cell ranks differ from kernel 2's")
     records["cell_rank_v2"] = dict(
-        source="ivfadc_tpu_torch/csrc/cell_rank.cu",
-        replaces="ivfadc_tpu/ops/cell_rank.py:101", max_abs_err=0.0,
-        equal_to_kernel_2=True, probes=cells.numel(), kc=KC,
-        ms=cuda_ms(lambda: cell_rank.cell_ranks(cells, kc=KC, engine="v2")),
-        plain_ms=cuda_ms(lambda: cell_rank.cell_ranks_plain(cells, KC)),
-        library_ms=cuda_ms(lambda: (torch.sort(cells, stable=True),
-                                    torch.bincount(cells, minlength=KC))),
-        **bound(8 * cells.numel() + 4 * KC, cells.numel(), PEAK_F32))
+        rank_record(cells, view["offsets"], view["sizes"], KC, pb, "v2"),
+        replaces="ivfadc_tpu/ops/cell_rank.py:101", equal_to_kernel_2=True)
 
     # 10. v2 coarse probe at B=16384: kernel 1's cells bit for bit; v within
     # one bf16 ulp of the plain version (bit-equal without a rotation, where
@@ -1461,26 +1535,20 @@ def phase_two_level(zero_counts, read_counts, posting: dict) -> dict:
     shapes["topk_index@stage1"] = topk_layout(
         shapes["topk_index@stage1"], lambda: topk.topk_lastdim(gdist, gp),
         NQ3, g, gp, False)
-    # 2 on stage 2's group ids: "kc" = g
-    gflat = gids.reshape(-1)
-    kr = cell_rank.cell_ranks(gflat, kc=g)
-    pr = cell_rank.cell_ranks_plain(gflat, g)
-    check(torch.equal(kr[0], pr[0]) and torch.equal(kr[1], pr[1]),
-          "stage-2 cell ranks differ")
-    shapes["cell_rank@stage2"] = dict(
-        probes=gflat.numel(), kc=g,
-        ms=cuda_ms(lambda: cell_rank.cell_ranks(gflat, kc=g)),
-        plain_ms=cuda_ms(lambda: cell_rank.cell_ranks_plain(gflat, g)),
-        library_ms=cuda_ms(lambda: (torch.sort(gflat, stable=True),
-                                    torch.bincount(gflat, minlength=g))),
-        **bound(8 * gflat.numel() + 4 * g, gflat.numel(), PEAK_F32))
+    # 2 on stage 2's group ids and the groups' slot ranges: "kc" = g,
+    # pb = 64 (models/coarse.py)
+    gflat = gids.reshape(-1).to(torch.int32)
+    shapes["cell_rank@stage2"] = rank_record(
+        gflat, cq.csr_offsets, cq.csr_sizes, g, 64, "v1")
     # 11 on the same group ids: kernel 2's bits
-    kr2 = cell_rank.cell_ranks(gflat, kc=g, engine="v2")
-    check(torch.equal(kr2[0], kr[0]) and torch.equal(kr2[1], kr[1]),
-          "stage-2 v2 cell ranks differ")
+    kr, kr2 = (cell_rank.tile_slots(gflat, cq.csr_offsets, cq.csr_sizes,
+                                    kc=g, pb=64, engine=e)
+               for e in ("v1", "v2"))
+    check(all(torch.equal(a, b) for a, b in zip(kr, kr2)),
+          "stage-2 v2 tile prep differs")
     shapes["cell_rank_v2@stage2"] = dict(
-        shapes["cell_rank@stage2"], equal_to_kernel_2=True,
-        ms=cuda_ms(lambda: cell_rank.cell_ranks(gflat, kc=g, engine="v2")))
+        rank_record(gflat, cq.csr_offsets, cq.csr_sizes, g, 64, "v2"),
+        equal_to_kernel_2=True)
     # 8a on stage 2's own tiles
     d_pad = cq.cent_scan.shape[1]
     pb, nf = 64, 128

@@ -594,14 +594,24 @@ class IVFADCIndex:
         """Scan chunk adapted to the cell-size distribution: the p95 cell
         capacity rounded up to a scan_fold_lanes multiple, capped at
         scan_chunk. The CUDA kernel walks 128-row groups, so the chunk
-        changes no result; it is kept for parity of the configuration."""
-        caps = self.store.caps
+        changes no result; it is kept for parity of the configuration.
+        Cached on the store per (caps array identity, caps max), as the
+        JAX package caches it: caps may grow in place, and the store's
+        `_invalidate()` drops the value."""
+        store = self.store
+        caps = store.caps
         if len(caps) == 0:
             return self.config.scan_chunk
-        nf = self.config.scan_fold_lanes
+        max_cap = int(caps.max())
+        nf, chunk = self.config.scan_fold_lanes, self.config.scan_chunk
+        key = (max_cap, nf, chunk)
+        cache = store._chunk_cache
+        if cache is not None and cache[0] is caps and cache[1] == key:
+            return cache[2]
         p95 = int(np.percentile(caps, 95))
-        return max(nf, min(self.config.scan_chunk,
-                           ((p95 + nf - 1) // nf) * nf))
+        eff = max(nf, min(chunk, ((p95 + nf - 1) // nf) * nf))
+        store._chunk_cache = (caps, key, eff)
+        return eff
 
     def _resolve_cache(self) -> str:
         cache = self.config.scan_cache

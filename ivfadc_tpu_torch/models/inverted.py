@@ -90,6 +90,8 @@ class PostingStore:
         self._ids_dev = ids_dev
         self._device: Optional[Dict] = None
         self._device_dense: Optional[Dict] = None
+        # (caps, key, value) of the index's scan chunk (_effective_chunk)
+        self._chunk_cache: Optional[tuple] = None
 
     # ---- host views (hydrated from the device on first use) ----
     @property
@@ -253,7 +255,8 @@ class PostingStore:
         return self._device_dense
 
     def _invalidate(self) -> None:
-        """Drop the cached device views; the next search rebuilds them (and
-        reads IVFADC_NORMS again)."""
+        """Drop the cached device views and the index's scan chunk; the
+        next search rebuilds them (and reads IVFADC_NORMS again)."""
         self._device = None
         self._device_dense = None
+        self._chunk_cache = None

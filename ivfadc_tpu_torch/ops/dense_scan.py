@@ -25,9 +25,10 @@ that the JAX package reaches, one CUDA kernel template each
              with extract_k min-extract passes (IVFADC_EXTRACT=1)
 
 each over the int8 decoded cache (per-column scale) or the bf16 one (rows
-read as they are). The tile prep ranks the probes within their cells by
-the counting kernel (`cell_ranks`, kc <= MAX_KC, engine v1 or v2) or by one
-sort (kc > MAX_KC); `place_tiles` shares the rest: `_tile_map`, the
+read as they are). The tile prep (`_tile_slots`) lays out the tiles in
+one launch of the counting kernel (`cell_rank.tile_slots`, kc <= MAX_KC,
+engine v1 or v2: ranks, counts, tile map, `row`, `inv_row`) or by one
+sort and `cell_rank.tile_layout` (kc > MAX_KC); `place_tiles` adds the
 `inv_row` placement with its zero v-row and +inf base-row, and the output
 row gather.
 
@@ -54,7 +55,8 @@ import functools
 import torch
 
 from ivfadc_tpu_torch import _build
-from ivfadc_tpu_torch.ops.cell_rank import MAX_KC, cell_ranks
+from ivfadc_tpu_torch.ops.cell_rank import (MAX_KC, tile_layout,
+                                            tile_slots)
 
 _CAND = 128          # lanes per fold bank (rows per group)
 _ELEMS = {torch.int8: "int8", torch.bfloat16: "bf16"}
@@ -331,25 +333,6 @@ def grouped_scan(tile_start, tile_size, v_tiles, base_tiles, decoded, scale,
     return out_d, out_p
 
 
-def _tile_map(counts, offsets, sizes, pb: int, T_max: int, kc: int):
-    """Tile bookkeeping: cell c owns ceil(counts[c]/pb) consecutive tiles
-    starting at tile_base[c]. Returns (tile_base (kc,), c_t, tile_start,
-    tile_size (T_max,) i32): each tile's cell (clamped to kc - 1 past the
-    last tile needed) and cell row range (zero past the last tile)."""
-    dev = counts.device
-    nt = (counts.to(torch.int64) + pb - 1) // pb          # tiles per cell
-    tile_base = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
-                           torch.cumsum(nt, 0)[:-1]])
-    trange = torch.arange(T_max, dtype=torch.int64, device=dev)
-    c_t = torch.clamp(torch.searchsorted(tile_base, trange, right=True) - 1,
-                      0, kc - 1)
-    tile_valid = trange < torch.sum(nt)
-    tile_start = torch.where(tile_valid, offsets.to(torch.int64)[c_t], 0)
-    tile_size = torch.where(tile_valid, sizes.to(torch.int64)[c_t], 0)
-    return (tile_base, c_t.to(torch.int32), tile_start.to(torch.int32),
-            tile_size.to(torch.int32))
-
-
 def grouped_dense_scan(cells, offsets, sizes, v, base, decoded, scale=None,
                        ids2d=None, norms2d=None, *, kc: int, k_out: int,
                        chunk: int, norm_coef: float = 1.0, pb: int = 16,
@@ -415,30 +398,20 @@ def sort_ranks(cells_flat, kc: int):
 
 def _tile_slots(cells, offsets, sizes, *, kc: int, pb: int,
                 rank_engine: str | None):
-    """The placement both tile preps share: ranks within the cells from
-    the counting kernel (kc <= MAX_KC, engine `rank_engine`) or from one
-    sort (`sort_ranks`, kc > MAX_KC), then `_tile_map`. Returns (c_t,
-    tile_start, tile_size (T_max,) i32, row (P,) each probe's row in the
-    tile output, inv_row (T_max*pb,) each slot's probe or P for an empty
-    slot), T_max = P // pb + min(kc, P) + 1 (an upper bound on the tiles
-    needed)."""
-    P = cells.numel()
-    T_max = P // pb + min(kc, P) + 1
-    dev = cells.device
+    """The placement both tile preps share: for kc <= MAX_KC the fused
+    counting call (`tile_slots`, engine `rank_engine`: one kernel launch
+    on the card), above it one sort (`sort_ranks`) and `tile_layout`.
+    Returns (c_t, tile_start, tile_size (T_max,) i32, row (P,) each
+    probe's row in the tile output, inv_row (T_max*pb,) each slot's probe
+    or P for an empty slot, both int64), T_max = P // pb + min(kc, P) + 1
+    (an upper bound on the tiles needed)."""
     cells_flat = cells.reshape(-1).to(torch.int32)
     if kc <= MAX_KC:
-        ranks, counts = cell_ranks(cells_flat, kc=kc, engine=rank_engine)
-    else:
-        ranks, counts = sort_ranks(cells_flat, kc)
-    tile_base, c_t, tile_start, tile_size = _tile_map(
-        counts, offsets, sizes, pb, T_max, kc)
-    ranks = ranks.to(torch.int64)
-    row = (tile_base[cells_flat.to(torch.int64)] + ranks // pb) * pb \
-        + ranks % pb
-    # invert `row` (slot -> probe; unwritten slots point at P)
-    inv_row = torch.full((T_max * pb,), P, dtype=torch.int64, device=dev)
-    inv_row[row] = torch.arange(P, dtype=torch.int64, device=dev)
-    return c_t, tile_start, tile_size, row, inv_row
+        return tile_slots(cells_flat, offsets, sizes, kc=kc, pb=pb,
+                          engine=rank_engine)[1:]
+    ranks, counts = sort_ranks(cells_flat, kc)
+    return tile_layout(ranks, counts, cells_flat, offsets, sizes, kc=kc,
+                       pb=pb)
 
 
 def place_tiles(cells, offsets, sizes, v, base, *, kc: int, pb: int,

@@ -710,6 +710,96 @@ def test_cell_rank_v2_kernel_exact(dev, kc, P):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["v1", "v2"])
+@pytest.mark.parametrize("P,kc,pb", [
+    (131072, 1024, 16),     # the SIFT1M batch (B = 16384, w = 8)
+    (131072, 512, 64),      # stage 2 of the large-kc probe (g = 512)
+    (5000, 4096, 64),       # kc = MAX_KC, most cells empty
+    (3000, 1, 8),           # one cell
+    (1048576, 4096, 64),    # several 1024-probe blocks per resident block
+])
+def test_tile_slots_kernel_exact(dev, P, kc, pb, engine):
+    # the fused prep (ranks, counts, tile map, row, inv_row) in one launch,
+    # bit-equal to its plain version; a second call equals the first (the
+    # grid barrier resets itself); ranks mode at the same shape too
+    rng = np.random.RandomState(P + kc + pb)
+    cells = np.where(rng.rand(P) < 0.3, rng.randint(0, min(kc, 5), P),
+                     rng.randint(0, kc, P)).astype(np.int32)
+    if kc > 1:
+        cells[cells == 1] = 0                       # an empty cell
+    sizes = rng.randint(0, 400, kc).astype(np.int32)
+    offsets = np.concatenate([[0], np.cumsum(sizes[:-1] + 7)]) \
+        .astype(np.int32)
+    t = [torch.from_numpy(a) for a in (cells, offsets, sizes)]
+    kern = cell_rank.KERNELS[engine]
+    n0 = kern.launches
+    first = cell_rank.tile_slots(*[a.to(dev) for a in t], kc=kc, pb=pb,
+                                 engine=engine)
+    assert kern.launches == n0 + 1
+    second = cell_rank.tile_slots(*[a.to(dev) for a in t], kc=kc, pb=pb,
+                                  engine=engine)
+    assert kern.launches == n0 + 2
+    _finish()
+    plain = cell_rank.tile_slots_plain(*t, kc=kc, pb=pb)
+    for a, b, c in zip(first, second, plain):
+        assert a.dtype == c.dtype and torch.equal(a, b)
+        assert torch.equal(a.cpu(), c)
+    kr, kn = cell_rank.cell_ranks(t[0].to(dev), kc=kc, engine=engine)
+    assert kern.launches == n0 + 3
+    pr, pn = cell_rank.cell_ranks_plain(t[0], kc)
+    assert torch.equal(kr.cpu(), pr) and torch.equal(kn.cpu(), pn)
+
+
+@pytest.mark.cuda
+def test_tile_slots_kernel_edges(dev):
+    # no probes, and probes that fill their tiles exactly: one launch each,
+    # bit-equal to the plain version
+    for cells, kc, pb in ((np.zeros(0, np.int32), 7, 16),
+                          (np.repeat(np.arange(8, dtype=np.int32), 64), 8,
+                           64)):
+        sizes = np.arange(1, kc + 1, dtype=np.int32)
+        offsets = np.cumsum(sizes).astype(np.int32) - sizes
+        t = [torch.from_numpy(a) for a in (cells, offsets, sizes)]
+        n0 = cell_rank.KERNEL.launches
+        got = cell_rank.tile_slots(*[a.to(dev) for a in t], kc=kc, pb=pb)
+        assert cell_rank.KERNEL.launches == n0 + 1
+        for a, b in zip(got, cell_rank.tile_slots_plain(*t, kc=kc, pb=pb)):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_cell_ranks_out_of_range_rule(dev):
+    # cells outside [0, kc) are counted nowhere and ranked among the
+    # earlier equal cells of their own 32-probe warp; the rest as a stable
+    # sort ranks them
+    kc = 8
+    cells = np.random.RandomState(1).randint(-3, kc + 3, 3000) \
+        .astype(np.int32)
+    pr, pn = cell_rank.cell_ranks_plain(torch.from_numpy(cells), kc)
+    want = pr.numpy().copy()
+    for p in np.nonzero((cells < 0) | (cells >= kc))[0]:
+        want[p] = np.sum(cells[p - p % 32:p] == cells[p])
+    for engine in ("v1", "v2"):
+        kr, kn = cell_rank.cell_ranks(torch.from_numpy(cells).to(dev),
+                                      kc=kc, engine=engine)
+        np.testing.assert_array_equal(kr.cpu().numpy(), want)
+        assert torch.equal(kn.cpu(), pn)
+
+
+@pytest.mark.cuda
+def test_rank_fit_two_blocks_an_sm(dev):
+    # two 1024-thread blocks an SM in both modes at every kc; the tile
+    # kernel (the search path's) spills nothing, the ranks-only one at most
+    # the one word ptxas keeps there at 32 registers
+    for kc in (1, 1024, 4096):
+        for tiles in (False, True):
+            fit = cell_rank.rank_fit(dev, kc, tiles)
+            assert fit["blocks_per_sm"] == 2, fit
+            assert fit["spill_bytes"] <= (0 if tiles else 8), fit
+            assert fit["max_grid"] == fit["blocks_per_sm"] * fit["sms"]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kc", [1024, 3000])
 @pytest.mark.parametrize("apply_rot", [False, True])
 def test_coarse_probe_v2_kernel(dev, kc, apply_rot):

@@ -353,7 +353,7 @@ def test_engine_knobs_reach_the_kernels(jax_index, queries, monkeypatch):
     # rank v2 reaches the counting prep, coarse v2 the fused probe, approx
     # the merge, per search call and without rebuilding anything
     seen = {}
-    real_rank, real_probe = t_scan.cell_ranks, t_index.coarse_probe_vbase
+    real_rank, real_probe = t_scan.tile_slots, t_index.coarse_probe_vbase
 
     def rank_spy(*args, **kw):
         seen["rank"] = kw.get("engine")
@@ -363,7 +363,7 @@ def test_engine_knobs_reach_the_kernels(jax_index, queries, monkeypatch):
         seen["probe"] = kw.get("engine")
         return real_probe(*args, **kw)
 
-    monkeypatch.setattr(t_scan, "cell_ranks", rank_spy)
+    monkeypatch.setattr(t_scan, "tile_slots", rank_spy)
     monkeypatch.setattr(t_index, "coarse_probe_vbase", probe_spy)
     tv = from_reference(jax_index, "cpu")
     tv.search_padded(queries, K, w=W)

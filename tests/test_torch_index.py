@@ -286,3 +286,34 @@ def test_search_variants_match_jax(variant):
     same = ti == ji
     assert same.mean() >= 0.99
     np.testing.assert_allclose(td[same], jd[same], rtol=1e-4, atol=1e-4)
+
+
+def test_effective_chunk_cached_per_caps(monkeypatch):
+    # the p95 cell capacity is cached per (caps identity, caps max), as the
+    # JAX package caches it: unchanged caps are not recomputed, caps grown
+    # in place are, and the store's _invalidate() drops the value
+    data = synthetic_clustered(1024, 32, seed=5)
+    idx = IVFADCIndex.build(data, kc=16, m=4, k=16, seed=0, device="cpu")
+    caps, nf = idx.store.caps, idx.config.scan_fold_lanes
+    real = np.percentile
+
+    def expected():
+        p95 = int(real(caps, 95))
+        return max(nf, min(idx.config.scan_chunk, -(-p95 // nf) * nf))
+
+    first = idx._effective_chunk()
+    assert first == expected()
+    calls = []
+
+    def spy(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(np, "percentile", spy)
+    assert idx._effective_chunk() == first and not calls
+    caps[int(np.argmax(caps))] += 8 * nf       # one cell past the p95
+    grown = idx._effective_chunk()
+    assert len(calls) == 1 and grown == expected() and grown > first
+    assert idx._effective_chunk() == grown and len(calls) == 1
+    idx.store._invalidate()
+    assert idx._effective_chunk() == grown and len(calls) == 2

@@ -207,13 +207,13 @@ def test_scan_stage_under_rank_v2(kind, monkeypatch):
     jq, tq = _pair(cents, centers, members, 8)
     from ivfadc_tpu_torch.ops import dense_scan as t_scan
     engines = []
-    real = t_scan.cell_ranks
+    real = t_scan.tile_slots
 
     def spy(*args, **kw):
         engines.append(kw.get("engine"))
         return real(*args, **kw)
 
-    monkeypatch.setattr(t_scan, "cell_ranks", spy)
+    monkeypatch.setattr(t_scan, "tile_slots", spy)
     c1, d1 = tq.search(torch.from_numpy(q), 8)
     c2, d2 = tq.search(torch.from_numpy(q), 8, rank_engine="v2")
     assert engines == [None, "v2"]

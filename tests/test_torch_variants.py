@@ -24,6 +24,7 @@ from ivfadc_tpu_torch import load_ivfadc_index
 from ivfadc_tpu_torch.convert import from_reference
 from ivfadc_tpu_torch.models import coarse as t_coarse
 from ivfadc_tpu_torch.models import index as t_index
+from ivfadc_tpu_torch.ops import cell_rank as t_rank
 from ivfadc_tpu_torch.ops import dense_scan as t_scan
 from ivfadc_tpu_torch.ops.metrics import get_metric as t_metric
 from ivfadc_tpu_torch.utils.datasets import synthetic_clustered
@@ -339,7 +340,7 @@ def test_sort_and_counting_ranks_place_the_same_tiles(kc, monkeypatch):
         assert torch.equal(x, y)
     flat = cells.reshape(-1)
     for x, y in zip(t_scan.sort_ranks(flat, kc),
-                    t_scan.cell_ranks(flat, kc=kc)):
+                    t_rank.cell_ranks(flat, kc=kc)):
         assert torch.equal(x, y)
 
 
