@@ -92,6 +92,26 @@ phases, printing one JSON line per phase; any failure raises (exit != 0):
            the same file loaded on the CPU (kernels' plain versions) agrees
   profile  device time per kernel and idle share over three B=16384
            searches (torch.profiler)
+  dynamic  counts zeroed: a fork of the SIFT1M index takes push_batch of
+           262,144 points (synthetic_clustered, seed 7: cells must grow),
+           1000 single push, 1000 single delete, one 2048-id delete (the
+           incremental path), one 10,000-id delete (the bulk path), 100
+           pop, 100 pop_front and 10 push_front; after each step its views
+           (patched in place, or rebuilt where a grow or the bulk delete
+           dropped them) equal views built afresh from the same host state
+           bit for bit, and a B=16384 (grouped: kernels 1-4) and a B=256
+           (per probe: kernels 1, 5, 6) search equal the fresh views'
+           results bit for bit; ids stay 0..n-1; recall@10 of the mutated
+           index within 0.01 of the NumPy oracle's on its own contents;
+           the parent's B=16384 results bit-equal to those before the
+           fork; kernels 7 (cell assignment), 1-6 launched. Printed: the
+           push_batch rate, p50 of single push and delete, the view access
+           (flush or rebuild) time of the first search after each step
+  opq      an OPQ index over the first 200,000 points (kc=1024, m=8):
+           rotation orthogonal to 1e-4, counts zeroed: a B=4096 batch
+           through the fused probe with the rotation and kernels 2-4; top-10
+           overlap with the same index's LUT route >= 0.95 (C.11's bound
+           for the default fold); recall@10 and build time
   two_level  the large-kc configuration at the Deep1B-shard shape: n=2M,
            d=96, kc=2^18 (k-means|| seeding, 8-row cells), m=16, k=256,
            coarse_quantizer="hnsw"; kernel 8a and kernels 2 (and 11: the
@@ -118,6 +138,15 @@ phases, printing one JSON line per phase; any failure raises (exit != 0):
            >= 0.999, distances within 1e-3, recall within 0.005), 8b
            against its plain version on every 128th tile, batch ms, QPS,
            peak device memory, device time per kernel and idle share
+  dynamic_two_level  counts zeroed: on the large-kc index (8-row cells, no
+           norm stream) push_batch of 65,536 points (some grows must move
+           their rows inside the views, with no rebuild) and a 2048-id
+           delete, each held to fresh views and a B=4096 search bit for
+           bit (kernels 6, 2, 8a, 4 assign the cells; 5 and 6 search);
+           then the gathered engine (scan_gather_win=32, or the p95 cell
+           capacity where 32 leaves its plan off) on the same batch: top-10
+           overlap with the per-probe route >= 0.99, its device time beside
+           kernel 5's on the same probes
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the rest of the repository beside it, the script fails.
@@ -2058,7 +2087,338 @@ def phase_two_level(zero_counts, read_counts, posting: dict) -> dict:
          device_idle_share=prof_big["device_idle_share"], profile=prof_big,
          seconds=time.perf_counter() - t0)
     return {"grouped_scan_knorm": record, "grouped_scan_pos8": record8b,
-            "grouped_scan_extract@stage2": extract_stage2}
+            "grouped_scan_extract@stage2": extract_stage2,
+            "index": index, "queries": q}
+
+
+def rebuilt(index):
+    """An index over a copy of `index`'s host state, whose views are built
+    afresh (the mutated index's own views stay untouched)."""
+    import torch
+    from ivfadc_tpu_torch import IVFADCIndex
+    from ivfadc_tpu_torch.models.inverted import PostingStore
+    st = index.store
+    store = PostingStore(st.kc, st.m, st.code_dtype,
+                         offsets=st.offsets.copy(), caps=st.caps.copy(),
+                         sizes=st.sizes.copy(), codes=st.codes.copy(),
+                         ids=st.ids.copy(), device=st.device)
+    torch.cuda.synchronize()
+    return IVFADCIndex(index.config, index.coarse, index.quantizer, store,
+                       index.data_dtype, index.dim)
+
+
+def hold_to_rebuild(index, batches, w: int, what: str) -> dict:
+    """The mutated index's views (patched in place, or rebuilt where a
+    mutation dropped them) against views built afresh from the same host
+    state: every array bit-equal, and each batch's search results (ids
+    and distances) bit-equal. Returns the view access time (the flush or
+    rebuild of the first search after the mutation) and the search
+    times."""
+    import torch
+    st = index.store
+    t1 = time.perf_counter()
+    view = st.device_view_dense(index.quantizer, index.config.scan_chunk,
+                                cache=index._resolve_cache())
+    torch.cuda.synchronize()
+    access_ms = 1e3 * (time.perf_counter() - t1)
+    lut = st._device
+    fresh = rebuilt(index)
+    want = fresh.store.device_view_dense(index.quantizer,
+                                         index.config.scan_chunk,
+                                         cache=index._resolve_cache())
+    for key, a in want.items():
+        if isinstance(a, torch.Tensor):
+            check(torch.equal(view[key], a), f"{what}: dense view {key} "
+                                             f"differs from a rebuild")
+        elif key in ("ids2d", "norms2d"):
+            check(view[key] is None, f"{what}: {key}")
+    if lut is not None:
+        want = fresh.store.device_view()
+        for key in ("codes", "ids", "offsets", "sizes"):
+            check(torch.equal(lut[key], want[key]),
+                  f"{what}: LUT view {key} differs from a rebuild")
+    search_ms = {}
+    for qq in batches:
+        t1 = time.perf_counter()
+        got = index.search_padded(qq, TOPK, w=w)
+        search_ms[qq.shape[0]] = 1e3 * (time.perf_counter() - t1)
+        ref = fresh.search_padded(qq, TOPK, w=w)
+        check(np.array_equal(got[0], ref[0]) and np.array_equal(got[1],
+                                                                ref[1]),
+              f"{what}: B={qq.shape[0]} results differ from a rebuild's")
+    ids = st.ids
+    check(np.array_equal(np.sort(ids[ids >= 0]), np.arange(len(index))),
+          f"{what}: ids not the range 0..n-1")
+    del fresh
+    return dict(view_access_ms=access_ms, search_ms=search_ms,
+                lut_view=lut is not None)
+
+
+N_PUSH = 262144                      # the dynamic phase's push_batch
+N_PUSH3 = 65536                      # the same on the large-kc index
+N_OPQ = 200_000                      # the OPQ index
+
+
+def phase_dynamic(index, base, queries, zero_counts, read_counts) -> dict:
+    """Mutate a fork of the SIFT1M index through every dynamic op; after
+    each step hold its views and searches (B=16384 grouped, B=256 per
+    probe) to a rebuild; then recall against the oracle of its own
+    contents, and the parent's results unchanged."""
+    import torch
+    from benchmarks.oracle import ReferenceOracle
+    from ivfadc_tpu_torch.utils.datasets import synthetic_clustered
+    from ivfadc_tpu_torch.utils.evaluation import brute_force_topk, recall_at_r
+
+    dev = base.device
+    qa, qs = queries[:BATCH], queries[:B_SMALL]
+    parent_before = index.search_padded(qa, TOPK, w=W)
+    new = torch.as_tensor(synthetic_clustered(N_PUSH, D, seed=7), device=dev)
+    extra = torch.as_tensor(synthetic_clustered(1010, D, seed=8), device=dev)
+    pool = torch.cat([base, new, extra])
+    tokens = np.arange(N, dtype=np.int64)          # id -> row of `pool`
+    rng = np.random.RandomState(11)
+    steps = {}
+    zero_counts()
+    t0 = time.perf_counter()
+    fork = index.fork()
+    caps0 = fork.store.caps.copy()
+    t1 = time.perf_counter()
+    fork.push_batch(new)
+    torch.cuda.synchronize()
+    push_batch_s = time.perf_counter() - t1
+    tokens = np.concatenate([tokens, N + np.arange(N_PUSH)])
+    grown = int((fork.store.caps != caps0).sum())
+    check(grown > 0, "push_batch grew no cell")
+    steps["push_batch"] = hold_to_rebuild(fork, (qa, qs), W, "push_batch")
+    push_ms = []
+    for i in range(1000):
+        t1 = time.perf_counter()
+        fork.push(extra[i].cpu().numpy())
+        push_ms.append(1e3 * (time.perf_counter() - t1))
+    tokens = np.concatenate([tokens, N + N_PUSH + np.arange(1000)])
+    steps["push"] = hold_to_rebuild(fork, (qa, qs), W, "push")
+    delete_ms = []
+    for _ in range(1000):
+        target = int(rng.randint(len(fork)))
+        t1 = time.perf_counter()
+        fork.delete([target])
+        delete_ms.append(1e3 * (time.perf_counter() - t1))
+        tokens = np.delete(tokens, target)
+    steps["delete"] = hold_to_rebuild(fork, (qa, qs), W, "delete")
+    for name, count in (("delete_2048", 2048), ("delete_10000", 10000)):
+        dels = rng.choice(len(fork), count, replace=False)
+        t1 = time.perf_counter()
+        fork.delete(dels)
+        steps[name] = dict(op_ms=1e3 * (time.perf_counter() - t1))
+        tokens = np.delete(tokens, dels)
+        steps[name].update(hold_to_rebuild(fork, (qa, qs), W, name))
+    for _ in range(100):
+        fork.pop()
+    tokens = tokens[:-100]
+    steps["pop"] = hold_to_rebuild(fork, (qa, qs), W, "pop")
+    for _ in range(100):
+        fork.pop_front()
+    tokens = tokens[100:]
+    steps["pop_front"] = hold_to_rebuild(fork, (qa, qs), W, "pop_front")
+    for i in range(10):
+        fork.push_front(extra[1000 + i].cpu().numpy())
+    tokens = np.concatenate([N + N_PUSH + 1000 + np.arange(10)[::-1],
+                             tokens])
+    steps["push_front"] = hold_to_rebuild(fork, (qa, qs), W, "push_front")
+    counts = read_counts("dynamic", ["coarse_topw", "coarse_probe",
+                                     "cell_rank", "grouped_scan",
+                                     "topk_payload", "probe_scan",
+                                     "topk_index"])
+    ops_s = time.perf_counter() - t0
+    # recall of the mutated index against the oracle of its own contents
+    check(len(fork) == len(tokens), "model of the ids")
+    contents = pool[torch.as_tensor(tokens, device=dev)]
+    gq = torch.Generator(device=dev).manual_seed(12)
+    pick = torch.randint(0, len(tokens), (N_SEARCH,), generator=gq,
+                         device=dev)
+    qr = contents[pick] + 0.05 * torch.randn((N_SEARCH, D), generator=gq,
+                                             device=dev)
+    ids, _ = fork.search_padded(qr, TOPK, w=W)
+    _, gt = brute_force_topk(contents, qr, TOPK)
+    oracle = ReferenceOracle(
+        fork.coarse.centroids.cpu().numpy(),
+        fork.quantizer.codebooks.cpu().numpy(),
+        *zip(*[fork.store.cell_entries(c) for c in range(KC)]))
+    o_ids, _ = oracle.search_batch(qr[:N_ORACLE].cpu().numpy(), TOPK, W)
+    o_pad = np.full((N_ORACLE, TOPK), -1, np.int64)
+    for i, row in enumerate(o_ids):
+        o_pad[i, :len(row)] = row
+    recall = recall_at_r(ids[:N_ORACLE], gt[:N_ORACLE], TOPK)
+    recall_oracle = recall_at_r(o_pad, gt[:N_ORACLE], TOPK)
+    check(abs(recall - recall_oracle) <= 0.01,
+          f"mutated index recall {recall} vs oracle {recall_oracle}")
+    parent_after = index.search_padded(qa, TOPK, w=W)
+    check(np.array_equal(parent_before[0], parent_after[0])
+          and np.array_equal(parent_before[1], parent_after[1]),
+          "the fork's mutations reached the parent's results")
+    del fork, pool, contents, new, extra
+    torch.cuda.empty_cache()
+    return dict(n_start=N, n_end=len(tokens), push_batch=N_PUSH,
+                push_batch_s=push_batch_s,
+                push_batch_points_per_s=N_PUSH / push_batch_s,
+                cells_grown=grown, push_p50_ms=float(np.median(push_ms)),
+                delete_p50_ms=float(np.median(delete_ms)),
+                view_rebuild_ms_after_grow=steps["push_batch"][
+                    "view_access_ms"],
+                steps=steps, recall_at_10=recall,
+                recall_at_10_oracle=recall_oracle, oracle_queries=N_ORACLE,
+                parent_unchanged=True, launches=counts, ops_s=ops_s)
+
+
+def phase_dynamic_two_level(index, q, zero_counts, read_counts) -> dict:
+    """push_batch and a 2048-id delete on the large-kc index (8-row cells,
+    no norm stream: grows move rows inside the views), each held to a
+    rebuild; then the gathered engine (scan_gather_win=32) beside the
+    default per-probe route on the same batch."""
+    import torch
+    from ivfadc_tpu_torch import IVFADCIndex
+    from ivfadc_tpu_torch.models.index import _dense_probe
+    from ivfadc_tpu_torch.ops import dense_scan
+    from ivfadc_tpu_torch.ops.gather_scan import gathered_scan, plan_gather
+    from ivfadc_tpu_torch.utils.datasets import synthetic_clustered
+
+    dev = q.device
+    st = index.store
+    check(st.align == 8 and st._device_dense is not None
+          and st._device_dense["norms2d"] is None, "large-kc dense view")
+    zero_counts()
+    new = torch.as_tensor(synthetic_clustered(N_PUSH3, D3, seed=9),
+                          device=dev)
+    patches0, caps0 = st.grow_patches, st.caps.copy()
+    t1 = time.perf_counter()
+    index.push_batch(new)
+    torch.cuda.synchronize()
+    push_s = time.perf_counter() - t1
+    grown = int((st.caps != caps0).sum())
+    patched = st.grow_patches - patches0
+    check(patched > 0, "no grow was patched in place")
+    survived = st._device_dense is not None
+    steps = {"push_batch": hold_to_rebuild(index, (q,), W3,
+                                           "two-level push")}
+    rng = np.random.RandomState(13)
+    t1 = time.perf_counter()
+    index.delete(rng.choice(len(index), 2048, replace=False))
+    steps["delete_2048"] = dict(op_ms=1e3 * (time.perf_counter() - t1))
+    steps["delete_2048"].update(hold_to_rebuild(index, (q,), W3,
+                                                "two-level delete"))
+    counts = read_counts("dynamic_two_level", [
+        "topk_index", "cell_rank", "grouped_scan_knorm", "topk_payload",
+        "probe_scan"])
+    # the gathered engine on the same index and batch, at a window limit
+    # of 32 rows, or of the p95 cell capacity where 32 leaves the plan off
+    caps_p95 = float(np.percentile(st.caps, 95))
+    limit = 32 if plan_gather(st.caps, 32)[0] else -(-int(caps_p95) // 8) * 8
+    gidx = IVFADCIndex(dataclasses.replace(index.config,
+                                           scan_gather_win=limit),
+                       index.coarse, index.quantizer, st, index.data_dtype,
+                       index.dim)
+    win, covers_all = gidx._gather_plan()
+    check(win > 0, "gather plan off")
+    d_ids, _ = index.search_padded(q, TOPK, w=W3)
+    g_ids, g_d = gidx.search_padded(q, TOPK, w=W3)
+    check(np.isfinite(g_d).all() and bool((np.diff(g_d, axis=1) >= 0).all()),
+          "gathered output")
+    overlap = float(np.mean([len(set(a) & set(b)) / TOPK
+                             for a, b in zip(g_ids, d_ids)]))
+    check(overlap >= 0.99, f"gathered / per-probe overlap {overlap}")
+    view = st.device_view_dense(index.quantizer, index.config.scan_chunk)
+    cells, v, base, coef = _dense_probe(
+        index.coarse, index.quantizer.rotation, q.to(torch.float32), w=W3,
+        metric=index.quant_metric, include_base=True, apply_rot=False,
+        residual_based=True)
+    c64 = cells.to(torch.int64)
+    starts, sizes = view["offsets"][c64], view["sizes"][c64]
+    small = sizes <= win
+    g_sizes, s_sizes = torch.where(small, sizes, 0), torch.where(small, 0,
+                                                                 sizes)
+    gather_ms = device_ms(lambda: gathered_scan(
+        starts, g_sizes, v, base, view["decoded"], view["scale"],
+        view["ids"], win=win, norm_coef=coef), calls=5)
+    kernel5_ms = device_ms(lambda: dense_scan.dense_scan(
+        starts, sizes, v, base, view["decoded"], view["scale"], k_out=TOPK,
+        chunk=index._effective_chunk(), norm_coef=coef, nf=128), calls=5)
+    kernel5_rest_ms = device_ms(lambda: dense_scan.dense_scan(
+        starts, s_sizes, v, base, view["decoded"], view["scale"],
+        k_out=TOPK, chunk=index._effective_chunk(), norm_coef=coef, nf=128),
+        calls=5)
+    search_ms = {}
+    for name, x in (("per_probe", index), ("gathered", gidx)):
+        x._device_search(q, TOPK, W3)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(3):
+            x._device_search(q, TOPK, W3)
+        torch.cuda.synchronize()
+        search_ms[name] = 1e3 * (time.perf_counter() - t1) / 3
+    del new
+    return dict(push_batch=N_PUSH3, push_batch_s=push_s,
+                push_batch_points_per_s=N_PUSH3 / push_s, cells_grown=grown,
+                grows_patched_in_place=patched,
+                dense_view_survived_push=survived, steps=steps,
+                launches=counts, caps_p95=caps_p95, gather_limit=limit,
+                gather_win=win, gather_covers_all=covers_all,
+                probes_gathered=int(small.sum()), probes=int(small.numel()),
+                gathered_top10_overlap=overlap,
+                gathered_scan_device_ms=gather_ms,
+                kernel5_device_ms_all_probes=kernel5_ms,
+                kernel5_device_ms_large_cells=kernel5_rest_ms,
+                batch_ms=search_ms)
+
+
+def phase_opq(base, zero_counts, read_counts) -> dict:
+    """An OPQ index (n=200,000 of the SIFT1M data, kc=1024, m=8): its
+    rotation orthogonal, a grouped batch through the fused probe with the
+    rotation and kernel 3, held to the same index's LUT route and to brute
+    force."""
+    import torch
+    from ivfadc_tpu_torch import IVFADCIndex
+    from ivfadc_tpu_torch.utils.evaluation import brute_force_topk, recall_at_r
+
+    dev = base.device
+    data = base[:N_OPQ]
+    t1 = time.perf_counter()
+    index = IVFADCIndex.build(data, kc=KC, k=KQ, m=M, seed=0,
+                              kmeanspp_sample=65536,
+                              quantization_method="opq")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    rot = index.quantizer.rotation.double()
+    orth = float((rot @ rot.T - torch.eye(D, dtype=torch.float64,
+                                          device=dev)).abs().max())
+    check(index.quantizer.method == "opq" and orth <= 1e-4,
+          f"OPQ rotation orthogonal to {orth}")
+    gq = torch.Generator(device=dev).manual_seed(14)
+    nq = 4096
+    q = data[torch.randint(0, N_OPQ, (nq,), generator=gq, device=dev)] \
+        + 0.05 * torch.randn((nq, D), generator=gq, device=dev)
+    check(nq * W >= 4 * KC, "OPQ batch takes the grouped scan")
+    zero_counts()
+    ids, dists = index.search_padded(q, TOPK, w=W)
+    counts = read_counts("opq", ["coarse_probe", "cell_rank", "grouped_scan",
+                                 "topk_payload"],
+                         idle=["coarse_topw", "probe_scan"])
+    check(ids.shape == (nq, TOPK) and np.isfinite(dists).all()
+          and (ids >= 0).all() and bool((np.diff(dists, axis=1) >= 0).all()),
+          "OPQ search output")
+    lut = IVFADCIndex(dataclasses.replace(index.config, scan_mode="lut"),
+                      index.coarse, index.quantizer, index.store,
+                      index.data_dtype, index.dim)
+    l_ids, _ = lut.search_padded(q, TOPK, w=W)
+    overlap = float(np.mean([len(set(a) & set(b)) / TOPK
+                             for a, b in zip(ids, l_ids)]))
+    check(overlap >= 0.95, f"OPQ dense / LUT overlap {overlap}")
+    _, gt = brute_force_topk(data, q, TOPK)
+    del index, lut
+    return dict(n=N_OPQ, kc=KC, m=M, k=KQ, build_s=build_s,
+                rotation_orthogonality=orth, queries=nq,
+                recall_at_10=recall_at_r(ids, gt, TOPK),
+                recall_at_10_lut=recall_at_r(l_ids, gt, TOPK),
+                top10_overlap_lut=overlap, launches=counts)
 
 
 def main() -> int:
@@ -2460,12 +2820,25 @@ def main() -> int:
                                        TOPK, W), 3),
          seconds=time.perf_counter() - t0)
 
+    # ---- dynamic ops on a fork of the SIFT1M index, then an OPQ index
+    t0 = time.perf_counter()
+    emit("dynamic", card=smi, **phase_dynamic(index, base, queries,
+                                              zero_counts, read_counts),
+         seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    emit("opq", card=smi, **phase_opq(base, zero_counts, read_counts),
+         seconds=time.perf_counter() - t0)
+
     # ---- the large-kc two-level index
     del index, lut_index, loaded, on_cpu, oracle, base, queries, qs
     torch.cuda.empty_cache()
     posting = records.pop("grouped_scan_knorm@posting")
     pos8_sift = records.pop("grouped_scan_pos8@sift1m_integer")
     tl = phase_two_level(zero_counts, read_counts, posting)
+    t0 = time.perf_counter()
+    emit("dynamic_two_level", card=smi, **phase_dynamic_two_level(
+        tl.pop("index"), tl.pop("queries"), zero_counts, read_counts),
+         seconds=time.perf_counter() - t0)
     records["grouped_scan_knorm"] = tl["grouped_scan_knorm"]
     records["grouped_scan_pos8"] = dict(tl["grouped_scan_pos8"],
                                         sift1m_tiles=pos8_sift)

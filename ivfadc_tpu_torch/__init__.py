@@ -18,6 +18,12 @@ def knn_search(index, points, k: int, w: int = 1):
     return index.search(points, k, w=w)
 
 
+def delete_from_index(index: IVFADCIndex, ids) -> None:
+    """Delete by 0-based ids (see IVFADCIndex.delete); surviving ids shift
+    down to stay contiguous."""
+    index.delete(ids)
+
+
 def save_ivfadc_index(path: str, index: IVFADCIndex) -> None:
     index.save(path)
 
@@ -28,6 +34,6 @@ def load_ivfadc_index(path: str, device=None) -> IVFADCIndex:
 
 __all__ = [
     "IVFADCConfig", "IVFADCIndex", "Metric", "ProductQuantizer",
-    "get_metric", "register_metric", "knn_search", "save_ivfadc_index",
-    "load_ivfadc_index",
+    "get_metric", "register_metric", "knn_search", "delete_from_index",
+    "save_ivfadc_index", "load_ivfadc_index",
 ]

@@ -1,10 +1,11 @@
 """IVFADCIndex — the top-level index (port of `ivfadc_tpu/models/index.py`).
 
-Ported so far: the build and every search route of a static index, with
-the naive or the two-level coarse quantizer.
+Ported: the build (PQ or OPQ), every search route with the naive or the
+two-level coarse quantizer, and the dynamic ops.
 
   build:  coarse k-means (k-means|| seeding past 4096 cells) -> residuals
-          -> PQ training -> encode -> padded CSR -> coarse quantizer
+          -> PQ training (OPQ: alternated with the rotation's Procrustes
+          solve) -> encode -> padded CSR -> coarse quantizer
   dense search, B*w >= 4*kc: fused coarse probe -> cell ranks (counting
           kernel up to 4096 cells, one sort beyond) -> tile placement ->
           grouped scan -> top-k merge: over id payloads (128-row cells,
@@ -14,7 +15,10 @@ the naive or the two-level coarse quantizer.
           fold: fused probe (cells only) -> cell ranks -> grouped scan
           deriving v / base in the kernel -> top-k merge
   dense search, B*w < 4*kc (single queries included): fused coarse probe ->
-          per-probe scan -> top-k with indices -> slot positions -> ids
+          per-probe scan -> top-k with indices -> slot positions -> ids;
+          with scan_gather_win set, cells within the gather window are
+          scored by the gathered engine (ops/gather_scan.py) and merged
+          with the scan's candidates of larger cells
   both scans take the int8 or the bf16 decoded cache (scan_cache) and the
           fold or the exact merge (scan_merge)
   unfused probe (inner-product scores, non-euclidean coarse metrics, the
@@ -22,15 +26,18 @@ the naive or the two-level coarse quantizer.
           then v / base in tensor code, then either scan
   LUT search (scan_mode="lut", k > 128, "auto" off the GPU): coarse search
           -> ADC tables -> window gather + table lookups -> k smallest
+  dynamic ops: push / push_batch / push_front (cell by the coarse search at
+          w = 1, codes by the PQ encoder), pop / pop_front / delete with
+          positional ids, reconstruct, fork (copy-on-write views); the
+          store patches the cached device views in place
+          (models/inverted.py)
 
 The JAX package's opt-in engines are read per search, as it reads them:
 IVFADC_VBASE (place | qc), IVFADC_COARSE_ENGINE and IVFADC_RANK_ENGINE
 (v1 | v2), IVFADC_MERGE_TOPK (pallas | approx, served by the exact payload
 top-k, which is what the JAX package's approx_min_k computes off the TPU),
 IVFADC_EXTRACT; IVFADC_NORMS when the dense view is built. An unknown value
-raises ValueError. Routes that are not ported yet raise
-NotImplementedError naming their ROADMAP item instead of silently taking
-another route: OPQ training and the gathered tiny-cell engine.
+raises ValueError.
 """
 
 from __future__ import annotations
@@ -43,7 +50,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ivfadc_tpu_torch.config import IVFADCConfig, device_id_cap
+from ivfadc_tpu_torch.config import DTYPE_TO_BITS, IVFADCConfig, device_id_cap
 from ivfadc_tpu_torch.models.coarse import (NaiveCoarseQuantizer,
                                             make_coarse_quantizer,
                                             pairwise_rows)
@@ -155,7 +162,7 @@ def _train_components(xd: torch.Tensor, config: IVFADCConfig,
             config.seed, train_res, m=config.m, k=config.k,
             method=config.quantization_method,
             maxiter=config.quantization_maxiter, metric=qmetric,
-            block=config.kmeans_block)
+            opq_iters=config.opq_iters, block=config.kmeans_block)
         del train_res
     return cres, residuals, quantizer
 
@@ -317,11 +324,13 @@ def _topk_positions(flat_d, flat_p, k, cells, offsets, n_cand, ids,
 def _dense_finish(cells, v, base, dev, *, k, w, chunk, pb, nf, norm_coef,
                   merge: str = "fold", pos8: bool = False,
                   extract: bool = False, rank_engine: str | None = None,
-                  merge_topk: str = "pallas"):
+                  merge_topk: str = "pallas", gather_win: int = 0,
+                  gather_all: bool = False):
     """Scan + merge (the JAX `_dense_finish`): returns raw (ids, dists);
     the caller applies `metric.finalize`. Batches whose probes share cells
     (B*w >= 4*kc) take the cell-grouped scan, smaller ones the per-probe
-    scan."""
+    scan; with a gather window (`_gather_plan`) the cells within it go to
+    the gathered engine instead, all of them when `gather_all`."""
     B = cells.shape[0]
     kc_ = dev["offsets"].shape[0]
     k_out = min(k, 128)
@@ -352,14 +361,36 @@ def _dense_finish(cells, v, base, dev, *, k, w, chunk, pb, nf, norm_coef,
     # mostly-distinct cells: grouping would emit about one tile per probe
     from ivfadc_tpu_torch.ops.dense_scan import dense_scan
     cells64 = cells.to(torch.int64)
+    starts_p = dev["offsets"][cells64]
+    sizes_p = dev["sizes"][cells64]
+    g_res = None
+    if gather_win:
+        # tiny cells: gather exactly the probed rows and score them as one
+        # batched contraction; larger cells stay on the scan kernel
+        from ivfadc_tpu_torch.ops.gather_scan import gathered_scan
+        small = sizes_p <= gather_win
+        gd, gi = gathered_scan(starts_p, torch.where(small, sizes_p, 0), v,
+                               base, dev["decoded"], dev["scale"],
+                               dev["ids"], win=gather_win,
+                               norm_coef=norm_coef)
+        g_res = _topk_ids(gd.reshape(B, w * gather_win),
+                          gi.reshape(B, w * gather_win), k)
+        if gather_all:
+            return g_res
+        sizes_p = torch.where(small, 0, sizes_p)
     out_d, out_p = dense_scan(
-        dev["offsets"][cells64], dev["sizes"][cells64], v, base,
-        dev["decoded"], dev["scale"], k_out=k_out, chunk=chunk,
-        norm_coef=norm_coef, merge=merge, nf=n_lanes)
+        starts_p, sizes_p, v, base, dev["decoded"], dev["scale"],
+        k_out=k_out, chunk=chunk, norm_coef=norm_coef, merge=merge,
+        nf=n_lanes)
     n_cand = out_d.shape[-1]
-    return _topk_positions(out_d.reshape(B, w * n_cand),
-                           out_p.reshape(B, w * n_cand), k, cells,
-                           dev["offsets"], n_cand, dev["ids"], merge)
+    s_res = _topk_positions(out_d.reshape(B, w * n_cand),
+                            out_p.reshape(B, w * n_cand), k, cells,
+                            dev["offsets"], n_cand, dev["ids"], merge)
+    if g_res is None:
+        return s_res
+    # hybrid merge: every global winner is in one side's top-k
+    return _topk_ids(torch.cat([g_res[1], s_res[1]], dim=1),
+                     torch.cat([g_res[0], s_res[0]], dim=1), k)
 
 
 def _bucket_batch(b: int) -> int:
@@ -431,9 +462,6 @@ class IVFADCIndex:
             raise AssertionError("data must be a 2-D (n, d) array")
         n, d = data.shape
         config.validate_for_data(n, d)
-        if config.quantization_method != "pq":
-            raise NotImplementedError(
-                "OPQ training is not ported yet (ROADMAP A.7)")
         cmetric = get_metric(config.coarse_metric)
         qmetric = get_metric(config.quantization_metric)
         timer = _PhaseTimer(dev)
@@ -511,10 +539,7 @@ class IVFADCIndex:
 
     def _dense_search(self, q, k: int, w: int, include_base: bool,
                       extract: bool):
-        if self.config.scan_gather_win:
-            raise NotImplementedError(
-                "the gathered tiny-cell engine is not ported yet "
-                "(ROADMAP A.10)")
+        gather_win, gather_all = self._gather_plan()
         engines = dict(coarse_engine=_env_coarse_engine(),
                        rank_engine=_env_rank_engine())
         merge_topk, vbase = _env_merge_topk(), _env_vbase()
@@ -523,7 +548,8 @@ class IVFADCIndex:
                                             cache=self._resolve_cache())
         merge = self._resolve_merge_mode()
         apply_rot = self.quantizer.method == "opq"
-        if vbase == "qc" and self._qc_ok(q, w, view, merge, extract):
+        if vbase == "qc" and not gather_win and \
+                self._qc_ok(q, w, view, merge, extract):
             return self._qc_search(q, k, w, include_base, view, apply_rot,
                                    merge_topk, **engines)
         cells, v, base, norm_coef = _dense_probe(
@@ -539,7 +565,8 @@ class IVFADCIndex:
             # int8 block indices while every cell holds at most 127 blocks
             pos8=bool(int(self.store.caps.max(initial=0)) <= 127 * 128),
             extract=extract, rank_engine=engines["rank_engine"],
-            merge_topk=merge_topk)
+            merge_topk=merge_topk, gather_win=gather_win,
+            gather_all=gather_all)
 
     def _qc_ok(self, q, w: int, view, merge: str, extract: bool) -> bool:
         """The JAX package's gate of the qc route, letter for letter: the
@@ -547,8 +574,8 @@ class IVFADCIndex:
         quantizer, emitted ids, the fold, no extraction, a grouped batch
         (B*w >= 4*kc) of the counting prep (kc <= 4096), and the resident
         queries (<= 6 MiB) and centroids (<= 4 MiB) in f32 at d_dec
-        features. (The gathered engine, the gate's last term, raises
-        earlier.)"""
+        features. (The gate's last term, no gather window, is the
+        caller's.)"""
         from ivfadc_tpu_torch.ops.cell_rank import MAX_KC
         B = q.shape[0]
         kc = view["offsets"].shape[0]
@@ -612,6 +639,25 @@ class IVFADCIndex:
         eff = max(nf, min(chunk, ((p95 + nf - 1) // nf) * nf))
         store._chunk_cache = (caps, key, eff)
         return eff
+
+    def _gather_plan(self) -> Tuple[int, bool]:
+        """The gathered engine's plan (ops/gather_scan.py::plan_gather):
+        (window rows, covers_all). Cached on the store per (caps array
+        identity, caps max, scan_gather_win), as the JAX package keys it:
+        a cell grown in place past a covers_all window must not keep that
+        window, or its postings would drop out of the search."""
+        from ivfadc_tpu_torch.ops.gather_scan import plan_gather
+        store = self.store
+        limit, caps = self.config.scan_gather_win, store.caps
+        if not limit or len(caps) == 0:
+            return 0, False
+        key = (int(caps.max()), limit)
+        cache = store._gather_cache
+        if cache is not None and cache[0] is caps and cache[1] == key:
+            return cache[2]
+        plan = plan_gather(caps, limit, max_cap=key[0])
+        store._gather_cache = (caps, key, plan)
+        return plan
 
     def _resolve_cache(self) -> str:
         cache = self.config.scan_cache
@@ -677,6 +723,152 @@ class IVFADCIndex:
         ids, dists = self._device_search(points, k, w)
         return ids.cpu().numpy(), dists.cpu().numpy()
 
+    def search_stream(self, points, k: int, w: int = 1, *,
+                      batch: int = 16384, stats=None
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+        """Search a large query set in fixed-size batches, queued back to
+        back (the host reads nothing until the end), and return the stacked
+        padded (N, k) results. `stats`, if given, is any object with
+        `record(n_queries, seconds)`."""
+        if not isinstance(points, torch.Tensor):
+            points = np.asarray(points)
+        n = points.shape[0]
+        if n == 0:
+            return (np.empty((0, k), np.int32), np.empty((0, k), np.float32))
+        t0 = time.perf_counter()
+        outs = [self._device_search(points[s:s + batch], k, w)
+                for s in range(0, n, batch)]
+        ids = torch.cat([i for i, _ in outs]).cpu().numpy()
+        dists = torch.cat([d for _, d in outs]).cpu().numpy()
+        if stats is not None:
+            stats.record(n, time.perf_counter() - t0)
+        return ids, dists
+
+    # ------------------------------------------------------------ dynamic ops
+    def _encode_point(self, point: np.ndarray) -> Tuple[int, np.ndarray]:
+        """Nearest cell (the coarse search at w = 1) and PQ codes."""
+        q = torch.as_tensor(np.asarray(point, np.float32),
+                            device=self.device)[None, :]
+        cells, _ = self.coarse.search(q, 1)
+        cell = int(cells[0, 0])
+        residual = q - self.coarse.centroids[cell][None, :]
+        codes = pq_ops.encode(self.quantizer, residual,
+                              metric=self.quant_metric)
+        return cell, codes.cpu().numpy().astype(self.store.code_dtype)[0]
+
+    def _capacity(self) -> int:
+        """The id dtype's capacity (the reference's capacity law; host ids
+        are int64, so pushes past the device int32 cap succeed and the
+        device search raises)."""
+        return 1 << DTYPE_TO_BITS[self.config.index_dtype]
+
+    def _check_push(self, point) -> None:
+        point = np.asarray(point)
+        if point.shape != (self.dim,):
+            raise AssertionError(
+                f"Wrong point dimension {point.shape}, expected ({self.dim},)")
+        if len(self) >= self._capacity():
+            raise AssertionError(
+                f"Index is full for dtype {self.config.index_dtype} "
+                f"({self._capacity()} vectors)")
+
+    def push(self, point) -> None:
+        """Append `point` with id n."""
+        self._check_push(point)
+        cell, codes = self._encode_point(point)
+        self.store.append(cell, codes, len(self))
+
+    def push_batch(self, points) -> None:
+        """Append B points at once, ids n..n+B-1: the same index as B
+        pushes, from one batched coarse search and one batched encode."""
+        points = points.to(self.device, torch.float32) \
+            if isinstance(points, torch.Tensor) \
+            else torch.as_tensor(np.asarray(points, np.float32),
+                                 device=self.device)
+        if points.ndim != 2 or points.shape[1] != self.dim:
+            raise AssertionError(
+                f"push_batch expects (B, {self.dim}) points, got "
+                f"{tuple(points.shape)}")
+        if len(self) + len(points) > self._capacity():
+            raise AssertionError(
+                f"Index would exceed capacity for dtype "
+                f"{self.config.index_dtype} ({self._capacity()} vectors)")
+        if len(points) == 0:
+            return
+        cells, _ = self.coarse.search(points, 1)
+        cells = cells[:, 0].to(torch.int64)
+        residuals = points - self.coarse.centroids[cells]
+        codes = pq_ops.encode(self.quantizer, residuals,
+                              metric=self.quant_metric)
+        self.store.append_batch(cells.cpu().numpy(),
+                                codes.cpu().numpy().astype(
+                                    self.store.code_dtype), len(self))
+
+    def push_front(self, point) -> None:
+        """Insert `point` with id 0; every live id moves up by one."""
+        self._check_push(point)
+        cell, codes = self._encode_point(point)
+        self.store.shift_ids(-1, +1)
+        self.store.append(cell, codes, 0)
+
+    def _reconstruct_from(self, cell: int, codes: np.ndarray) -> np.ndarray:
+        centroid = self.coarse.centroids[cell].cpu().numpy()
+        rows = torch.as_tensor(codes[None, :].astype(np.int64),
+                               device=self.device)
+        resid = pq_ops.decode(self.quantizer, rows)[0].cpu().numpy()
+        return (centroid + resid[:self.dim]).astype(self.data_dtype)
+
+    def pop(self) -> np.ndarray:
+        """Remove the point with id n-1 and return its reconstruction."""
+        n = len(self)
+        if n == 0:
+            raise IndexError("pop from empty index")
+        cell, slot = self.store.find(n - 1)
+        return self._reconstruct_from(cell, self.store.remove_slot(cell, slot))
+
+    def pop_front(self) -> np.ndarray:
+        """Remove the point with id 0 and return its reconstruction; every
+        other id moves down by one."""
+        if len(self) == 0:
+            raise IndexError("pop from empty index")
+        cell, slot = self.store.find(0)
+        codes = self.store.remove_slot(cell, slot)
+        self.store.shift_ids(0, -1)
+        return self._reconstruct_from(cell, codes)
+
+    def delete(self, ids) -> None:
+        """Delete by 0-based ids; surviving ids shift down to stay the
+        contiguous range 0..n'-1. One id swap-removes and shifts, up to
+        2048 take the incremental path (views patched), more the bulk path
+        (views rebuilt)."""
+        id_list = np.unique(np.asarray(list(ids), np.int64))
+        if id_list.size == 1:
+            target = int(id_list[0])
+            cell, slot = self.store.find(target)
+            self.store.remove_slot(cell, slot)
+            self.store.shift_ids(target, -1)
+        elif id_list.size <= 2048:
+            self.store.delete_ids_incremental(id_list)
+        else:
+            self.store.delete_ids(id_list)
+
+    def reconstruct(self, ext_id: int) -> np.ndarray:
+        """The stored approximation of a point, from one code row (a single
+        device gather while the codes are not on the host)."""
+        cell, slot = self.store.find(int(ext_id))
+        row = self.store._code_rows(np.asarray([slot]))[0]
+        return self._reconstruct_from(cell, row.copy())
+
+    def fork(self) -> "IVFADCIndex":
+        """Consistent-snapshot clone: shares the trained components and
+        clones the posting store copy-on-write (`PostingStore.fork`), so
+        mutations on either side never reach the other's searches."""
+        new = IVFADCIndex(self.config, self.coarse, self.quantizer,
+                          self.store.fork(), self.data_dtype, self.dim)
+        if hasattr(self, "build_timings"):
+            new.build_timings = self.build_timings
+        return new
+
     # ------------------------------------------------------------- inspection
     def __len__(self) -> int:
         return self.store.n
@@ -684,6 +876,18 @@ class IVFADCIndex:
     @property
     def shape(self) -> Tuple[int, int]:
         return (self.dim, len(self))
+
+    def bytes_per_vector(self) -> int:
+        """Id bytes plus code bytes of one stored vector."""
+        id_bytes = DTYPE_TO_BITS[self.config.index_dtype] // 8
+        return id_bytes + self.store.code_dtype.itemsize * self.config.m
+
+    def __repr__(self) -> str:
+        cq = type(self.coarse).__name__
+        return (f"IVFADCIndex ({cq}, {self.config.quantization_method}), "
+                f"dim={self.dim}, kc={self.config.kc}, m={self.config.m}, "
+                f"k={self.config.k}, {self.bytes_per_vector()}-byte encoding, "
+                f"{len(self)} vectors")
 
     # ------------------------------------------------------------ persistence
     def save(self, path: str) -> None:

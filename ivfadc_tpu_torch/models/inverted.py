@@ -1,5 +1,4 @@
-"""Flat padded-CSR posting storage (port of `ivfadc_tpu/models/inverted.py`,
-read-only part).
+"""Flat padded-CSR posting storage (port of `ivfadc_tpu/models/inverted.py`).
 
 All postings live in two flat arrays, cell-major:
 
@@ -15,19 +14,43 @@ introspection); after a load they start on the host.
 `device_view_dense` derives what the dense search reads: the decoded
 residual cache, int8 with its per-column scale or bf16 (guard-padded past
 every cell, feature dim padded to a 128-multiple), and the ids and cached
-row norms in (rows/128, 128) layout. Mutation (push/pop/delete), overlays and mutation
-logs are not ported yet.
+row norms in (rows/128, 128) layout.
+
+Mutation (append, swap-remove, id shifts, deletes, cell growth) runs on the
+host. The first mutation brings codes and ids to the host, where they stay
+the truth; the device arrays of the build are dropped. `find` reads ids
+only, and a single code row (`_code_rows`) is one device gather until then.
+Mutations record dirty slots, and the next view access patches each cached
+view in place, one batched scatter per array, with rows decoded and normed
+exactly as a rebuild makes them: a patched view equals a rebuilt one bit
+for bit. Dead slots hold a zero code row in the host arrays, so in every
+view they hold what a zero code decodes to. Id renumberings run on the
+views as one `torch.where` or `searchsorted`. A grown cell relocates to
+the end of the flat arrays; a view moves its rows in place while its
+guard rows cover the new end and it holds no norm stream, and is dropped
+for a rebuild otherwise. `fork` shares the views copy-on-write: the first
+write to a shared tensor clones it.
+
+`MutationLog` records, per consumer, the cells and id renumberings since
+its last drain (the JAX package's sharded views replay them).
 """
 
 from __future__ import annotations
 
 import os
+import weakref
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 _LANE = 128
+
+# dirty slots beyond max(_DIRTY_LIMIT, total_cap // 8) drop the views for
+# a rebuild instead of a patch (the JAX package drops them past 8192, the
+# cost of its scatters on the TPU; on the GPU one batched scatter of a
+# slot list stays cheaper than a rebuild up to a sizable share of the rows)
+_DIRTY_LIMIT = 8192
 
 
 def _round_up(x: int, m: int) -> int:
@@ -64,6 +87,50 @@ def _row_norms(decoded: torch.Tensor, scale: Optional[torch.Tensor],
         0, dtype=torch.float32, device=decoded.device)
 
 
+class MutationLog:
+    """Per-consumer record of store mutations since the last drain: dirty
+    cells plus the ordered global-id renumbering ops. Once either bound is
+    exceeded the log collapses to a bare overflow flag (a full re-partition
+    is cheaper than replaying that much churn) and stops accumulating."""
+
+    __slots__ = ("cells", "ops", "overflow", "_kc", "__weakref__")
+
+    def __init__(self, kc: int):
+        self._kc = kc
+        self._reset()
+
+    def _reset(self) -> None:
+        self.cells: set = set()
+        self.ops: list = []
+        self.overflow = False
+
+    def _overflowed(self) -> None:
+        self.overflow = True
+        self.cells = set()
+        self.ops = []
+
+    def log_cell(self, cell: int) -> None:
+        if self.overflow:
+            return
+        self.cells.add(cell)
+        if len(self.cells) > max(64, self._kc // 4):
+            self._overflowed()
+
+    def log_op(self, op) -> None:
+        if self.overflow:
+            return
+        self.ops.append(op)
+        if len(self.ops) > 1024:
+            self._overflowed()
+
+    def drain(self) -> dict:
+        """-> {"cells": set, "ops": [("shift", t, d) | ("rank", dels)],
+        "overflow": bool} and reset."""
+        out = dict(cells=self.cells, ops=self.ops, overflow=self.overflow)
+        self._reset()
+        return out
+
+
 class PostingStore:
     def __init__(self, kc: int, m: int, code_dtype, *, offsets: np.ndarray,
                  caps: np.ndarray, sizes: np.ndarray,
@@ -84,28 +151,96 @@ class PostingStore:
         self.align = 128 if (len(self.caps)
                              and (self.caps % 128 == 0).all()
                              and (self.offsets % 128 == 0).all()) else 8
-        self._codes_h = codes        # (total_cap, m) host | None
-        self._ids_h = ids            # (total_cap,) int64 host | None
+        # length of the flat arrays; changed only by _grow_cell. The host
+        # arrays may be longer (grown ahead, zero / -1 rows past the end)
+        self._total = int((self.offsets + self.caps).max()) if kc else 0
+        self._codes_h = codes        # (>= total_cap, m) host | None
+        self._ids_h = ids            # (>= total_cap,) int64 host | None
         self._codes_dev = codes_dev  # device arrays from build_device
         self._ids_dev = ids_dev
         self._device: Optional[Dict] = None
         self._device_dense: Optional[Dict] = None
+        self._dense_quantizer = None
         # (caps, key, value) of the index's scan chunk (_effective_chunk)
+        # and of its gather plan (_gather_plan)
         self._chunk_cache: Optional[tuple] = None
+        self._gather_cache: Optional[tuple] = None
+        self._dirty_slots: set = set()
+        # id -> slot map for find(); built lazily, kept up by append and
+        # remove, dropped by bulk renumbers
+        self._slot_of: Optional[np.ndarray] = None
+        # cells sorted by offset, for slot -> cell (offsets stop being
+        # sorted once a grown cell relocates to the end)
+        self._cell_order: Optional[np.ndarray] = None
+        self._mlogs: "weakref.WeakSet[MutationLog]" = weakref.WeakSet()
+        # grows whose rows moved inside the cached views (no rebuild)
+        self.grow_patches = 0
+
+    def __repr__(self) -> str:
+        return (f"PostingStore({self.kc} cells, m={self.m}, "
+                f"{self.code_dtype.name} codes), {int(self.sizes.sum())} "
+                f"vectors")
 
     # ---- host views (hydrated from the device on first use) ----
+
     @property
     def codes(self) -> np.ndarray:
         if self._codes_h is None:
+            # a copy (astype), never the device tensor's own memory, which
+            # a fork may still read
             self._codes_h = self._codes_dev.cpu().numpy().astype(
-                self.code_dtype, copy=False)
-        return self._codes_h
+                self.code_dtype)
+        return self._codes_h[:self._total]
 
     @property
     def ids(self) -> np.ndarray:
         if self._ids_h is None:
             self._ids_h = self._ids_dev.cpu().numpy().astype(np.int64)
-        return self._ids_h
+        return self._ids_h[:self._total]
+
+    def _materialize_for_mutation(self) -> None:
+        """Host arrays become the truth: the build's device arrays are
+        dropped (views already built keep their own tensors)."""
+        _ = self.codes, self.ids
+        self._codes_dev = None
+        self._ids_dev = None
+
+    def _code_rows(self, slots: np.ndarray) -> np.ndarray:
+        """Code rows of `slots`: host rows once hydrated, else one device
+        gather of just these rows."""
+        slots = np.asarray(slots, np.int64)
+        if self._codes_h is not None:
+            return self._codes_h[slots]
+        rows = self._codes_dev[torch.as_tensor(slots, device=self.device)]
+        return rows.cpu().numpy().astype(self.code_dtype)
+
+    def fork(self) -> "PostingStore":
+        """Copy-on-write clone: host arrays are copied; the build's device
+        arrays are shared (no mutation writes them); the cached views are
+        shallow-copied dicts whose tensors both sides mark shared, so the
+        first write on either side clones the tensor it writes."""
+        t = self._total
+        new = PostingStore(
+            self.kc, self.m, self.code_dtype,
+            offsets=self.offsets.copy(), caps=self.caps.copy(),
+            sizes=self.sizes.copy(),
+            codes=None if self._codes_h is None else self._codes_h[:t].copy(),
+            ids=None if self._ids_h is None else self._ids_h[:t].copy(),
+            device=self.device, codes_dev=self._codes_dev,
+            ids_dev=self._ids_dev)
+        for name in ("_device", "_device_dense"):
+            view = getattr(self, name)
+            if view is not None:
+                view["shared"] = {k for k, v in view.items()
+                                  if isinstance(v, torch.Tensor)}
+                child = dict(view)
+                child["shared"] = set(view["shared"])
+                setattr(new, name, child)
+        new._dense_quantizer = self._dense_quantizer
+        new._dirty_slots = set(self._dirty_slots)
+        new._slot_of = None if self._slot_of is None else self._slot_of.copy()
+        new._cell_order = self._cell_order
+        return new
 
     # ------------------------------------------------------------------ build
     @classmethod
@@ -148,21 +283,394 @@ class PostingStore:
 
     @property
     def total_cap(self) -> int:
-        """Length of the flat arrays."""
-        if self.kc == 0:
-            return 0
-        return int((self.offsets + self.caps).max())
+        """Length of the flat arrays. Not sum(caps): a grown cell relocates
+        to the end and leaves its old region dead."""
+        return self._total
 
     @property
     def window(self) -> int:
         """Gather width of the LUT search (>= every cell size)."""
         return _round_up(max(1, int(self.caps.max())), _LANE)
 
+    def valid_mask(self) -> np.ndarray:
+        return self.ids >= 0
+
     def cell_entries(self, cell: int) -> Tuple[np.ndarray, np.ndarray]:
         """(ids, codes) of one cell."""
         o, s = int(self.offsets[cell]), int(self.sizes[cell])
         return self.ids[o:o + s].copy(), self.codes[o:o + s].copy()
 
+    def _slots_to_cells(self, slots) -> np.ndarray:
+        """Live flat slots -> their cells, through the offset-sorted cell
+        order (dead regions map to no cell)."""
+        if self._cell_order is None:
+            self._cell_order = np.argsort(self.offsets, kind="stable")
+        order = self._cell_order
+        pos = np.searchsorted(self.offsets[order], slots, side="right") - 1
+        return order[pos]
+
+    def _slot_map(self) -> np.ndarray:
+        """id -> slot (-1 for dead entries), built in one vectorized pass."""
+        if self._slot_of is None:
+            ids = self.ids
+            live = np.nonzero(ids >= 0)[0]
+            smap = np.full(self.n, -1, np.int64)
+            smap[ids[live]] = live
+            self._slot_of = smap
+        return self._slot_of
+
+    def _note_slot(self, ext_id: int, slot: int) -> None:
+        m = self._slot_of
+        if m is None:
+            return
+        if ext_id >= len(m):
+            self._slot_of = m = np.concatenate(
+                [m, np.full(ext_id + 1 - len(m), -1, np.int64)])
+        m[ext_id] = slot
+
+    def find(self, ext_id: int) -> Tuple[int, int]:
+        """-> (cell, slot) through the id -> slot map. Reads `ids` only,
+        never `codes`."""
+        ext_id = int(ext_id)
+        smap = self._slot_map()
+        if not (0 <= ext_id < len(smap)) or smap[ext_id] < 0:
+            raise KeyError(f"id {ext_id} not in index")
+        slot = int(smap[ext_id])
+        cell = int(self._slots_to_cells(np.asarray([slot], np.int64))[0])
+        return cell, slot
+
+    # ------------------------------------------------------- mutation logging
+    def attach_mutation_log(self) -> MutationLog:
+        """Attach a fresh per-consumer log; the store keeps only a weak
+        reference, so the caller holds it and drains it."""
+        log = MutationLog(self.kc)
+        self._mlogs.add(log)
+        return log
+
+    def _log_cell(self, cell: int) -> None:
+        for log in self._mlogs:
+            log.log_cell(int(cell))
+
+    def _log_op(self, op) -> None:
+        for log in self._mlogs:
+            log.log_op(op)
+
+    # ------------------------------------------------- device-view upkeep
+    def _invalidate(self) -> None:
+        """Drop the cached device views and the index's caches keyed on
+        caps; the next search rebuilds them (and reads IVFADC_NORMS
+        again)."""
+        self._device = None
+        self._device_dense = None
+        self._chunk_cache = None
+        self._gather_cache = None
+        self._dirty_slots = set()
+
+    def _views(self):
+        return [v for v in (self._device, self._device_dense) if v is not None]
+
+    def _writable(self, view: Dict, key: str) -> torch.Tensor:
+        """view[key] for writing in place: cloned first while a fork still
+        shares it (ids2d, a reshape of ids, follows the clone)."""
+        shared = view.get("shared")
+        if shared and key in shared:
+            shared.discard(key)
+            view[key] = view[key].clone()
+            if key == "ids" and view.get("ids2d") is not None:
+                view["ids2d"] = view["ids"].reshape(-1, _LANE)
+                shared.discard("ids2d")
+        return view[key]
+
+    def _dirty_limit(self) -> int:
+        return max(_DIRTY_LIMIT, self._total // 8)
+
+    def _mark_dirty(self, slot: int) -> None:
+        if self._device is None and self._device_dense is None:
+            return
+        self._dirty_slots.add(int(slot))
+        if len(self._dirty_slots) > self._dirty_limit():
+            self._invalidate()
+
+    def _codes_tensor(self, rows: np.ndarray) -> torch.Tensor:
+        """Host code rows -> a device tensor in the views' code dtype
+        (uint8, or int32 for wider codes); always a copy."""
+        if rows.dtype != np.uint8:
+            rows = rows.astype(np.int32)
+        return torch.tensor(rows, device=self.device)
+
+    def _decode_rows(self, view: Dict, codes: torch.Tensor) -> torch.Tensor:
+        """Code rows -> the dense view's decoded rows (feature-padded), by
+        the same gathers as a rebuild."""
+        from ivfadc_tpu_torch.ops import pq as pq_ops
+        q = self._dense_quantizer
+        if view["scale"] is not None:
+            rows = pq_ops.decode_rotated_int8(q, codes, view["scale"])
+        else:
+            rows = pq_ops.decode_rotated(q, codes)
+        d_pad = view["decoded"].shape[1] - rows.shape[1]
+        return torch.nn.functional.pad(rows, (0, d_pad)).to(
+            view["decoded"].dtype)
+
+    def _flush_dirty(self) -> None:
+        """Patch every cached view at the dirty slots from host truth: one
+        batched scatter per array (codes or decoded rows, ids, norms2d),
+        and the sizes copied in place."""
+        if not self._dirty_slots:
+            return
+        slots = np.fromiter(self._dirty_slots, np.int64,
+                            len(self._dirty_slots))
+        slots.sort()
+        self._dirty_slots = set()
+        sl = torch.as_tensor(slots, device=self.device)
+        code_rows = self._codes_tensor(self.codes[slots])
+        id_rows = torch.as_tensor(self.ids[slots].astype(np.int32),
+                                  device=self.device)
+        sizes = torch.as_tensor(self.sizes.astype(np.int32),
+                                device=self.device)
+        if self._device is not None:
+            view = self._device
+            self._writable(view, "codes")[sl] = code_rows
+            self._writable(view, "ids")[sl] = id_rows
+            self._writable(view, "sizes").copy_(sizes)
+        if self._device_dense is not None:
+            view = self._device_dense
+            rows = self._decode_rows(view, code_rows)
+            self._writable(view, "decoded")[sl] = rows
+            self._writable(view, "ids")[sl] = id_rows
+            if view["norms2d"] is not None:
+                self._writable(view, "norms2d").view(-1)[sl] = \
+                    _row_norms(rows, view["scale"])
+            self._writable(view, "sizes").copy_(sizes)
+
+    def _dev_shift_ids(self, threshold: int, delta: int) -> None:
+        for view in self._views():
+            ids = self._writable(view, "ids")
+            ids.copy_(torch.where(ids > threshold, ids + delta, ids))
+
+    def _dev_rank_shift(self, dels: np.ndarray) -> None:
+        """Each live device id drops by the count of deleted ids below it."""
+        for view in self._views():
+            ids = self._writable(view, "ids")
+            d = torch.as_tensor(dels.astype(np.int32), device=ids.device)
+            below = torch.searchsorted(d, ids, out_int32=True)
+            ids.copy_(torch.where(ids >= 0, ids - below, ids))
+
+    # -------------------------------------------------------------- mutation
+    def append(self, cell: int, code_row: np.ndarray, ext_id: int) -> None:
+        self._materialize_for_mutation()
+        if self.sizes[cell] >= self.caps[cell]:
+            self._grow_cell(cell)
+        slot = int(self.offsets[cell] + self.sizes[cell])
+        self._codes_h[slot] = code_row
+        self._ids_h[slot] = ext_id
+        self.sizes[cell] += 1
+        self._note_slot(ext_id, slot)
+        self._mark_dirty(slot)
+        self._log_cell(cell)
+
+    def append_batch(self, cells: np.ndarray, code_rows: np.ndarray,
+                     first_ext_id: int) -> None:
+        """Point i goes to cells[i] with id first_ext_id + i: the same
+        state as len(cells) sequential `append` calls (within a cell in
+        input order), written in one vectorized pass."""
+        self._materialize_for_mutation()
+        cells = np.asarray(cells, np.int64)
+        code_rows = np.asarray(code_rows)
+        need = np.bincount(cells, minlength=self.kc)
+        for c in np.nonzero(self.sizes + need > self.caps)[0]:
+            while self.sizes[c] + need[c] > self.caps[c]:
+                self._grow_cell(int(c))
+        self._slot_of = None          # bulk op: rebuild the map lazily
+        order = np.argsort(cells, kind="stable")
+        sorted_cells = cells[order]
+        uniq, first = np.unique(sorted_cells, return_index=True)
+        within = np.arange(len(cells)) - \
+            first[np.searchsorted(uniq, sorted_cells)]
+        slots = self.offsets[sorted_cells] + self.sizes[sorted_cells] + within
+        self._codes_h[slots] = code_rows[order]
+        self._ids_h[slots] = first_ext_id + order
+        self.sizes += need
+        if self._device is not None or self._device_dense is not None:
+            if len(self._dirty_slots) + len(slots) > self._dirty_limit():
+                self._invalidate()
+            else:
+                self._dirty_slots.update(slots.tolist())
+        if self._mlogs:
+            for c in uniq:
+                self._log_cell(int(c))
+
+    def _grow_cell(self, cell: int) -> None:
+        """Double one cell's capacity by relocating it to the end of the
+        flat arrays; its old region goes dead. The host arrays grow ahead
+        by half their length, so a grow copies only the cell's rows."""
+        self._materialize_for_mutation()
+        a = self.align
+        old_off = int(self.offsets[cell])
+        s = int(self.sizes[cell])
+        new_cap = ((max(int(self.caps[cell]) * 2, 16) + a - 1) // a) * a
+        new_off = self._total
+        new_total = new_off + new_cap
+        if new_total > len(self._codes_h):
+            rows = max(new_total, len(self._codes_h) * 3 // 2) \
+                - len(self._codes_h)
+            self._codes_h = np.concatenate(
+                [self._codes_h, np.zeros((rows, self.m), self.code_dtype)])
+            self._ids_h = np.concatenate(
+                [self._ids_h, np.full(rows, -1, np.int64)])
+        if s:
+            self._codes_h[new_off:new_off + s] = \
+                self._codes_h[old_off:old_off + s]
+            self._codes_h[old_off:old_off + s] = 0
+            self._ids_h[new_off:new_off + s] = self._ids_h[old_off:old_off + s]
+            self._ids_h[old_off:old_off + s] = -1
+        if self._dirty_slots:         # remap pending patches that moved
+            self._dirty_slots = {
+                (d - old_off + new_off if old_off <= d < old_off + s else d)
+                for d in self._dirty_slots}
+        self.offsets[cell] = new_off
+        self.caps[cell] = new_cap
+        self._total = new_total
+        self._cell_order = None
+        self._slot_of = None
+        self._patch_views_after_grow(old_off, new_off, s, new_cap)
+
+    def _patch_views_after_grow(self, old_off: int, new_off: int, s: int,
+                                new_cap: int) -> None:
+        """Move the grown cell's rows inside each cached view whose guard
+        rows already cover the new end and which holds no norm stream
+        (whose rows would have to move too); drop any other view for a
+        rebuild. The vacated and the new rows take a zero code's row, as
+        the host arrays hold them."""
+        views = []
+        for name, key in (("_device", "codes"), ("_device_dense", "decoded")):
+            view = getattr(self, name)
+            if view is None:
+                continue
+            need = self._total + view.get("guard", 0)
+            if (view.get("norms2d") is not None
+                    or view[key].shape[0] < need
+                    or view["ids"].shape[0] < need):
+                setattr(self, name, None)
+            else:
+                views.append((view, key))
+        if self._device is None and self._device_dense is None:
+            self._dirty_slots = set()
+        offsets = torch.as_tensor(self.offsets.astype(np.int32),
+                                  device=self.device)
+        zero = self._codes_tensor(np.zeros((1, self.m), self.code_dtype))
+        for view, key in views:
+            arr = self._writable(view, key)
+            ids = self._writable(view, "ids")
+            fill = zero if key == "codes" else self._decode_rows(view, zero)
+            if s:
+                arr[new_off:new_off + s] = arr[old_off:old_off + s]
+                ids[new_off:new_off + s] = ids[old_off:old_off + s]
+                arr[old_off:old_off + s] = fill
+                ids[old_off:old_off + s] = -1
+            arr[new_off + s:new_off + new_cap] = fill
+            self._writable(view, "offsets").copy_(offsets)
+        if views:
+            self.grow_patches += 1
+
+    def remove_slot(self, cell: int, slot: int) -> np.ndarray:
+        """Swap-remove one posting: the cell's last row moves into `slot`;
+        returns the removed code row."""
+        self._materialize_for_mutation()
+        codes, ids = self._codes_h, self._ids_h
+        last = int(self.offsets[cell] + self.sizes[cell] - 1)
+        code = codes[slot].copy()
+        removed_id = int(ids[slot])
+        moved_id = int(ids[last])
+        codes[slot] = codes[last]
+        ids[slot] = moved_id if slot != last else -1
+        codes[last] = 0
+        ids[last] = -1
+        self.sizes[cell] -= 1
+        if self._slot_of is not None:
+            if 0 <= removed_id < len(self._slot_of):
+                self._slot_of[removed_id] = -1
+            if slot != last:
+                self._note_slot(moved_id, slot)
+        if slot != last:
+            self._mark_dirty(slot)
+        self._mark_dirty(last)
+        self._log_cell(cell)
+        return code
+
+    def shift_ids(self, threshold: int, delta: int) -> None:
+        """ids > threshold += delta over every cell, on the host and on
+        the views."""
+        self._materialize_for_mutation()
+        ids = self.ids
+        ids[ids > threshold] += delta
+        self._slot_of = None          # wholesale renumber: rebuild lazily
+        self._dev_shift_ids(threshold, delta)
+        self._log_op(("shift", int(threshold), int(delta)))
+
+    def delete_ids_incremental(self, dels: np.ndarray) -> int:
+        """Small-batch delete that keeps the views patchable: swap-remove
+        each hit (cells in ascending order, slots descending within a cell,
+        so a moved last row that is itself deleted is still pending), then
+        renumber ids by rank, on the host and on the views."""
+        self._materialize_for_mutation()
+        dels = np.unique(np.asarray(dels, np.int64))
+        ids = self.ids
+        hit = np.isin(ids, dels) & (ids >= 0)
+        hit_slots = np.nonzero(hit)[0]
+        if hit_slots.size != dels.size:
+            missing = np.setdiff1d(dels, ids[hit_slots])
+            raise KeyError(f"ids not in index: {missing[:10].tolist()}")
+        cells = self._slots_to_cells(hit_slots)
+        for cell in np.unique(cells):
+            for slot in np.sort(hit_slots[cells == cell])[::-1]:
+                # a previous swap in this cell may have moved a kept row
+                # here; remove only while the slot holds a deleted id
+                cur = ids[slot]
+                if cur >= 0:
+                    pos = np.searchsorted(dels, cur)
+                    if pos < dels.size and dels[pos] == cur:
+                        self.remove_slot(int(cell), int(slot))
+        live = ids >= 0
+        ids[live] -= np.searchsorted(dels, ids[live])
+        self._slot_of = None
+        self._dev_rank_shift(dels)
+        self._log_op(("rank", dels.copy()))
+        return int(dels.size)
+
+    def delete_ids(self, ext_ids: np.ndarray) -> int:
+        """Batch delete: each hit cell compacts its kept rows in order, and
+        every surviving id drops by the number of deleted ids below it; the
+        views are rebuilt."""
+        dels = np.unique(np.asarray(ext_ids, np.int64))
+        if dels.size == 0:
+            return 0
+        self._materialize_for_mutation()
+        codes, ids = self.codes, self.ids
+        hit = np.isin(ids, dels) & (ids >= 0)
+        hit_slots = np.nonzero(hit)[0]
+        if hit_slots.size != dels.size:
+            missing = np.setdiff1d(dels, ids[hit_slots])
+            raise KeyError(f"ids not in index: {missing[:10].tolist()}")
+        cells = self._slots_to_cells(hit_slots)
+        for cell in np.unique(cells):
+            o, s = int(self.offsets[cell]), int(self.sizes[cell])
+            keep = ~hit[o:o + s]
+            kept = int(keep.sum())
+            codes[o:o + kept] = codes[o:o + s][keep]
+            ids[o:o + kept] = ids[o:o + s][keep]
+            codes[o + kept:o + s] = 0
+            ids[o + kept:o + s] = -1
+            self.sizes[cell] = kept
+        live = ids >= 0
+        ids[live] -= np.searchsorted(dels, ids[live])
+        self._slot_of = None
+        self._invalidate()
+        for c in np.unique(cells):
+            self._log_cell(int(c))
+        self._log_op(("rank", dels.copy()))
+        return int(dels.size)
+
+    # ---------------------------------------------------------------- device
     def _bucket_rows(self, rows: int) -> int:
         """Pad device-array row counts to coarse buckets (the JAX package's
         layout, kept so both packages hold identical device views)."""
@@ -172,10 +680,7 @@ class PostingStore:
     def _codes_on_device(self) -> torch.Tensor:
         if self._codes_dev is not None:
             return self._codes_dev
-        codes = self.codes
-        if codes.dtype != np.uint8:
-            codes = codes.astype(np.int32)
-        return torch.as_tensor(codes, device=self.device)
+        return self._codes_tensor(self.codes)
 
     def _ids_on_device(self) -> torch.Tensor:
         if self._ids_dev is not None:
@@ -191,14 +696,15 @@ class PostingStore:
 
     def device_view(self) -> Dict:
         """Cached arrays for the LUT search: the flat codes and ids, row
-        counts padded to the bucket (-1 ids), and the CSR offsets/sizes."""
+        counts padded to the bucket (-1 ids), and the CSR offsets/sizes.
+        The view owns its tensors (patches write them in place)."""
+        self._flush_dirty()
         if self._device is None:
             codes = self._codes_on_device()
             ids = self._ids_on_device()
             pad = self._bucket_rows(codes.shape[0]) - codes.shape[0]
-            if pad:
-                codes = torch.nn.functional.pad(codes, (0, 0, 0, pad))
-                ids = torch.nn.functional.pad(ids, (0, pad), value=-1)
+            codes = torch.nn.functional.pad(codes, (0, 0, 0, pad))
+            ids = torch.nn.functional.pad(ids, (0, pad), value=-1)
             self._device = dict(codes=codes, ids=ids,
                                 **self._csr_on_device())
         return self._device
@@ -211,18 +717,21 @@ class PostingStore:
         zero-padded on the feature dim to a 128-multiple (zero features
         change neither dot products nor norms); ids, and — for 128-row
         aligned stores — ids2d and the cached row norms norms2d in
-        (rows/128, 128) layout. The view is rebuilt when the cache type
-        changes or after `_invalidate()`. IVFADC_NORMS is read when the view
-        is built, as the JAX package reads it: set to anything but "cache"
-        it leaves norms2d out (None), and the grouped scan then computes
-        the row norms in its kernel; toggling it takes effect at the next
-        rebuild."""
+        (rows/128, 128) layout; `guard`, the rows a scan may read past the
+        last cell. The view is rebuilt when the cache type changes or after
+        `_invalidate()`, and patched in place after mutations.
+        IVFADC_NORMS is read when the view is built, as the JAX package
+        reads it: set to anything but "cache" it leaves norms2d out (None),
+        and the grouped scan then computes the row norms in its kernel;
+        toggling it takes effect at the next rebuild."""
         from ivfadc_tpu_torch.ops import pq as pq_ops
         if cache not in ("int8", "bf16"):
             raise ValueError(f"cache must be 'int8' or 'bf16', got {cache!r}")
+        self._dense_quantizer = quantizer
         if (self._device_dense is not None
                 and self._device_dense["cache"] != cache):
             self._device_dense = None            # cache type switch: rebuild
+        self._flush_dirty()
         if self._device_dense is None:
             if cache == "int8":
                 scale = pq_ops.cache_scale(quantizer)
@@ -251,12 +760,6 @@ class PostingStore:
                 norms2d = _row_norms(decoded, scale).reshape(-1, _LANE)
             self._device_dense = dict(
                 decoded=decoded, ids=ids, ids2d=ids2d, norms2d=norms2d,
-                scale=scale, cache=cache, **self._csr_on_device())
+                scale=scale, cache=cache, guard=chunk + _LANE,
+                **self._csr_on_device())
         return self._device_dense
-
-    def _invalidate(self) -> None:
-        """Drop the cached device views and the index's scan chunk; the
-        next search rebuilds them (and reads IVFADC_NORMS again)."""
-        self._device = None
-        self._device_dense = None
-        self._chunk_cache = None

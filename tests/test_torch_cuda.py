@@ -1227,3 +1227,113 @@ def test_probe_scan_exact_k_out(dev, k_out, elem, integer):
         assert torch.equal(kd, pd) and torch.equal(kp, pp)
     else:
         _close_topk(kd, kp, pd, pp, min(k_out, 10))
+
+
+def _views_equal_rebuild(idx):
+    """The index's cached views (patched in place on the card) equal a
+    rebuild of the same host state, bit for bit."""
+    fresh = idx.fork()
+    fresh.store._invalidate()
+    for x in (idx, fresh):
+        x.store.device_view()
+        x.store.device_view_dense(x.quantizer, x.config.scan_chunk,
+                                  cache=x._resolve_cache())
+    for name in ("_device", "_device_dense"):
+        got, want = getattr(idx.store, name), getattr(fresh.store, name)
+        for key, a in want.items():
+            if isinstance(a, torch.Tensor):
+                assert torch.equal(got[key], a), (name, key)
+            elif key in ("ids2d", "norms2d"):
+                assert got[key] is None, (name, key)
+    return fresh
+
+
+def _dynamic_index(align: int):
+    from ivfadc_tpu_torch import IVFADCIndex
+    from ivfadc_tpu_torch.utils.datasets import synthetic_clustered
+    data = synthetic_clustered(20000, 64, seed=0)
+    idx = IVFADCIndex.build(data, kc=64, m=8, k=16, seed=0, cell_align=align,
+                            coarse_maxiter=3, quantization_maxiter=3)
+    rng = np.random.RandomState(1)
+    q = (data[rng.randint(0, 20000, 512)]
+         + 0.05 * rng.randn(512, 64)).astype(np.float32)
+    return idx, data, q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("align", [128, 8])
+def test_dynamic_views_patched_on_the_card_equal_rebuild(dev, align):
+    """push / push_batch (cells by kernel 7) / push_front / delete (single,
+    incremental, bulk) / pop / pop_front on the card: after each step the
+    in-place patched views equal a rebuild bit for bit, and both scan
+    routes (per probe, B=16; grouped, B=512) return what the rebuilt views
+    return. 8-row cells move a grown cell's rows in place."""
+    idx, data, q = _dynamic_index(align)
+    rng = np.random.RandomState(2)
+    idx.search_padded(q, 10, w=8)
+    idx.store.device_view()
+    # points at the smallest cell's centroid: one grow, whose rows fit the
+    # guard of an 8-row store's views
+    c = int(np.argmin(idx.store.caps))
+    crowd = idx.coarse.centroids[c].cpu().numpy() + 0.01 * rng.randn(
+        int(idx.store.caps[c]), 64).astype(np.float32)
+    n0 = coarse_scan.TOPW_KERNEL.launches
+    steps = [lambda: idx.push_batch(crowd),
+             lambda: [idx.push(data[i] + 0.01) for i in range(20)],
+             lambda: [idx.delete([int(rng.randint(len(idx)))])
+                      for _ in range(5)],
+             lambda: idx.delete(rng.choice(len(idx), 100, replace=False)),
+             lambda: [(idx.pop(), idx.pop_front()) for _ in range(5)],
+             lambda: [idx.push_front(data[i] - 0.01) for i in range(3)],
+             lambda: idx.delete(rng.choice(len(idx), 3000, replace=False))]
+    for step in steps:
+        step()
+        fresh = _views_equal_rebuild(idx)
+        for qq in (q[:16], q):
+            for a, b in zip(idx.search_padded(qq, 10, w=8),
+                            fresh.search_padded(qq, 10, w=8)):
+                np.testing.assert_array_equal(a, b)
+    assert coarse_scan.TOPW_KERNEL.launches >= n0 + 1 + 20 + 3
+    live = np.sort(idx.store.ids[idx.store.ids >= 0])
+    assert np.array_equal(live, np.arange(len(idx)))
+    if align == 8:
+        assert idx.store.grow_patches > 0
+
+
+@pytest.mark.cuda
+def test_fork_is_isolated_on_the_card(dev):
+    """Copy-on-write views on the card: in-place patches on either side of
+    a fork leave the other side's view tensors and results unchanged."""
+    idx, data, q = _dynamic_index(8)
+    rng = np.random.RandomState(3)
+    idx.search_padded(q, 10, w=8)
+
+    def snap(x):
+        view = x.store.device_view_dense(x.quantizer, x.config.scan_chunk)
+        return ({k: v.clone() for k, v in view.items()
+                 if isinstance(v, torch.Tensor)},
+                x.search_padded(q, 10, w=8), x.search_padded(q[:16], 10, w=8))
+
+    def same(x, s):
+        now = snap(x)
+        for k, v in s[0].items():
+            assert torch.equal(now[0][k], v), k
+        for a, b in zip(now[1:], s[1:]):
+            np.testing.assert_array_equal(a[0], b[0])
+            np.testing.assert_array_equal(a[1], b[1])
+
+    parent = snap(idx)
+    child = idx.fork()
+    child.push_batch(idx.coarse.centroids[0].cpu().numpy()
+                     + 0.01 * rng.randn(600, 64).astype(np.float32))
+    child.delete(list(range(0, 40, 3)))
+    child.pop()
+    child.search_padded(q, 10, w=8)
+    same(idx, parent)
+    kid = snap(child)
+    idx.push_batch(data[:50] + 0.02)
+    idx.delete([5])
+    idx.search_padded(q, 10, w=8)
+    same(child, kid)
+    _views_equal_rebuild(idx)
+    _views_equal_rebuild(child)

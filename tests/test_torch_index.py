@@ -201,21 +201,31 @@ def _variant(index, **changes):
 
 
 @pytest.mark.parametrize("case", ["gather_win"])
-def test_unported_routes_raise(case, port_index, queries):
-    # the routes that work are held to the JAX package in
-    # tests/test_torch_routes.py, tests/test_torch_variants.py and
-    # tests/test_torch_engines.py; this one names its ROADMAP item instead
+def test_unported_routes_raise(case, port_index, jax_index, queries):
+    # no route raises any more: the gathered engine (the last one that did)
+    # searches, and on these ~32-row cells its window exceeds the limit,
+    # so the plan is off on both packages and the results are the default
+    # route's (tests/test_torch_api.py holds the engine itself)
     idx = _variant(port_index, scan_gather_win=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        idx.search_padded(queries, K, w=W)
+    jidx = dataclasses.replace(jax_index.config, scan_gather_win=64)
+    assert idx._gather_plan() == JaxIndex(
+        jidx, jax_index.coarse, jax_index.quantizer, jax_index.store,
+        jax_index.data_dtype, jax_index.dim)._gather_plan()
+    ids, dists = idx.search_padded(queries, K, w=W)
+    want = port_index.search_padded(queries, K, w=W)
+    np.testing.assert_array_equal(ids, want[0])
+    np.testing.assert_array_equal(dists, want[1])
 
 
 def test_unported_build_parts_raise(data, port_index):
-    with pytest.raises(NotImplementedError):
-        IVFADCIndex.build(data[:512], device="cpu", kc=16, m=8, k=16,
-                          quantization_method="opq")
-    with pytest.raises(NotImplementedError):
-        t_pq.train_quantizer(0, torch.zeros(64, 8), m=2, k=4, method="opq")
+    # OPQ builds now (tests/test_torch_api.py holds it to the JAX
+    # package); an unknown method still raises
+    with pytest.raises(ValueError):
+        t_pq.train_quantizer(0, torch.zeros(64, 8), m=2, k=4, method="lsq")
+    opq = IVFADCIndex.build(data[:512], device="cpu", kc=16, m=8, k=16,
+                            quantization_method="opq", opq_iters=1,
+                            coarse_maxiter=2, quantization_maxiter=2)
+    assert opq.quantizer.method == "opq"
     # what used to raise here is ported: the grouped scan without emitted
     # ids, the sort-based prep past 4096 cells, 8-row cells on the grouped
     # scan (tests/test_torch_variants.py holds them to the JAX package)
@@ -242,7 +252,9 @@ def test_import_loads_no_jax():
             "assert {'ivfadc_tpu_torch.ops.adc', "
             "'ivfadc_tpu_torch.models.coarse', "
             "'ivfadc_tpu_torch.utils.repro', "
-            "'ivfadc_tpu_torch.utils.lloyd_timing'} <= set(mods), mods\n"
+            "'ivfadc_tpu_torch.utils.lloyd_timing', "
+            "'ivfadc_tpu_torch.ops.gather_scan', "
+            "'ivfadc_tpu_torch.models.inverted'} <= set(mods), mods\n"
             "for m in mods: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', "
             "'ivfadc_tpu') or m.startswith(('jax.', 'jaxlib.', "
