@@ -9,6 +9,7 @@ from ivfadc_tpu_torch.config import IVFADCConfig
 from ivfadc_tpu_torch.models.index import IVFADCIndex
 from ivfadc_tpu_torch.ops.metrics import Metric, get_metric, register_metric
 from ivfadc_tpu_torch.ops.pq import ProductQuantizer
+from ivfadc_tpu_torch.serving import BatchingSearcher
 
 __version__ = "0.1.0"
 
@@ -33,7 +34,7 @@ def load_ivfadc_index(path: str, device=None) -> IVFADCIndex:
 
 
 __all__ = [
-    "IVFADCConfig", "IVFADCIndex", "Metric", "ProductQuantizer",
+    "BatchingSearcher", "IVFADCConfig", "IVFADCIndex", "Metric", "ProductQuantizer",
     "get_metric", "register_metric", "knn_search", "delete_from_index",
     "save_ivfadc_index", "load_ivfadc_index",
 ]

@@ -1,11 +1,16 @@
 """IVFADCIndex — the top-level index (port of `ivfadc_tpu/models/index.py`).
 
-Ported: the build (PQ or OPQ), every search route with the naive or the
-two-level coarse quantizer, and the dynamic ops.
+Ported: the build (PQ or OPQ, in memory or out of core), every search
+route with the naive or the two-level coarse quantizer, the dynamic ops,
+autotune and memory_stats.
 
   build:  coarse k-means (k-means|| seeding past 4096 cells) -> residuals
           -> PQ training (OPQ: alternated with the rotation's Procrustes
           solve) -> encode -> padded CSR -> coarse quantizer
+  build_streaming / build_from_files: reservoir sample of the chunk
+          stream -> the same training -> each chunk assigned (k-means'
+          final-pass arithmetic) and encoded on the device -> the same
+          padded CSR and coarse quantizer
   dense search, B*w >= 4*kc: fused coarse probe -> cell ranks (counting
           kernel up to 4096 cells, one sort beyond) -> tile placement ->
           grouped scan -> top-k merge: over id payloads (128-row cells,
@@ -42,10 +47,9 @@ raises ValueError.
 
 from __future__ import annotations
 
-import contextlib
 import os
 import time
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,8 +61,10 @@ from ivfadc_tpu_torch.models.coarse import (NaiveCoarseQuantizer,
 from ivfadc_tpu_torch.models.inverted import PostingStore
 from ivfadc_tpu_torch.ops import pq as pq_ops
 from ivfadc_tpu_torch.ops.coarse_scan import coarse_probe_vbase
-from ivfadc_tpu_torch.ops.kmeans import kmeans, make_generator
+from ivfadc_tpu_torch.ops.kmeans import (assign_blocks, kmeans, kmeans_block,
+                                         make_generator)
 from ivfadc_tpu_torch.ops.metrics import Metric, get_metric
+from ivfadc_tpu_torch.utils.profiling import BuildTimer
 
 # auto-cap for PQ codebook training when quantization_sample is unset (0)
 _PQ_TRAIN_AUTOCAP = 1 << 20
@@ -117,31 +123,17 @@ def _env_merge_topk() -> str:
     return eng
 
 
-class _PhaseTimer:
-    """Wall time per build phase, ending each phase at a device sync."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.timings = {}
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        yield
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.timings[name] = time.perf_counter() - t0
-
-
 def _train_components(xd: torch.Tensor, config: IVFADCConfig,
-                      cmetric: Metric, qmetric: Metric, timer: _PhaseTimer):
-    """Coarse k-means + residual-quantizer training on device data `xd`.
-    Returns (kmeans result, residuals (n, d), quantizer)."""
+                      cmetric: Metric, qmetric: Metric, timer: BuildTimer):
+    """Coarse k-means + residual-quantizer training on device data `xd`,
+    shared by `build` and `build_streaming`. Returns (kmeans result,
+    residuals (n, d), quantizer)."""
     n = xd.shape[0]
     if config.kc > n:
         raise AssertionError(
             f"kc={config.kc} coarse cells need at least that many training "
-            f"points, got {n}")
+            f"points, got {n} (streamed builds: raise train_sample above "
+            f"kc)")
     with timer.phase("coarse_kmeans"):
         cres = kmeans(make_generator(config.seed, _STREAM_COARSE, xd.device),
                       xd, config.kc, maxiter=config.coarse_maxiter,
@@ -406,6 +398,13 @@ def _bucket_batch(b: int) -> int:
     return ((b + 1023) // 1024) * 1024
 
 
+def _host_rows(chunk) -> np.ndarray:
+    """A chunk of the stream as a host array (tensors are copied over)."""
+    if isinstance(chunk, torch.Tensor):
+        return chunk.cpu().numpy()
+    return np.asarray(chunk)
+
+
 def _np_dtype(dtype: torch.dtype) -> np.dtype:
     try:
         return np.dtype(str(dtype).replace("torch.", ""))
@@ -464,32 +463,195 @@ class IVFADCIndex:
         config.validate_for_data(n, d)
         cmetric = get_metric(config.coarse_metric)
         qmetric = get_metric(config.quantization_metric)
-        timer = _PhaseTimer(dev)
+        timer = BuildTimer(dev)
         xd = torch.as_tensor(data, device=dev).to(torch.float32)
         cres, residuals, quantizer = _train_components(
             xd, config, cmetric, qmetric, timer)
         with timer.phase("encode"):
             codes = pq_ops.encode(quantizer, residuals, metric=qmetric)
             del residuals, xd
+        # the cells are k-means' final assignment pass (`assign_blocks`'s
+        # arithmetic), as build_streaming's pass 2 assigns its chunks
+        return cls._finish_build(config, cres.assignments, codes,
+                                 cres.centers, quantizer, cmetric, data_dtype,
+                                 d, timer)
+
+    @classmethod
+    def _finish_build(cls, config, assignments, codes, centers, quantizer,
+                      cmetric, data_dtype, d, timer) -> "IVFADCIndex":
+        """Padded CSR from (assignments, codes) on the device, then the
+        coarse quantizer: the last steps of both builds."""
         with timer.phase("build_lists"):
             # 128-row cell alignment lets the grouped scan read posting ids
             # in (rows/128, 128) layout and emit external ids; huge-kc
             # indexes serve the per-probe scan and keep the tight 8 rows
             align = config.cell_align or (128 if config.kc <= 16384 else 8)
-            store = PostingStore.build_device(cres.assignments, codes,
-                                              config.kc,
+            store = PostingStore.build_device(assignments, codes, config.kc,
                                               slack=config.cell_slack,
                                               align=align)
         with timer.phase("coarse_quantizer"):
             coarse = make_coarse_quantizer(
-                config.coarse_quantizer, cres.centers, cmetric,
+                config.coarse_quantizer, centers, cmetric,
                 generator=make_generator(config.seed, _STREAM_COARSE_GROUPS,
-                                         dev),
+                                         codes.device),
                 n_groups=config.coarse_n_groups,
                 n_probe_groups=config.coarse_probe_groups)
         idx = cls(config, coarse, quantizer, store, data_dtype, d)
         idx.build_timings = timer.timings
         return idx
+
+    @classmethod
+    def build_streaming(cls, chunks, config: Optional[IVFADCConfig] = None,
+                        *, train_data=None, train_sample: int = 1 << 18,
+                        device=None, **kwargs) -> "IVFADCIndex":
+        """Out-of-core build: index data that never fits in memory at once.
+
+        `chunks` is a RE-ITERABLE of (b, d) float arrays (or tensors), e.g.
+        a `utils.datasets.VecsChunks` over TEXMEX files or a list of
+        arrays; a one-shot generator is rejected (two passes are needed).
+
+        Pass 1 reservoir-samples up to `train_sample` points, uniformly
+        over the whole stream (Algorithm R on NumPy's RandomState seeded by
+        `config.seed`, so the sample equals the JAX package's bit for
+        bit), and trains the coarse k-means and the PQ/OPQ codebooks on it
+        on `device` (default "cuda"; a CUDA `train_data` keeps its
+        device). With `train_data` given, pass 1 is skipped and training
+        runs on it. Pass 2 re-streams the chunks: each is copied to the
+        device, assigned by k-means' own final-pass arithmetic
+        (`ops.kmeans.assign_blocks`, in blocks of the training's block
+        size) and PQ-encoded there; the (assignment, code) pairs, n * (4 +
+        m) bytes, stay on the device until the one CSR layout pass. Host
+        memory holds one chunk of floats at a time, and the host reads
+        chunk i + 1 while the device works on chunk i.
+
+        With `train_data` equal to the concatenated stream the result is
+        `build(train_data)` bit for bit: the same training, the same cell
+        arithmetic, row-independent encoding and the same CSR builder.
+        """
+        if config is None:
+            config = IVFADCConfig(**kwargs)
+        elif kwargs:
+            raise TypeError("pass either a config or kwargs, not both")
+        if device is None and isinstance(train_data, torch.Tensor) \
+                and train_data.device.type == "cuda":
+            device = train_data.device
+        dev = torch.device(device if device is not None else "cuda")
+        cmetric = get_metric(config.coarse_metric)
+        qmetric = get_metric(config.quantization_metric)
+        timer = BuildTimer(dev)
+
+        # --- pass 1: reservoir sample for training (Algorithm R, vectorized
+        # per chunk: item t >= S replaces slot r ~ U[0, t] iff r < S; the
+        # chunk's independent draws replay the sequential algorithm) ---
+        d = None
+        if train_data is None:
+            rng = np.random.RandomState(config.seed)
+            sample = None
+            seen = 0
+            with timer.phase("sample"):
+                for chunk in chunks:
+                    chunk = _host_rows(chunk)
+                    if chunk.ndim != 2:
+                        raise AssertionError(
+                            "chunks must be 2-D (b, d) arrays")
+                    if d is None:
+                        d = chunk.shape[1]
+                        sample = np.empty((train_sample, d), np.float32)
+                    elif chunk.shape[1] != d:
+                        raise AssertionError(
+                            f"chunk dim {chunk.shape[1]} != {d}")
+                    b = chunk.shape[0]
+                    fill = min(b, max(0, train_sample - seen))
+                    if fill:
+                        sample[seen:seen + fill] = chunk[:fill]
+                    if b > fill:
+                        draws = rng.randint(
+                            0, seen + fill + np.arange(b - fill) + 1)
+                        hit = draws < train_sample
+                        sample[draws[hit]] = chunk[fill:][hit]
+                    seen += b
+            if seen == 0:
+                raise AssertionError("empty chunk stream")
+            train = sample[:min(seen, train_sample)]
+            # every validate_for_data check is decidable now: fail before
+            # the training and encode passes, not after them
+            config.validate_for_data(seen, d)
+        else:
+            train = train_data if isinstance(train_data, torch.Tensor) \
+                else np.asarray(train_data, np.float32)
+            if train.ndim != 2:
+                raise AssertionError("train_data must be 2-D (n, d)")
+            d = train.shape[1]
+            # sized sources (VecsChunks) give the stream length: fail fast
+            # here too; the exact n is validated again after pass 2
+            n_hint = getattr(chunks, "n_rows", None)
+            if n_hint:
+                config.validate_for_data(int(n_hint), d)
+        if config.k > train.shape[0]:
+            raise AssertionError(
+                f"training sample ({train.shape[0]}) must hold at least "
+                f"k={config.k} points (streamed builds: raise train_sample)")
+
+        xt = torch.as_tensor(train, device=dev).to(torch.float32)
+        cres, residuals, quantizer = _train_components(
+            xt, config, cmetric, qmetric, timer)
+        block = kmeans_block(xt.shape[0], config.kc, config.kmeans_block)
+        del residuals, xt                # pass 2 encodes every point anew
+        centers = cres.centers
+
+        # --- pass 2: stream the chunks through assign + encode ---
+        all_assign, all_codes = [], []
+        n = 0
+        data_dtype = None
+        with timer.phase("encode"):
+            for chunk in chunks:
+                if not isinstance(chunk, torch.Tensor):
+                    chunk = np.asarray(chunk)
+                if chunk.ndim != 2:
+                    raise AssertionError("chunks must be 2-D (b, d) arrays")
+                if chunk.shape[0] == 0:
+                    continue
+                if data_dtype is None:
+                    data_dtype = _np_dtype(chunk.dtype) \
+                        if isinstance(chunk, torch.Tensor) else chunk.dtype
+                    if not np.issubdtype(data_dtype, np.floating):
+                        data_dtype = np.dtype(np.float32)
+                if chunk.shape[1] != d:
+                    raise AssertionError(f"chunk dim {chunk.shape[1]} != {d}")
+                x = torch.as_tensor(chunk, device=dev).to(torch.float32)
+                a = assign_blocks(x, centers, metric=cmetric, block=block)
+                all_assign.append(a)
+                all_codes.append(pq_ops.encode(
+                    quantizer, x - centers[a.to(torch.int64)],
+                    metric=qmetric))
+                n += chunk.shape[0]
+        if train_data is None and n != seen:
+            raise AssertionError(
+                f"chunk stream yielded {seen} rows on pass 1 but {n} on "
+                f"pass 2: build_streaming needs a re-iterable source, not "
+                f"a one-shot generator")
+        if n == 0:
+            raise AssertionError("empty chunk stream")
+        config.validate_for_data(n, d)
+        return cls._finish_build(config, torch.cat(all_assign),
+                                 torch.cat(all_codes), centers, quantizer,
+                                 cmetric, data_dtype, d, timer)
+
+    @classmethod
+    def build_from_files(cls, paths, config: Optional[IVFADCConfig] = None,
+                         *, chunk_rows: int = 262144,
+                         max_rows: Optional[int] = None,
+                         train_sample: int = 1 << 18,
+                         **kwargs) -> "IVFADCIndex":
+        """`build_streaming` over TEXMEX .fvecs/.bvecs files (multiple
+        files concatenate in order, as Deep1B's numbered parts do), read
+        `chunk_rows` rows at a time; the float data is never resident as
+        a whole. Other keywords (`device`, `train_data`, the config's
+        fields) pass through."""
+        from ivfadc_tpu_torch.utils.datasets import VecsChunks
+        return cls.build_streaming(
+            VecsChunks(paths, chunk_rows=chunk_rows, max_rows=max_rows),
+            config, train_sample=train_sample, **kwargs)
 
     # ----------------------------------------------------------------- search
     def _device_search(self, queries, k: int, w: int
@@ -685,6 +847,84 @@ class IVFADCIndex:
                 else "lut"
         return "lut"
 
+    def autotune(self, queries, k: int = 10, w: int = 8, *,
+                 pbs: Sequence[int] = (16, 32, 64, 128),
+                 chunks: Sequence[int] = (512, 1024, 2048),
+                 merges: Sequence[str] = ("fold",),
+                 gather_wins: Sequence[Optional[int]] = (None,),
+                 reps: int = 5, apply: bool = True) -> dict:
+        """Time the dense search of this index under candidate kernel
+        parameters (scan_pb x scan_chunk x scan_merge x scan_gather_win)
+        on a representative query batch, and apply the fastest to
+        `self.config` (which `save()` persists); the config is restored
+        between candidates and on exit. Times are `utils.timing.true_time`
+        (CUDA events on the card). A candidate that raises is recorded
+        with its error and skipped: the grouped scan takes pb in {8, 16,
+        ..., 64}, so pb = 128 is an error row wherever the batch takes
+        the grouped route. The CUDA scans walk 128-row groups whatever
+        the chunk, so on the card the chunk axis changes no result and is
+        swept for parity of the configuration. Returns {"best": row or
+        None, "results": [rows], "applied": bool} (and "reason" when the
+        dense path is inactive)."""
+        import dataclasses
+        from ivfadc_tpu_torch.utils.timing import true_time
+        if self._resolve_scan_mode() != "dense":
+            return {"best": None, "results": [],
+                    "applied": False, "reason": "dense scan path inactive"}
+        q = queries if isinstance(queries, torch.Tensor) \
+            else torch.as_tensor(np.asarray(queries, np.float32))
+        q = q.to(self.device, torch.float32)
+        if q.ndim != 2 or q.shape[1] != self.dim:
+            raise AssertionError(
+                f"autotune expects (B, {self.dim}) queries, "
+                f"got {tuple(q.shape)}")
+        orig = self.config
+        nf = orig.scan_fold_lanes
+        # one dense-view build whose guard rows cover the largest chunk
+        max_chunk = max(list(chunks) + [orig.scan_chunk])
+        self.store.device_view_dense(self.quantizer, max_chunk,
+                                     cache=self._resolve_cache())
+        results = []
+        try:
+            for gw in gather_wins:
+                gw_eff = orig.scan_gather_win if gw is None else int(gw)
+                for merge in merges:
+                    for pb in pbs:
+                        for chunk in chunks:
+                            if chunk % nf:
+                                continue    # the kernels need nf | chunk
+                            self.config = dataclasses.replace(
+                                orig, scan_pb=pb, scan_chunk=chunk,
+                                scan_merge=merge, scan_gather_win=gw_eff)
+                            self._drop_plans()
+                            row = {"pb": pb, "chunk": chunk, "merge": merge,
+                                   "gather_win": gw_eff}
+                            try:
+                                row["seconds"] = float(true_time(
+                                    lambda: self._device_search(q, k, w),
+                                    reps=reps, warm=1))
+                            except (ValueError, RuntimeError) as e:
+                                row["error"] = \
+                                    f"{type(e).__name__}: {e}"[:200]
+                            results.append(row)
+        finally:
+            self.config = orig
+            self._drop_plans()
+        ok = [r for r in results if "seconds" in r]
+        best = min(ok, key=lambda r: r["seconds"]) if ok else None
+        if best is not None and apply:
+            self.config = dataclasses.replace(
+                orig, scan_pb=best["pb"], scan_chunk=best["chunk"],
+                scan_merge=best["merge"], scan_gather_win=best["gather_win"])
+        return {"best": best, "results": results,
+                "applied": best is not None and apply}
+
+    def _drop_plans(self) -> None:
+        """Drop the scan chunk and gather plan cached on the store: they
+        are keyed on the caps, not on the config autotune swaps."""
+        self.store._chunk_cache = None
+        self.store._gather_cache = None
+
     def search(self, points, k: int, w: int = 1):
         """Single point (d,) -> (ids, dists) trimmed to the valid (<= k)
         results. Batch (B, d) -> (list_of_ids, list_of_dists). Ids are
@@ -728,8 +968,9 @@ class IVFADCIndex:
                       ) -> Tuple[np.ndarray, np.ndarray]:
         """Search a large query set in fixed-size batches, queued back to
         back (the host reads nothing until the end), and return the stacked
-        padded (N, k) results. `stats`, if given, is any object with
-        `record(n_queries, seconds)`."""
+        padded (N, k) results. `stats`, if given, is a
+        `utils.profiling.SearchStats` (any object with `record(n_queries,
+        seconds)` will do)."""
         if not isinstance(points, torch.Tensor):
             points = np.asarray(points)
         n = points.shape[0]
@@ -888,6 +1129,59 @@ class IVFADCIndex:
                 f"dim={self.dim}, kc={self.config.kc}, m={self.config.m}, "
                 f"k={self.config.k}, {self.bytes_per_vector()}-byte encoding, "
                 f"{len(self)} vectors")
+
+    def memory_stats(self) -> dict:
+        """Sizes for an operator, with the JAX package's keys and
+        accounting: the encoded payload, the CSR capacity and its fill,
+        the cell-size distribution, the coarse tables (the two-level
+        quantizer's scan table, group centers and members included), the
+        codebooks, and, for each device view that exists, its bytes:
+        `device_scan_cache_bytes` (the decoded cache plus 4 bytes a row of
+        ids2d) and `device_lut_bytes` (codes plus ids). Sizes are read off
+        the tensors (`numel() * element_size()`): nothing is copied to the
+        host and no view is built."""
+        def nbytes(t) -> int:
+            return int(t.numel() * t.element_size())
+
+        st = self.store
+        sizes = np.asarray(st.sizes)
+        live = sizes[sizes > 0]
+        id_bytes = DTYPE_TO_BITS[self.config.index_dtype] // 8
+        code_bytes = st.code_dtype.itemsize * self.config.m
+        out = {
+            "n": int(len(self)),
+            "bytes_per_vector": self.bytes_per_vector(),
+            "encoded_bytes": int(len(self)) * self.bytes_per_vector(),
+            "capacity_slots": int(st.total_cap),
+            "capacity_bytes": int(st.total_cap) * (id_bytes + code_bytes),
+            "fill_ratio": float(len(self) / max(st.total_cap, 1)),
+            "cells": {
+                "kc": int(self.config.kc),
+                "live": int((sizes > 0).sum()),
+                "p50": int(np.percentile(live, 50)) if live.size else 0,
+                "p95": int(np.percentile(live, 95)) if live.size else 0,
+                "max": int(sizes.max(initial=0)),
+            },
+            "coarse_bytes": nbytes(self.coarse.centroids),
+            "codebook_bytes": nbytes(self.quantizer.codebooks),
+        }
+        if getattr(self.coarse, "kind", "") == "two_level":
+            out["coarse_bytes"] += (nbytes(self.coarse.cent_scan)
+                                    + nbytes(self.coarse.group_centers)
+                                    + nbytes(self.coarse.members))
+        dense = st._device_dense
+        if dense is not None:
+            dec = dense.get("decoded")
+            out["device_scan_cache_bytes"] = \
+                nbytes(dec) if dec is not None else 0
+            ids2d = dense.get("ids2d")
+            if ids2d is not None:
+                out["device_scan_cache_bytes"] += int(ids2d.numel()) * 4
+        if st._device is not None:
+            out["device_lut_bytes"] = sum(
+                nbytes(a) for key in ("codes", "ids")
+                if (a := st._device.get(key)) is not None)
+        return out
 
     # ------------------------------------------------------------ persistence
     def save(self, path: str) -> None:

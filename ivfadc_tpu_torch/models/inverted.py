@@ -31,6 +31,12 @@ guard rows cover the new end and it holds no norm stream, and is dropped
 for a rebuild otherwise. `fork` shares the views copy-on-write: the first
 write to a shared tensor clones it.
 
+Concurrent readers: a lock per store covers the view accessors (the flush
+of pending patches and a view's build) and `fork`, so a search that finds
+no pending patch runs after the patches another thread queued, never
+before them, and a view is built once. Mutations themselves take no lock:
+a caller serializes them with readers (serving.py does).
+
 `MutationLog` records, per consumer, the cells and id renumberings since
 its last drain (the JAX package's sharded views replay them).
 """
@@ -38,6 +44,7 @@ its last drain (the JAX package's sharded views replay them).
 from __future__ import annotations
 
 import os
+import threading
 import weakref
 from typing import Dict, Optional, Tuple
 
@@ -175,6 +182,8 @@ class PostingStore:
         self._mlogs: "weakref.WeakSet[MutationLog]" = weakref.WeakSet()
         # grows whose rows moved inside the cached views (no rebuild)
         self.grow_patches = 0
+        # the view accessors and fork (module docstring)
+        self._lock = threading.Lock()
 
     def __repr__(self) -> str:
         return (f"PostingStore({self.kc} cells, m={self.m}, "
@@ -219,6 +228,10 @@ class PostingStore:
         arrays are shared (no mutation writes them); the cached views are
         shallow-copied dicts whose tensors both sides mark shared, so the
         first write on either side clones the tensor it writes."""
+        with self._lock:
+            return self._fork()
+
+    def _fork(self) -> "PostingStore":
         t = self._total
         new = PostingStore(
             self.kc, self.m, self.code_dtype,
@@ -698,6 +711,10 @@ class PostingStore:
         """Cached arrays for the LUT search: the flat codes and ids, row
         counts padded to the bucket (-1 ids), and the CSR offsets/sizes.
         The view owns its tensors (patches write them in place)."""
+        with self._lock:
+            return self._device_view()
+
+    def _device_view(self) -> Dict:
         self._flush_dirty()
         if self._device is None:
             codes = self._codes_on_device()
@@ -724,9 +741,13 @@ class PostingStore:
         reads it: set to anything but "cache" it leaves norms2d out (None),
         and the grouped scan then computes the row norms in its kernel;
         toggling it takes effect at the next rebuild."""
-        from ivfadc_tpu_torch.ops import pq as pq_ops
         if cache not in ("int8", "bf16"):
             raise ValueError(f"cache must be 'int8' or 'bf16', got {cache!r}")
+        with self._lock:
+            return self._device_view_dense(quantizer, chunk, cache)
+
+    def _device_view_dense(self, quantizer, chunk: int, cache: str) -> Dict:
+        from ivfadc_tpu_torch.ops import pq as pq_ops
         self._dense_quantizer = quantizer
         if (self._device_dense is not None
                 and self._device_dense["cache"] != cache):

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import threading
 
 import torch
 
@@ -50,6 +51,7 @@ FIT = _build.HostFn("cell_rank", "cell_rank_fit",
 _FIT_KEYS = ("blocks_per_sm", "sms", "max_grid", "smem_bytes", "registers",
              "spill_bytes")
 _plans: dict = {}
+_plans_lock = threading.Lock()
 
 
 def rank_fit(dev, kc: int, tiles: bool) -> dict:
@@ -60,20 +62,25 @@ def rank_fit(dev, kc: int, tiles: bool) -> dict:
 
 
 def _plan(dev, kc: int, tiles: bool):
-    """(launch shape, scratch) per (device, kc, mode), made once: the
-    scratch holds the grid barrier's two words, zero between calls (the
-    kernel resets them), and the (grid, kc) block-count table. Calls on
-    one device share it, so they must come in order (one stream)."""
+    """(launch shape, scratch) per (device, kc, mode), made once under a
+    lock, so threads share one scratch: it holds the grid barrier's two
+    words, zero between calls (the kernel resets them), and the (grid, kc)
+    block-count table. Calls on one device share it, so they must come in
+    order (one stream: threads that set no stream of their own all launch
+    on the device's default stream)."""
     key = (dev.index, kc, tiles)
     plan = _plans.get(key)
     if plan is None:
-        out = (ctypes.c_int * 6)()
-        with torch.cuda.device(dev):
-            FIT(kc, int(tiles), out)
-        fit = dict(zip(_FIT_KEYS, out))
-        scratch = torch.zeros(4 + fit["max_grid"] * kc, dtype=torch.int32,
-                              device=dev)
-        plan = _plans[key] = (fit, scratch)
+        with _plans_lock:
+            plan = _plans.get(key)
+            if plan is None:
+                out = (ctypes.c_int * 6)()
+                with torch.cuda.device(dev):
+                    FIT(kc, int(tiles), out)
+                fit = dict(zip(_FIT_KEYS, out))
+                scratch = torch.zeros(4 + fit["max_grid"] * kc,
+                                      dtype=torch.int32, device=dev)
+                plan = _plans[key] = (fit, scratch)
     return plan
 
 

@@ -261,6 +261,28 @@ def _lloyd(x, init_centers, maxiter: int, block: int, metric: Metric):
     return centers, assigns.reshape(m, -1)[:, :n].to(torch.int32)
 
 
+def kmeans_block(n: int, k: int, block: int) -> int:
+    """Points per assignment block of `kmeans` over n points and k centers:
+    at most `block`, and the (block, k) distances capped at ~1 GB f32 for
+    huge-k builds."""
+    block = min(block, max(256, n))
+    return max(256, min(block, (1 << 28) // max(k, 1)))
+
+
+def assign_blocks(x, centers, *, metric: Metric = SQEUCLIDEAN,
+                  block: int) -> torch.Tensor:
+    """Nearest center of each of (n, d) points -> (n,) int32, by the
+    final assignment pass of `kmeans` (`_assign_pass`: zero-padded blocks
+    of exactly `block` rows, so every matmul has one shape). With `block`
+    = kmeans_block(n_train, k, ...) a point gets the cell that `kmeans`
+    over a training set holding it gives it, in whichever block it lands:
+    the streamed build's pass 2 relies on that."""
+    x_blocks, mask = _pad_blocks(x.to(torch.float32)[None], block)
+    a = _assign_pass(x_blocks, mask, centers.to(torch.float32)[None], metric,
+                     with_sums=False)[0]
+    return a.reshape(-1)[:x.shape[0]].to(torch.int32)
+
+
 def kmeans(gen: torch.Generator, x, k: int, *, maxiter: int = 25,
            metric: Metric = SQEUCLIDEAN, block: int = 16384,
            pp_sample: int = 0) -> KMeansResult:
@@ -276,10 +298,7 @@ def kmeans(gen: torch.Generator, x, k: int, *, maxiter: int = 25,
         raise ValueError(
             f"metric {metric.name!r} does not support k-means training")
     x = x.to(torch.float32)
-    block = min(block, max(256, n))
-    # the assignment step materializes (block, k) distances — cap their
-    # footprint (~1 GB f32) for huge-k builds
-    block = max(256, min(block, (1 << 28) // max(k, 1)))
+    block = kmeans_block(n, k, block)
     # k-means++ is a k-step sequential loop: fine to a few thousand centers;
     # past the cutoff seeding switches to k-means||, the same D^2-weighted
     # spread as a handful of batched rounds

@@ -275,3 +275,118 @@ def test_bytes_per_vector_and_repr_equal_jax(random_data, overrides):
     assert t.bytes_per_vector() == j.bytes_per_vector()
     assert repr(t) == repr(j)
     assert repr(t.store) == repr(j.store)
+
+
+# ------------------------------------- memory_stats, probe_stats, autotune
+@pytest.mark.parametrize("coarse", ["naive", "hnsw"])
+def test_memory_stats_equal_jax(random_data, coarse):
+    """The same index in both packages reports the same dict: before any
+    view exists, then with the dense and the LUT views built (the JAX
+    package's accounting: decoded + 4 bytes a row of ids2d; codes + ids),
+    and after a mutation's patches."""
+    j, t = _integer_pair(random_data, coarse_quantizer=coarse)
+    assert t.memory_stats() == j.memory_stats()
+    assert t.store._device is None and t.store._device_dense is None
+    q = np.random.RandomState(2).randint(0, 17, (8, NROWS)) \
+        .astype(np.float32)
+    for ix in (j, t):
+        ix.search_padded(q, 5, w=6)
+        ix.store.device_view()
+    got = t.memory_stats()
+    assert got == j.memory_stats()
+    dense = t.store._device_dense
+    assert got["device_scan_cache_bytes"] == (
+        dense["decoded"].numel() * dense["decoded"].element_size()
+        + dense["ids2d"].numel() * 4)
+    for ix in (j, t):
+        ix.push(q[0])
+        ix.search_padded(q, 5, w=6)
+    assert t.memory_stats() == j.memory_stats()
+
+
+@pytest.mark.parametrize("w", [1, 6, 500])
+def test_probe_stats_equal_jax(random_data, w):
+    from ivfadc_tpu.utils.profiling import probe_stats as j_probe_stats
+    from ivfadc_tpu_torch.utils.profiling import probe_stats
+    j, t = _pair(random_data)
+    q = np.random.RandomState(4).rand(16, NROWS).astype(np.float32)
+    assert probe_stats(t, q, w) == j_probe_stats(j, q, w)
+
+
+def test_autotune_applies_best_and_preserves_results():
+    """autotune times the candidates, applies the fastest, and the tuned
+    index returns the same results; pb = 128, which the grouped scan does
+    not take, is recorded as an error row and never applied."""
+    rng = np.random.RandomState(3)
+    data = rng.rand(2048, 32).astype(np.float32)
+    idx = IVFADCIndex.build(data, kc=16, m=4, k=16, seed=0,
+                            scan_mode="dense", device="cpu")
+    q = data[:32]                     # B*w = 128 >= 4*kc: the grouped scan
+    before_i, before_d = idx.search_padded(q, 5, w=4)
+    cfg0 = idx.config
+    out = idx.autotune(q, k=5, w=4, pbs=(8, 16, 128), chunks=(128, 256),
+                       reps=2)
+    assert out["applied"] and out["best"] is not None
+    assert {"pb", "chunk", "merge", "seconds"} <= set(out["best"])
+    errors = [r for r in out["results"] if "error" in r]
+    assert [r["pb"] for r in errors] == [128, 128]
+    assert all(r["error"].startswith("ValueError") for r in errors)
+    assert len(out["results"]) == 6 and out["best"]["pb"] != 128
+    assert idx.config.scan_pb == out["best"]["pb"]
+    assert idx.config.scan_chunk == out["best"]["chunk"]
+    assert dataclasses.replace(idx.config, scan_pb=cfg0.scan_pb,
+                               scan_chunk=cfg0.scan_chunk,
+                               scan_merge=cfg0.scan_merge) == cfg0
+    assert idx.store._chunk_cache is None
+    after_i, after_d = idx.search_padded(q, 5, w=4)
+    np.testing.assert_array_equal(before_i, after_i)
+    np.testing.assert_array_equal(before_d, after_d)
+    # apply=False leaves the config untouched
+    cfg = idx.config
+    out2 = idx.autotune(q, k=5, w=4, pbs=(8,), chunks=(128,), reps=1,
+                        apply=False)
+    assert not out2["applied"] and idx.config is cfg
+
+
+def test_autotune_lut_mode_and_bad_queries_equal_jax():
+    rng = np.random.RandomState(4)
+    data = rng.rand(256, 16).astype(np.float32)
+    kw = dict(kc=8, m=4, k=16, scan_mode="lut")
+    j = JaxIndex.build(data, **kw)
+    t = IVFADCIndex.build(data, device="cpu", **kw)
+    assert t.autotune(data[:8], k=3, w=2) == j.autotune(data[:8], k=3, w=2)
+    dense = IVFADCIndex.build(data, device="cpu",
+                              **dict(kw, scan_mode="dense"))
+    with pytest.raises(AssertionError):
+        dense.autotune(data[0], k=3, w=2)       # 1-D queries
+
+
+def test_profiling_utils(tmp_path, random_data):
+    """BuildTimer sums repeated phases (as the JAX package's does);
+    SearchStats counts what search_stream and the serving layer record;
+    true_time times a unary or nullary function on the host clock off the
+    card; trace writes a Chrome trace."""
+    import os
+    from ivfadc_tpu_torch.utils.profiling import (BuildTimer, SearchStats,
+                                                  trace)
+    from ivfadc_tpu_torch.utils.timing import true_time
+    timer = BuildTimer("cpu")
+    for _ in range(3):
+        with timer.phase("a"):
+            pass
+    with timer.phase("b"):
+        pass
+    assert set(timer.timings) == {"a", "b"} and timer.timings["a"] >= 0
+    _, t = _pair(random_data)
+    stats = SearchStats()
+    q = np.random.RandomState(3).rand(40, NROWS).astype(np.float32)
+    t.search_stream(q, 5, w=4, batch=16, stats=stats)
+    t.search_stream(q[:8], 5, w=4, stats=stats)
+    assert (stats.queries, stats.batches) == (48, 2) and stats.qps > 0
+    calls = []
+    assert true_time(lambda i: calls.append(i), reps=3, warm=2) >= 0
+    assert calls == [-1, -2, 0, 1, 2]
+    assert true_time(lambda: t.search_padded(q[:8], 5, w=4), reps=2) > 0
+    with trace(str(tmp_path / "tr")):
+        t.search_padded(q[:8], 5, w=4)
+    assert os.path.getsize(tmp_path / "tr" / "trace.json") > 0

@@ -1337,3 +1337,59 @@ def test_fork_is_isolated_on_the_card(dev):
     same(child, kid)
     _views_equal_rebuild(idx)
     _views_equal_rebuild(child)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [4096, 3000])
+def test_streaming_build_equals_build_on_the_card(dev, rows):
+    """build_streaming(chunks, train_data=X) on the card is build(X) bit
+    for bit: the store's arrays, the trained parameters and both scan
+    routes' results, with chunks aligned to the assignment blocks (4096)
+    and not (3000)."""
+    from ivfadc_tpu_torch import IVFADCIndex
+    from ivfadc_tpu_torch.utils.datasets import synthetic_clustered
+    data = synthetic_clustered(20000, 64, seed=0)
+    kw = dict(kc=64, m=8, k=16, seed=0, coarse_maxiter=3,
+              quantization_maxiter=3, kmeans_block=4096)
+    ref = IVFADCIndex.build(data, **kw)
+    idx = IVFADCIndex.build_streaming(
+        [data[s:s + rows] for s in range(0, len(data), rows)],
+        train_data=data, **kw)
+    assert idx.device.type == "cuda"
+    for key in ("offsets", "caps", "sizes", "codes", "ids"):
+        np.testing.assert_array_equal(getattr(idx.store, key),
+                                      getattr(ref.store, key), err_msg=key)
+    assert torch.equal(idx.coarse.centroids, ref.coarse.centroids)
+    assert torch.equal(idx.quantizer.codebooks, ref.quantizer.codebooks)
+    q = data[:512] + 0.05
+    for b in (16, 512):                    # per probe; grouped
+        ri, rd = ref.search_padded(q[:b], 10, w=8)
+        si, sd = idx.search_padded(q[:b], 10, w=8)
+        np.testing.assert_array_equal(si, ri)
+        np.testing.assert_array_equal(sd, rd)
+
+
+@pytest.mark.cuda
+def test_batching_searcher_on_the_card_equals_direct_search(dev):
+    """Two dispatch threads serving a cuda index, with mutations through
+    the searcher between rounds: every served row equals a direct search
+    of the same batch on the index as it then stands (max_batch is one
+    request's rows, so a dispatch's batch is the request's)."""
+    from ivfadc_tpu_torch import BatchingSearcher
+    idx, data, q = _dynamic_index(128)
+    rng = np.random.RandomState(5)
+    with BatchingSearcher(idx, max_batch=64, max_wait_ms=0,
+                          pipeline=2) as s:
+        for r in range(4):
+            futs = [(b, s.submit(q[b * 64:(b + 1) * 64], 10, w=8))
+                    for b in range(8)]
+            got = [(b, f.result(timeout=60)) for b, f in futs]
+            for b, (ids, dists) in got:
+                di, dd = idx.search_padded(q[b * 64:(b + 1) * 64], 10, w=8)
+                np.testing.assert_array_equal(ids, di)
+                np.testing.assert_array_equal(dists, dd)
+            s.push_batch(data[:100] + 0.01 * (r + 1))
+            s.delete(sorted(rng.choice(len(idx), 50,
+                                       replace=False).tolist()))
+        assert s.stats.batches >= 32
+    _views_equal_rebuild(idx)
