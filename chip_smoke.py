@@ -138,6 +138,29 @@ phases, printing one JSON line per phase; any failure raises (exit != 0):
            mutation's fork time, the clients' latency meanwhile, and every
            pushed point at rank 0 for a query submitted after its mutate
            returned; kernel 7 (the pushes' cells) and 1-4 launched
+  sharded  ShardedIVFADCIndex over the SIFT1M index (`phase_sharded`,
+           one line a part): views of 4 shards on one card and of
+           make_mesh() (1 shard), counts zeroed per batch: the search
+           phase's 1000 queries, a B=16384 (grouped: kernels 1-4, the
+           merge on 6) and a B=256 batch (per probe: 1, 5, 6), one coarse
+           probe a search (the shards share the card); distances bit-equal
+           to the single card's, ids but at exact ties, recall@10 equal but
+           at ties; median B=16384 batch ms at S=1 and S=4 beside the
+           single card's, device peak. sharded_mutations: a fork of the
+           4-shard view takes push, a 1000-id delete (the rows of the
+           largest cells), push_front and pop (each an incremental
+           refresh), then push_batch of 65,536 points (a full one: the
+           share of cells that outgrew their per-shard capacity); each step
+           bit-equal to a fresh view; the parent view unchanged.
+           sharded_wide: under IVFADC_DEVICE_ID_CAP=2^20 a value-mode view
+           of the 1M points takes the 65,536-point push_batch, upgrades to
+           wide ids, and its uint64 ids and distances equal an uncapped
+           twin's; the capped base's own search raises. sharded_serving: a
+           BatchingSearcher(max_batch=1024, max_wait_ms=2) over a fork of
+           the 4-shard view, 16 single queries, 8 closed-loop clients for
+           2 s, then 2 push_batch (pushed points at rank 0) and 2 deletes
+           through it; served QPS, p50 / p99, top-10 overlap with the
+           view's own search >= 0.995
   two_level  the large-kc configuration at the Deep1B-shard shape: n=2M,
            d=96, kc=2^18 (k-means|| seeding, 8-row cells), m=16, k=256,
            coarse_quantizer="hnsw"; kernel 8a and kernels 2 (and 11: the
@@ -164,6 +187,10 @@ phases, printing one JSON line per phase; any failure raises (exit != 0):
            >= 0.999, distances within 1e-3, recall within 0.005), 8b
            against its plain version on every 128th tile, batch ms, QPS,
            peak device memory, device time per kernel and idle share
+  sharded_two_level  two shards of the large-kc index on one card,
+           counts zeroed: the B=4096 batch at w=32 (kernels 6, 2, 8a, 4 in
+           the replicated coarse probe, 5 and 6 per shard, 6 to merge),
+           distances bit-equal to the single card's, ids but at exact ties
   dynamic_two_level  counts zeroed: on the large-kc index (8-row cells, no
            norm stream) push_batch of 65,536 points (some grows must move
            their rows inside the views, with no rebuild) and a 2048-id
@@ -2614,6 +2641,38 @@ def fixed_points(index, n: int, seed: int):
     return pts[ok][:n].cpu().numpy()
 
 
+def serve_client(c, s, pool, stop, window, logs, errors) -> None:
+    """One closed-loop client of a BatchingSearcher `s` until `stop`:
+    clients 0-5 send single queries, the others arrays of 256 rows of
+    `pool`, each waiting for its answer. Logs (window tag, first row, ndim,
+    ids, seconds) per request; an exception goes to `errors`."""
+    r = np.random.RandomState(100 + c)
+    try:
+        while not stop.is_set():
+            i = r.randint(len(pool) - 256)
+            q = pool[i] if c < 6 else pool[i:i + 256]
+            tag = window[0]
+            t1 = time.perf_counter()
+            ids, _ = s.submit(q, TOPK, w=W).result(timeout=60)
+            logs[c].append((tag, i, q.ndim, ids, time.perf_counter() - t1))
+    except Exception as e:          # noqa: BLE001 - reported by the phase
+        errors.append(repr(e))
+
+
+def served_overlap(entries, queries, direct):
+    """Top-k overlap of served requests (serve_client log entries) with
+    `direct(rows)`, a direct search of the same query rows on the same
+    index version -> (overlap, rows checked)."""
+    import torch
+    rows = np.concatenate([np.arange(i, i + (1 if nd == 1 else 256))
+                           for _, i, nd, _, _ in entries])
+    served = np.concatenate([ids.reshape(-1, TOPK)
+                             for _, _, _, ids, _ in entries])
+    got = direct(queries[torch.as_tensor(rows, device=queries.device)])
+    return float(np.mean((served[:, :, None] == got[:, None, :])
+                         .any(2).sum(1) / TOPK)), len(rows)
+
+
 def phase_serving(index, queries, zero_counts, read_counts) -> dict:
     """A BatchingSearcher(max_batch=1024, max_wait_ms=2, pipeline=2) over
     the SIFT1M index: 16 single queries one at a time, then 8 client
@@ -2647,25 +2706,10 @@ def phase_serving(index, queries, zero_counts, read_counts) -> dict:
     window = ["static"]
     logs = [[] for _ in range(8)]
     errors = []
-
-    def client(c, s):
-        r = np.random.RandomState(100 + c)
-        try:
-            while not stop.is_set():
-                i = r.randint(len(pool) - 256)
-                q = pool[i] if c < 6 else pool[i:i + 256]
-                tag = window[0]
-                t1 = time.perf_counter()
-                ids, _ = s.submit(q, TOPK, w=W).result(timeout=60)
-                logs[c].append((tag, i, q.ndim, ids,
-                                time.perf_counter() - t1))
-        except Exception as e:          # noqa: BLE001 - reported below
-            errors.append(repr(e))
-
     zero_counts()
     s = BatchingSearcher(index, max_batch=1024, max_wait_ms=2, pipeline=2)
-    threads = [threading.Thread(target=client, args=(c, s), daemon=True)
-               for c in range(8)]
+    threads = [threading.Thread(target=serve_client, daemon=True, args=(
+        c, s, pool, stop, window, logs, errors)) for c in range(8)]
     mutations = []
     try:
         # single queries alone first: batches of one row take the
@@ -2728,19 +2772,10 @@ def phase_serving(index, queries, zero_counts, read_counts) -> dict:
     static = [e for log in logs for e in log if e[0] == "static"]
     during = [e for log in logs for e in log if e[0] == "mutating"]
     checked = static + [e for e in logs[0] if e[0] == "alone"]
-    # every static request against a direct search of its own rows on the
-    # same index version: the per-probe route (B <= 256), queued back to
-    # back
-    rows = np.concatenate([np.arange(i, i + (1 if nd == 1 else 256))
-                           for _, i, nd, _, _ in checked])
-    served = np.concatenate([ids.reshape(-1, TOPK)
-                             for _, _, _, ids, _ in checked])
     t1 = time.perf_counter()
-    direct, _ = snap.search_stream(queries[torch.as_tensor(
-        rows, device=queries.device)], TOPK, W, batch=B_SMALL)
+    overlap, n_rows = served_overlap(checked, queries, lambda q: (
+        snap.search_stream(q, TOPK, W, batch=B_SMALL)[0]))
     direct_s = time.perf_counter() - t1
-    overlap = float(np.mean((served[:, :, None] == direct[:, None, :])
-                            .any(2).sum(1) / TOPK))
     check(overlap >= 0.99, f"served / direct top-{TOPK} overlap {overlap}")
     lat = 1e3 * np.array([e[4] for e in static])
     lat_mut = 1e3 * np.array([e[4] for e in during])
@@ -2754,7 +2789,7 @@ def phase_serving(index, queries, zero_counts, read_counts) -> dict:
         mean_batch=q0 / max(b0, 1),
         latency_p50_ms=float(np.percentile(lat, 50)),
         latency_p99_ms=float(np.percentile(lat, 99)),
-        top10_overlap_direct=overlap, direct_rows=len(rows),
+        top10_overlap_direct=overlap, direct_rows=n_rows,
         direct_check_s=direct_s, launches=counts,
         mutations=mutations, mutations_s=mut_s,
         fork_ms_p50=float(np.median(fork_ms)),
@@ -2765,6 +2800,335 @@ def phase_serving(index, queries, zero_counts, read_counts) -> dict:
         launches_during_mutations=counts_mut,
         pushed=N_SERVE_PUSH, deleted=N_SERVE_DEL,
         pushed_found_at_rank_0=True, n_end=len(index))
+
+
+SHARD_DEVICE = "cuda:0"              # the card the sharded views fill
+N_SHARD_PUSH = 65536                 # a sharded push_batch: ~64 points a cell
+WIDE_CAP = 1 << 20                   # the lowered device id cap of (d)
+SHARD_SERVE_S = 2.0                  # the sharded serving window
+N_SHARD_SERVE = 100                  # points a push, ids a delete, there
+
+
+def batch_ms(fn) -> float:
+    """Host ms of fn() between two synchronisations."""
+    import torch
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t1)
+
+
+def tie_slack(ids_a, d_a, ids_b) -> float:
+    """The most recall@k two results with bit-equal distances can differ
+    by when their ids differ only at ties: a hit can move only among a
+    row's entries tied with its last distance."""
+    n = sum(int((d == d[-1]).sum()) for ia, d, ib in zip(ids_a, d_a, ids_b)
+            if not np.array_equal(ia, ib))
+    return n / ids_a.size
+
+
+def hold_to_fresh(view, batches, mesh, what: str) -> dict:
+    """A mutated (refreshed) view against a ShardedIVFADCIndex built
+    afresh over the same base: each batch's ids and distances bit-equal.
+    Returns the fresh view's build seconds."""
+    from ivfadc_tpu_torch import ShardedIVFADCIndex
+    t1 = time.perf_counter()
+    fresh = ShardedIVFADCIndex(view.index, mesh)
+    build_s = time.perf_counter() - t1
+    for name, q in batches.items():
+        got, ref = view.search_padded(q, TOPK, w=W), \
+            fresh.search_padded(q, TOPK, w=W)
+        check(np.array_equal(got[0], ref[0]) and np.array_equal(got[1],
+                                                                ref[1]),
+              f"{what}: {name} results differ from a fresh view's")
+    del fresh
+    return dict(fresh_view_s=build_s)
+
+
+def phase_sharded(index, queries, qs, gt, recall, smi, zero_counts,
+                  read_counts) -> None:
+    """The sharded view over the SIFT1M index (emits one line a part):
+
+      sharded           (a) views of 4 shards on one card and of make_mesh()
+                        (one shard): the search phase's 1000 queries, a
+                        B=16384 (grouped) and a B=256 (per-probe) batch,
+                        distances bit-equal to the single card's, ids but
+                        at exact ties, recall@10 equal but at ties, each
+                        batch's launches; batch ms beside the single card's
+      sharded_mutations (c) a fork of the 4-shard view: push, a 1000-id
+                        delete (the rows of the largest cells), push_front,
+                        pop (each an incremental refresh), push_batch of
+                        65,536 (a full one); each step bit-equal to a fresh
+                        view; the parent view unchanged
+      sharded_wide      (d) IVFADC_DEVICE_ID_CAP=2^20: a value-mode view
+                        crossing it on a 65,536-point push_batch, wide ids
+                        equal to an uncapped twin's, distances bit-equal;
+                        the capped base's own search raises
+      sharded_serving   (e) a BatchingSearcher over a fork of the 4-shard
+                        view: 16 single queries, a closed loop of 8
+                        clients for SHARD_SERVE_S, then 2 push_batch and 2
+                        deletes through it; served top-10 overlap with the
+                        view's own search >= 0.995"""
+    import threading
+
+    import torch
+    from ivfadc_tpu_torch import (BatchingSearcher, ShardedIVFADCIndex,
+                                  make_mesh)
+    from ivfadc_tpu_torch.parallel.sharded import WIDE_NO_ID
+    from ivfadc_tpu_torch.utils.datasets import synthetic_clustered
+    from ivfadc_tpu_torch.utils.evaluation import recall_at_r
+
+    # ---- (a) search
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    q16, q256 = queries[:BATCH], queries[BATCH:BATCH + B_SMALL]
+    batches = {"queries_1000": qs, "b16384": q16, "b256": q256}
+    single = {name: index.search_padded(q, TOPK, w=W)
+              for name, q in batches.items()}
+    grouped = ["coarse_probe", "cell_rank", "grouped_scan", "topk_payload",
+               "topk_index"]
+    per_probe = ["coarse_probe", "probe_scan", "topk_index"]
+    mesh4 = make_mesh(n_shards=4, devices=[SHARD_DEVICE] * 4)
+    views, out = {}, {}
+    for S, mesh in ((1, make_mesh()), (4, mesh4)):
+        t1 = time.perf_counter()
+        view = ShardedIVFADCIndex(index, mesh)
+        torch.cuda.synchronize()
+        rec = dict(view_build_s=time.perf_counter() - t1, launches={},
+                   tie_rows={})
+        check(view.n_shards == S and view.wide_ids is False
+              and all(v["decoded"].is_cuda for v in view.views),
+              f"S={S}: shards not on the card")
+        for name, q in batches.items():
+            zero_counts()
+            si, sd = view.search_padded(q, TOPK, w=W)
+            counts = read_counts(
+                f"sharded_s{S}_{name}", per_probe if name == "b256"
+                else grouped, idle=["coarse_topw", "grouped_scan_knorm"])
+            # the shards share the card: one coarse probe a search
+            check(counts["coarse_probe"] == 1, f"S={S} {name}: coarse "
+                                               f"probe launched "
+                                               f"{counts['coarse_probe']}")
+            rec["launches"][name] = {k: counts[k] for k in
+                                     ("coarse_probe", "cell_rank",
+                                      "grouped_scan", "topk_payload",
+                                      "probe_scan", "topk_index")}
+            rec["tie_rows"][name] = ties_only(si, sd, *single[name])
+            if name == "queries_1000":
+                rec["recall_at_10"] = recall_at_r(si, gt, TOPK)
+                slack = tie_slack(si, sd, single[name][0])
+                check(abs(rec["recall_at_10"] - recall) <= slack,
+                      f"S={S}: recall {rec['recall_at_10']} vs {recall}")
+        out[f"s{S}"] = rec
+        views[S] = view
+    ms = {"single": [], "s1": [], "s4": []}
+    for r in range(11):                        # the first: warm-up
+        for key, fn in (
+                ("single", lambda: index._device_search(q16, TOPK, W)),
+                ("s1", lambda: views[1]._dispatch(q16, TOPK, W, False)),
+                ("s4", lambda: views[4]._dispatch(q16, TOPK, W, False))):
+            t = batch_ms(fn)
+            if r:
+                ms[key].append(t)
+    del views[1]
+    emit("sharded", card=smi, recall_single=recall,
+         batch_ms_b16384={k: float(np.median(v)) for k, v in ms.items()},
+         device_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+         memory_stats_s4={k: v for k, v in views[4].memory_stats().items()
+                          if k in ("sharded_device_bytes_total",
+                                   "n_shards")},
+         **out, seconds=time.perf_counter() - t0)
+
+    # ---- (c) mutations on a fork of the 4-shard view
+    t0 = time.perf_counter()
+    s4 = views[4]
+    probe = {"b16384": q16, "b256": q256}
+    before = {name: s4.search_padded(q, TOPK, w=W)
+              for name, q in probe.items()}
+    t1 = time.perf_counter()
+    fork = s4.fork()
+    fork_ms = 1e3 * (time.perf_counter() - t1)
+    st = fork.index.store
+    dels = []
+    for c in np.argsort(-st.sizes, kind="stable"):
+        dels.extend(st.cell_entries(int(c))[0].tolist())
+        if len(dels) >= 1000:
+            break
+    dels = np.sort(np.asarray(dels[:1000]))
+    pts = qs[:2].cpu().numpy()
+    steps = {}
+    for name, fn in (("push", lambda: fork.push(pts[0])),
+                     ("delete_1000", lambda: fork.delete(dels)),
+                     ("push_front", lambda: fork.push_front(pts[1])),
+                     ("pop", lambda: fork.pop())):
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        steps[name] = dict(ms=1e3 * (time.perf_counter() - t1),
+                           refresh=fork._last_refresh)
+        check(fork._last_refresh == "incremental",
+              f"{name}: refresh {fork._last_refresh}")
+        steps[name].update(hold_to_fresh(fork, probe, mesh4, name))
+    big = synthetic_clustered(N_SHARD_PUSH, D, seed=33)
+    caps = fork._h_caps.copy()
+    t1 = time.perf_counter()
+    fork.push_batch(big)
+    torch.cuda.synchronize()
+    kc_all = np.arange(KC)
+    outgrown = float(np.mean(st.sizes > caps[kc_all % 4, kc_all]))
+    steps["push_batch"] = dict(ms=1e3 * (time.perf_counter() - t1),
+                               refresh=fork._last_refresh,
+                               cells_outgrown=outgrown)
+    check(fork._last_refresh == "full", f"push_batch: refresh "
+                                        f"{fork._last_refresh}")
+    steps["push_batch"].update(hold_to_fresh(fork, probe, mesh4,
+                                             "push_batch"))
+    for name, q in probe.items():
+        got = s4.search_padded(q, TOPK, w=W)
+        check(all(np.array_equal(a, b) for a, b in zip(got, before[name])),
+              f"the parent view's {name} results changed")
+    n_fork = len(fork.index)
+    del fork
+    emit("sharded_mutations", card=smi, fork_ms=fork_ms, steps=steps,
+         n_end=n_fork, parent_unchanged=True,
+         seconds=time.perf_counter() - t0)
+
+    # ---- (d) wide ids past a lowered device id cap
+    t0 = time.perf_counter()
+    big = synthetic_clustered(N_SHARD_PUSH, D, seed=34)
+    twin = ShardedIVFADCIndex(index.fork(), mesh4)
+    twin.push_batch(big)
+    ref_i, ref_d = twin.search_padded(q16, TOPK, w=W)
+    del twin
+    cap = WIDE_CAP
+    with env(IVFADC_DEVICE_ID_CAP=str(cap)):
+        capped = ShardedIVFADCIndex(index.fork(), mesh4)
+        check(not capped.wide_ids and len(capped.index) < cap,
+              "the capped view does not start in value mode")
+        t1 = time.perf_counter()
+        capped.push_batch(big)
+        torch.cuda.synchronize()
+        upgrade_ms = 1e3 * (time.perf_counter() - t1)
+        check(capped.wide_ids and len(capped.index) > cap, "no wide ids")
+        ids, dists = capped.search_padded(q16, TOPK, w=W)
+        try:
+            capped.index.search_padded(q16, TOPK, w=W)
+            raised = False
+        except AssertionError:
+            raised = True
+        check(raised, "the capped base's own search did not raise")
+    check(ids.dtype == np.uint64 and not (ids == WIDE_NO_ID).any()
+          and np.array_equal(ids, ref_i.astype(np.uint64))
+          and np.array_equal(dists, ref_d),
+          "wide ids differ from the uncapped twin's")
+    n_wide = len(capped.index)
+    del capped
+    emit("sharded_wide", card=smi, device_id_cap=cap, n=n_wide,
+         upgrade_push_batch_ms=upgrade_ms, ids_equal_twin=True,
+         base_search_raised=True, seconds=time.perf_counter() - t0)
+
+    # ---- (e) serving over a fork of the 4-shard view
+    t0 = time.perf_counter()
+    sv = s4.fork()
+    pool = queries.cpu().numpy()
+    pushed = fixed_points(index, 2 * N_SHARD_SERVE, seed=35)
+    stop = threading.Event()
+    window = ["static"]
+    logs = [[] for _ in range(8)]
+    errors = []
+    zero_counts()
+    s = BatchingSearcher(sv, max_batch=1024, max_wait_ms=2)
+    threads = [threading.Thread(target=serve_client, daemon=True, args=(
+        c, s, pool, stop, window, logs, errors)) for c in range(8)]
+    rng = np.random.RandomState(36)
+    try:
+        for i in range(16):
+            t1 = time.perf_counter()
+            ids, _ = s.submit(pool[i], TOPK, w=W).result(timeout=60)
+            logs[0].append(("alone", i, 1, ids, time.perf_counter() - t1))
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        time.sleep(SHARD_SERVE_S)
+        static_s = time.perf_counter() - t1
+        q0, b0 = s.stats.queries - 16, s.stats.batches - 16
+        window[0] = "mutating"
+        snap = sv.fork()
+        counts = read_counts("sharded_serving", grouped + ["probe_scan"])
+        for j in range(2):
+            p = pushed[j * N_SHARD_SERVE:(j + 1) * N_SHARD_SERVE]
+            n_before = len(sv.index)
+            s.push_batch(p)
+            got, _ = s.submit(p, TOPK, w=W).result(timeout=60)
+            check(np.array_equal(got[:, 0], n_before + np.arange(len(p))),
+                  f"sharded serving: pushed points not at rank 0 ({j})")
+            s.delete(np.sort(rng.choice(len(sv.index), N_SHARD_SERVE,
+                                        replace=False)))
+        refreshes = sv._last_refresh
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        s.close()
+    check(not errors, f"sharded serving clients failed: {errors[:3]}")
+    check(not any(t.is_alive() for t in threads), "a client hung")
+    static = [e for log in logs for e in log if e[0] == "static"]
+    overlap, n_rows = served_overlap(
+        static + [e for e in logs[0] if e[0] == "alone"], queries,
+        lambda q: np.concatenate([snap.search_padded(
+            q[i:i + B_SMALL], TOPK, w=W)[0]
+            for i in range(0, q.shape[0], B_SMALL)]))
+    check(overlap >= 0.995, f"sharded served / direct top-{TOPK} overlap "
+                            f"{overlap}")
+    lat = 1e3 * np.array([e[4] for e in static])
+    del snap, sv
+    emit("sharded_serving", card=smi, clients=8, static_s=static_s,
+         requests=len(static), query_rows=int(q0), served_qps=q0 / static_s,
+         dispatches=int(b0), mean_batch=q0 / max(b0, 1),
+         latency_p50_ms=float(np.percentile(lat, 50)),
+         latency_p99_ms=float(np.percentile(lat, 99)),
+         top10_overlap_direct=overlap, direct_rows=n_rows, launches=counts,
+         mutations=4, last_refresh=refreshes, pushed_found_at_rank_0=True,
+         seconds=time.perf_counter() - t0)
+    del s4, views
+    torch.cuda.empty_cache()
+
+
+def phase_sharded_two_level(index, q, smi, zero_counts, read_counts) -> None:
+    """(b) two shards of the large-kc index on one card: a B=4096 batch at
+    w=32 with distances bit-equal to the single card's (ids but at exact
+    ties), through stage 1 (6), stage 2 (2, 8a, 4), the per-probe posting
+    scan (5) and top-k (6); batch ms beside the single card's."""
+    import torch
+    from ivfadc_tpu_torch import ShardedIVFADCIndex, make_mesh
+    t0 = time.perf_counter()
+    t1 = time.perf_counter()
+    view = ShardedIVFADCIndex(index, make_mesh(n_shards=2,
+                                               devices=[SHARD_DEVICE] * 2))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    ref = index.search_padded(q, TOPK, w=W3)
+    zero_counts()
+    got = view.search_padded(q, TOPK, w=W3)
+    counts = read_counts("sharded_two_level", [
+        "topk_index", "cell_rank", "grouped_scan_knorm", "topk_payload",
+        "probe_scan"], idle=["grouped_scan", "coarse_probe"])
+    tie_rows = ties_only(*got, *ref)
+    ms = {"single": [], "s2": []}
+    for r in range(6):                          # the first: warm-up
+        for key, fn in (("single", lambda: index._device_search(q, TOPK,
+                                                                  W3)),
+                        ("s2", lambda: view._dispatch(q, TOPK, W3, False))):
+            t = batch_ms(fn)
+            if r:
+                ms[key].append(t)
+    del view
+    torch.cuda.empty_cache()
+    emit("sharded_two_level", card=smi, n_shards=2, queries=q.shape[0],
+         w=W3, view_build_s=build_s, launches=counts, tie_rows=tie_rows,
+         batch_ms={k: float(np.median(v)) for k, v in ms.items()},
+         seconds=time.perf_counter() - t0)
 
 
 def main() -> int:
@@ -3185,6 +3549,8 @@ def main() -> int:
     t0 = time.perf_counter()
     emit("tune", card=smi, **phase_tune(index, queries[:BATCH]),
          seconds=time.perf_counter() - t0)
+    phase_sharded(index, queries, qs, gt, recall, smi, zero_counts,
+                  read_counts)
     t0 = time.perf_counter()
     emit("serving", card=smi, **phase_serving(index, queries, zero_counts,
                                               read_counts),
@@ -3196,6 +3562,8 @@ def main() -> int:
     posting = records.pop("grouped_scan_knorm@posting")
     pos8_sift = records.pop("grouped_scan_pos8@sift1m_integer")
     tl = phase_two_level(zero_counts, read_counts, posting)
+    phase_sharded_two_level(tl["index"], tl["queries"], smi, zero_counts,
+                            read_counts)
     t0 = time.perf_counter()
     emit("dynamic_two_level", card=smi, **phase_dynamic_two_level(
         tl.pop("index"), tl.pop("queries"), zero_counts, read_counts),

@@ -15,7 +15,8 @@ __version__ = "0.1.0"
 
 
 def knn_search(index, points, k: int, w: int = 1):
-    """Single point or batch search (see IVFADCIndex.search)."""
+    """Single point or batch search (see IVFADCIndex.search); works on
+    plain and `ShardedIVFADCIndex` indexes alike."""
     return index.search(points, k, w=w)
 
 
@@ -33,8 +34,21 @@ def load_ivfadc_index(path: str, device=None) -> IVFADCIndex:
     return IVFADCIndex.load(path, device=device)
 
 
+def __getattr__(name: str):
+    # lazy: the sharded layer loads when a user reaches for it
+    if name == "ShardedIVFADCIndex":
+        from ivfadc_tpu_torch.parallel.sharded import ShardedIVFADCIndex
+        return ShardedIVFADCIndex
+    if name == "make_mesh":
+        from ivfadc_tpu_torch.parallel.mesh import make_mesh
+        return make_mesh
+    raise AttributeError(
+        f"module 'ivfadc_tpu_torch' has no attribute {name!r}")
+
+
 __all__ = [
     "BatchingSearcher", "IVFADCConfig", "IVFADCIndex", "Metric", "ProductQuantizer",
-    "get_metric", "register_metric", "knn_search", "delete_from_index",
-    "save_ivfadc_index", "load_ivfadc_index",
+    "ShardedIVFADCIndex", "get_metric", "make_mesh", "register_metric",
+    "knn_search", "delete_from_index", "save_ivfadc_index",
+    "load_ivfadc_index",
 ]

@@ -179,9 +179,11 @@ class IVFADCConfig:
             raise ValueError(
                 f"cell_align must be 0 (auto), 8 or 128, got {self.cell_align}")
 
-    def validate_for_data(self, n: int, d: int) -> None:
+    def validate_for_data(self, n: int, d: int, sharded: bool = False
+                          ) -> None:
         """Build-time assertions, 1:1 with IVFADC.jl src/index.jl:116-125,
-        plus the device int32 id cap."""
+        plus the device int32 id cap, which a build into a sharded view
+        (`sharded=True`) may cross: its wide-id mode lifts it."""
         if self.kc < 2:
             raise AssertionError("Number of coarse clusters has to be >= 2")
         if self.k > n:
@@ -195,11 +197,12 @@ class IVFADCConfig:
         if DTYPE_TO_BITS[self.index_dtype] < bits_required(n):
             raise AssertionError(
                 f"{n} vectors require at least {bits_required(n)} index bits")
-        if n > device_id_cap():
+        if n > device_id_cap() and not sharded:
             raise AssertionError(
                 f"{n} vectors exceed the device int32 id representation "
-                f"({device_id_cap()}); sharded views, whose wide-id mode "
-                f"lifts the cap, are not ported yet (ROADMAP A.14)")
+                f"({device_id_cap()}); build through ShardedIVFADCIndex "
+                f"(.build_streaming / .build_from_files), whose wide-id "
+                f"mode lifts the cap to the index_dtype capacity")
 
     @property
     def code_dtype(self) -> str:

@@ -503,7 +503,8 @@ class IVFADCIndex:
     @classmethod
     def build_streaming(cls, chunks, config: Optional[IVFADCConfig] = None,
                         *, train_data=None, train_sample: int = 1 << 18,
-                        device=None, **kwargs) -> "IVFADCIndex":
+                        device=None, _sharded: bool = False,
+                        **kwargs) -> "IVFADCIndex":
         """Out-of-core build: index data that never fits in memory at once.
 
         `chunks` is a RE-ITERABLE of (b, d) float arrays (or tensors), e.g.
@@ -527,6 +528,10 @@ class IVFADCIndex:
         With `train_data` equal to the concatenated stream the result is
         `build(train_data)` bit for bit: the same training, the same cell
         arithmetic, row-independent encoding and the same CSR builder.
+
+        `_sharded=True` (set by `ShardedIVFADCIndex.build_streaming`) lets
+        the stream cross the device int32 id cap: the sharded view's
+        wide-id mode serves such an index.
         """
         if config is None:
             config = IVFADCConfig(**kwargs)
@@ -575,7 +580,7 @@ class IVFADCIndex:
             train = sample[:min(seen, train_sample)]
             # every validate_for_data check is decidable now: fail before
             # the training and encode passes, not after them
-            config.validate_for_data(seen, d)
+            config.validate_for_data(seen, d, _sharded)
         else:
             train = train_data if isinstance(train_data, torch.Tensor) \
                 else np.asarray(train_data, np.float32)
@@ -586,7 +591,7 @@ class IVFADCIndex:
             # here too; the exact n is validated again after pass 2
             n_hint = getattr(chunks, "n_rows", None)
             if n_hint:
-                config.validate_for_data(int(n_hint), d)
+                config.validate_for_data(int(n_hint), d, _sharded)
         if config.k > train.shape[0]:
             raise AssertionError(
                 f"training sample ({train.shape[0]}) must hold at least "
@@ -632,7 +637,7 @@ class IVFADCIndex:
                 f"a one-shot generator")
         if n == 0:
             raise AssertionError("empty chunk stream")
-        config.validate_for_data(n, d)
+        config.validate_for_data(n, d, _sharded)
         return cls._finish_build(config, torch.cat(all_assign),
                                  torch.cat(all_codes), centers, quantizer,
                                  cmetric, data_dtype, d, timer)

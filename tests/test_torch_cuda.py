@@ -1393,3 +1393,69 @@ def test_batching_searcher_on_the_card_equals_direct_search(dev):
                                        replace=False).tolist()))
         assert s.stats.batches >= 32
     _views_equal_rebuild(idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("align", [128, 8])
+def test_sharded_view_on_the_card_equals_single_card(dev, align):
+    """Four shards of one index on cuda:0: grouped (B=512) and per-probe
+    (B=16) batches give the single-card distances bit for bit, ids equal
+    but at exact ties, with one coarse probe per search (the shards share
+    the card) and the merge on kernel 6; after a push and a delete the
+    incremental refresh equals a fresh view bit for bit."""
+    from ivfadc_tpu_torch import ShardedIVFADCIndex, make_mesh
+    idx, data, q = _dynamic_index(align)
+    sidx = ShardedIVFADCIndex(idx, make_mesh(n_shards=4,
+                                             devices=["cuda:0"] * 4))
+    assert all(v["decoded"].is_cuda and v["ids"].is_cuda
+               for v in sidx.views)
+    n_probe, n_merge = coarse_scan.KERNEL.launches, topk.INDEX_KERNEL.launches
+    sidx.search_padded(q, 10, w=8)
+    assert coarse_scan.KERNEL.launches == n_probe + 1
+    assert topk.INDEX_KERNEL.launches >= n_merge + 1
+    _same_results(sidx, idx, q, ties_ok=True)
+    sidx.push(data[0] + 0.01)
+    sidx.delete([5, 17])
+    assert sidx._last_refresh == "incremental"
+    _same_results(sidx, ShardedIVFADCIndex(idx, sidx.mesh), q, ties_ok=False)
+    _same_results(sidx, idx, q, ties_ok=True)
+
+
+@pytest.mark.cuda
+def test_sharded_view_across_cards_equals_single_card(dev):
+    """Shards on every visible card (needs two or more): make_mesh() (one
+    shard a card) and two data groups, each shard on two cards, give the
+    single-card distances bit for bit; a push and a delete patch every
+    copy of a shard, equal to a fresh view."""
+    from ivfadc_tpu_torch import ShardedIVFADCIndex, make_mesh
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    idx, data, q = _dynamic_index(128)
+    for mesh in (make_mesh(), make_mesh(n_data=2)):
+        sidx = ShardedIVFADCIndex(idx.fork(), mesh)
+        cards = {v["decoded"].device for row in sidx._group_views
+                 for v in row}
+        assert len(cards) == n - n % mesh.shape["data"]
+        _same_results(sidx, sidx.index, q, ties_ok=True)
+        sidx.push(data[0] + 0.01)
+        sidx.delete([5, 17])
+        assert sidx._last_refresh == "incremental"
+        _same_results(sidx, ShardedIVFADCIndex(sidx.index, mesh), q,
+                      ties_ok=False)
+        _same_results(sidx, sidx.index, q, ties_ok=True)
+
+
+def _same_results(a, b, q, ties_ok: bool):
+    """Both scan routes (per probe, B=16; grouped, B=512) of two indexes:
+    distances bit-equal, ids equal (ties_ok: but at exact ties)."""
+    for qq in (q[:16], q):
+        ai, ad = a.search_padded(qq, 10, w=8)
+        bi, bd = b.search_padded(qq, 10, w=8)
+        np.testing.assert_array_equal(ad, bd)
+        if not ties_ok:
+            np.testing.assert_array_equal(ai, bi)
+            continue
+        for x, y, d in zip(ai, bi, ad):
+            for v in np.unique(d[d < d[-1]]):
+                assert set(x[d == v]) == set(y[d == v])

@@ -254,7 +254,9 @@ def test_import_loads_no_jax():
             "'ivfadc_tpu_torch.utils.repro', "
             "'ivfadc_tpu_torch.utils.lloyd_timing', "
             "'ivfadc_tpu_torch.ops.gather_scan', "
-            "'ivfadc_tpu_torch.models.inverted'} <= set(mods), mods\n"
+            "'ivfadc_tpu_torch.models.inverted', "
+            "'ivfadc_tpu_torch.parallel.mesh', "
+            "'ivfadc_tpu_torch.parallel.sharded'} <= set(mods), mods\n"
             "for m in mods: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', "
             "'ivfadc_tpu') or m.startswith(('jax.', 'jaxlib.', "
