@@ -161,6 +161,30 @@ phases, printing one JSON line per phase; any failure raises (exit != 0):
            2 s, then 2 push_batch (pushed points at rank 0) and 2 deletes
            through it; served QPS, p50 / p99, top-10 overlap with the
            view's own search >= 0.995
+  distributed  `phase_distributed`, one line a part, at the build phase's
+           shape: ShardedIVFADCIndex.build of the 1M points over
+           make_mesh(n_shards=4) on one card (seconds per stage); counts
+           zeroed per batch: the 1000 queries and a B=16384 batch
+           (kernel 1 once, 2-4 four times each, 6 once to merge) and a
+           B=256 batch (1 once, 5 four times, 6 five times); recall@10 at
+           least the single card's - 0.01, beside the oracle's; the view's
+           directory consolidated into an IVFADCIndex on the card:
+           B=16384 and B=256 distances bit-equal, ids but at exact ties;
+           batch ms, device peak. distributed_persist: save, load onto
+           S=4 (bit-equal) and S=2 (a reshard: distances bit-equal),
+           consolidate_sharded_to_file then IVFADCIndex.load on the card
+           (equal to the in-memory consolidation); bytes and seconds.
+           distributed_mutations: a fork takes push_batch of 65,536 points
+           (a regrow; kernel 7 gives the cells), a 1000-id delete,
+           push_front, pop, pop_front and reconstruct, each held to a
+           fresh view over its consolidated state (distances bit-equal,
+           ids but at ties; ids 0..n-1); the parent unchanged; ms of each.
+           distributed_ranks: two ranks spawned by torch.multiprocessing
+           on the card (gloo: NCCL refuses two ranks on one card), a
+           global 1 x 4 mesh: build, search, owner-only save, then a
+           fresh group loads and searches; every rank bit-equal to the
+           single-process view; a rank that fails or outlasts its limit
+           fails the phase
   two_level  the large-kc configuration at the Deep1B-shard shape: n=2M,
            d=96, kc=2^18 (k-means|| seeding, 8-row cells), m=16, k=256,
            coarse_quantizer="hnsw"; kernel 8a and kernels 2 (and 11: the
@@ -3095,6 +3119,356 @@ def phase_sharded(index, queries, qs, gt, recall, smi, zero_counts,
     torch.cuda.empty_cache()
 
 
+N_DIST_PUSH = 65536                  # the distributed view's push_batch
+N_DIST_DEL = 1000                    # its delete
+RANK_TIMEOUT_S = 420                 # a spawned rank's limit in (d)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _distributed_rank(rank: int, port: int, out_dir: str, phase: str,
+                      device: str, shape: tuple):
+    """One rank of phase_distributed's (d): two ranks on `device` (the
+    card: gloo, since NCCL refuses two ranks on one card), two shards each
+    of a global 1 x 4 mesh. `build` builds from the build phase's points
+    (`shape` = (n, d, kc, m, k)) and searches the 1000 queries, then saves
+    its own shard files; `load` loads the directory in a fresh group and
+    searches again. Writes its results and timings into `out_dir`."""
+    sys.path.insert(0, ROOT)
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from ivfadc_tpu_torch import IVFADCConfig
+    from ivfadc_tpu_torch.parallel import (ShardedIVFADCIndex,
+                                           initialize_cluster,
+                                           load_sharded_index, make_mesh,
+                                           process_info, save_sharded_index,
+                                           shutdown_cluster)
+    from ivfadc_tpu_torch.utils.datasets import synthetic_clustered
+    t0 = time.perf_counter()
+    ok = initialize_cluster(f"127.0.0.1:{port}", 2, rank, [0, 0])
+    info = process_info()
+    check(ok and info["process_count"] == 2
+          and info["global_device_count"] == 4, f"rank {rank}: {info}")
+    mesh = make_mesh(n_shards=4)
+    q = np.load(os.path.join(out_dir, "queries.npy"))
+    rec = dict(rank=rank, backend=info["backend"],
+               init_s=time.perf_counter() - t0)
+    path = os.path.join(out_dir, "dir")
+    t1 = time.perf_counter()
+    if phase == "build":
+        n, d, kc, m, k = shape
+        data = torch.as_tensor(synthetic_clustered(n, d, seed=0),
+                               device=device)
+        view = ShardedIVFADCIndex.build(data, mesh, IVFADCConfig(
+            kc=kc, k=k, m=m, seed=0))
+        del data
+    else:
+        view = load_sharded_index(path, mesh)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    rec[f"{phase}_s"] = time.perf_counter() - t1
+    if phase == "build":
+        rec["build_stages_s"] = view.build_timings
+    held = [v for v in view.views if v is not None]
+    check(len(held) == 2 and all(v["ids"].device.type ==
+                                 torch.device(device).type for v in held),
+          f"rank {rank}: not 2 shards on {device}")
+    ids, dists = view.search_padded(q, TOPK, w=W)
+    if phase == "build":
+        t1 = time.perf_counter()
+        save_sharded_index(path, view)
+        rec["save_s"] = time.perf_counter() - t1
+    np.savez(os.path.join(out_dir, f"{phase}{rank}.npz"), ids=ids,
+             dists=dists)
+    with open(os.path.join(out_dir, f"{phase}{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    shutdown_cluster()
+
+
+def run_ranks(phase: str, out_dir: str) -> list:
+    """Two ranks of `_distributed_rank` by torch.multiprocessing (spawn);
+    a rank that raises, or that outlasts RANK_TIMEOUT_S, fails the phase.
+    Every process is stopped before this returns. -> the ranks' records."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(
+        _distributed_rank, args=(_free_port(), out_dir, phase, SHARD_DEVICE,
+                                 (N, D, KC, M, KQ)),
+        nprocs=2, join=False, start_method="spawn")
+    deadline = time.perf_counter() + RANK_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            check(time.perf_counter() < deadline,
+                  f"distributed {phase}: a rank outlasted "
+                  f"{RANK_TIMEOUT_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(10)
+            if proc.is_alive():
+                proc.kill()
+                proc.join(10)
+    out = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"{phase}{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def phase_distributed(base, queries, qs, gt, recall, recall_oracle, smi,
+                      zero_counts, read_counts) -> None:
+    """The distributed build at the SIFT1M width (one line a part):
+
+      distributed          (a) ShardedIVFADCIndex.build of the build phase's
+                           1M points over make_mesh(n_shards=4) on one card
+                           (seconds per stage); counts zeroed per batch: the
+                           1000 queries and a B=16384 batch (kernel 1 once,
+                           2-4 once a shard, 6 once to merge) and a B=256
+                           batch (1 once, 5 once a shard, 6 once a shard and
+                           once to merge); recall@10 >= the single card's
+                           - 0.01; its directory consolidated into an
+                           IVFADCIndex on the card: B=16384 and B=256
+                           distances bit-equal, ids but at exact ties;
+                           batch ms, device peak
+      distributed_persist  (b) save_sharded_index, load_sharded_index onto
+                           S=4 (results bit-equal) and S=2 (a reshard:
+                           distances bit-equal), consolidate_sharded_to_file
+                           then IVFADCIndex.load on the card: equal to the
+                           in-memory consolidation; bytes and seconds
+      distributed_mutations (c) a fork of the view: push_batch of 65,536
+                           points (a regrow; kernel 7 gives the cells), a
+                           1000-id delete, push_front, pop, pop_front,
+                           reconstruct; after each, B=16384 and B=256
+                           results equal a fresh view over the consolidated
+                           state (distances bit-equal, ids but at ties), ids
+                           stay 0..n-1; the parent unchanged; ms of each op
+      distributed_ranks    (d) two spawned ranks on the card (gloo), a
+                           global 1 x 4 mesh: build, search the 1000
+                           queries, save each rank's shard files; a fresh
+                           group loads the directory and searches: every
+                           rank's ids and distances bit-equal to (a)'s"""
+    import shutil
+
+    import torch
+    from ivfadc_tpu_torch import (IVFADCConfig, IVFADCIndex,
+                                  ShardedIVFADCIndex, make_mesh)
+    from ivfadc_tpu_torch.parallel import (consolidate_sharded_index,
+                                           consolidate_sharded_to_file,
+                                           load_sharded_index,
+                                           save_sharded_index)
+    from ivfadc_tpu_torch.utils.datasets import synthetic_clustered
+    from ivfadc_tpu_torch.utils.evaluation import recall_at_r
+
+    # ---- (a) build and search
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mesh4 = make_mesh(n_shards=4, devices=[SHARD_DEVICE] * 4)
+    t1 = time.perf_counter()
+    view = ShardedIVFADCIndex.build(base, mesh4,
+                                    IVFADCConfig(kc=KC, k=KQ, m=M, seed=0))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    check(view._distributed_build and not view.index.store.has_payload
+          and len(view.index) == N
+          and all(v["decoded"] is not None and v["decoded"].is_cuda
+                  and v["ids"].is_cuda for v in view.views),
+          "distributed view not dense on the card")
+    q16, q256 = queries[:BATCH], queries[BATCH:BATCH + B_SMALL]
+    batches = {"queries_1000": qs, "b16384": q16, "b256": q256}
+    grouped = dict(coarse_probe=1, cell_rank=4, grouped_scan=4,
+                   topk_payload=4, topk_index=1, probe_scan=0)
+    per_probe = dict(coarse_probe=1, cell_rank=0, grouped_scan=0,
+                     topk_payload=0, probe_scan=4, topk_index=5)
+    res, launch = {}, {}
+    for name, q in batches.items():
+        want = per_probe if name == "b256" else grouped
+        zero_counts()
+        res[name] = view.search_padded(q, TOPK, w=W)
+        counts = read_counts(f"distributed_{name}",
+                             [k for k, v in want.items() if v])
+        launch[name] = {k: counts[k] for k in want}
+        check(launch[name] == want,
+              f"distributed {name}: launches {launch[name]}, want {want}")
+    ids, dists = res["queries_1000"]
+    check(ids.shape == (N_SEARCH, TOPK) and np.isfinite(dists).all()
+          and (ids >= 0).all() and (ids < N).all(), "distributed output")
+    rec10 = recall_at_r(ids, gt, TOPK)
+    check(rec10 >= recall - 0.01,
+          f"distributed recall {rec10} vs the single card's {recall}")
+    ms = {"b16384": [], "b256": []}
+    for r in range(11):                        # the first: warm-up
+        for name in ms:
+            t = batch_ms(lambda: view._dispatch(batches[name], TOPK, W,
+                                                False))
+            if r:
+                ms[name].append(t)
+    tmp = tempfile.mkdtemp(dir=ROOT)
+    try:
+        d4 = os.path.join(tmp, "s4")
+        t1 = time.perf_counter()
+        save_sharded_index(d4, view)
+        save_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        plain = consolidate_sharded_index(d4, device="cuda")
+        consolidate_s = time.perf_counter() - t1
+        check(plain.device.type == "cuda" and len(plain) == N,
+              "consolidated index")
+        tie_rows = {}
+        for name in ("b16384", "b256"):
+            tie_rows[name] = ties_only(*res[name], *plain.search_padded(
+                batches[name], TOPK, w=W))
+        emit("distributed", card=smi, n=N, d=D, kc=KC, m=M, k=KQ,
+             n_shards=4, build_s=build_s,
+             build_stages_s=view.build_timings, recall_at_10=rec10,
+             recall_single_card=recall, recall_oracle=recall_oracle,
+             launches=launch,
+             batch_ms={k: float(np.median(v)) for k, v in ms.items()},
+             consolidated_tie_rows=tie_rows,
+             device_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+             seconds=time.perf_counter() - t0)
+
+        # ---- (b) the shard directory
+        t0 = time.perf_counter()
+        dir_bytes = sum(os.path.getsize(os.path.join(d4, f))
+                        for f in os.listdir(d4))
+        t1 = time.perf_counter()
+        v4 = load_sharded_index(d4, mesh4)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t1
+        for name in ("b16384", "b256"):
+            got = v4.search_padded(batches[name], TOPK, w=W)
+            check(all(np.array_equal(a, b) for a, b in zip(got, res[name])),
+                  f"load S=4: {name} results differ")
+        del v4
+        t1 = time.perf_counter()
+        v2 = load_sharded_index(d4, make_mesh(n_shards=2,
+                                              devices=[SHARD_DEVICE] * 2))
+        torch.cuda.synchronize()
+        reshard_s = time.perf_counter() - t1
+        reshard_ties = {name: ties_only(*res[name], *v2.search_padded(
+            batches[name], TOPK, w=W)) for name in ("b16384", "b256")}
+        del v2
+        flat = os.path.join(tmp, "flat.npz")
+        t1 = time.perf_counter()
+        consolidate_sharded_to_file(d4, flat)
+        to_file_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        loaded = IVFADCIndex.load(flat, device="cuda")
+        file_load_s = time.perf_counter() - t1
+        for key in ("offsets", "caps", "sizes", "codes", "ids"):
+            check(np.array_equal(getattr(loaded.store, key),
+                                 getattr(plain.store, key)),
+                  f"out-of-core consolidation: {key} differs")
+        for name in ("b16384", "b256"):
+            got = loaded.search_padded(batches[name], TOPK, w=W)
+            ref = plain.search_padded(batches[name], TOPK, w=W)
+            check(all(np.array_equal(a, b) for a, b in zip(got, ref)),
+                  f"the consolidated file's {name} results differ")
+        del loaded, plain
+        emit("distributed_persist", card=smi, dir_bytes=dir_bytes,
+             save_s=save_s, load_s4_s=load_s, load_s2_reshard_s=reshard_s,
+             consolidate_s=consolidate_s, consolidate_to_file_s=to_file_s,
+             file_bytes=os.path.getsize(flat), file_load_s=file_load_s,
+             reshard_tie_rows=reshard_ties,
+             seconds=time.perf_counter() - t0)
+        os.remove(flat)
+
+        # ---- (c) native mutations on a fork
+        t0 = time.perf_counter()
+        probe = {"b16384": q16, "b256": q256}
+        fork = view.fork()
+        steps = {}
+
+        def hold(step):
+            d = os.path.join(tmp, f"c_{step}")
+            save_sharded_index(d, fork)
+            ref = consolidate_sharded_index(d, device="cuda")
+            shutil.rmtree(d)
+            live = ref.store.ids[ref.store.ids >= 0]
+            check(np.array_equal(np.sort(live), np.arange(len(ref)))
+                  and len(ref) == len(fork.index), f"{step}: ids not 0..n-1")
+            fresh = ShardedIVFADCIndex(ref, mesh4)
+            steps[step]["tie_rows"] = {
+                name: ties_only(*fork.search_padded(q, TOPK, w=W),
+                                *fresh.search_padded(q, TOPK, w=W))
+                for name, q in probe.items()}
+            return ref
+
+        def timed(step, fn):
+            t1 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            steps[step] = dict(ms=1e3 * (time.perf_counter() - t1))
+            return out
+
+        big = synthetic_clustered(N_DIST_PUSH, D, seed=37)
+        caps = fork._h_caps.copy()
+        zero_counts()
+        timed("push_batch", lambda: fork.push_batch(big))
+        push_counts = read_counts("distributed_push", ["coarse_topw"])
+        check(not np.array_equal(caps, fork._h_caps),
+              "push_batch: no regrow")
+        steps["push_batch"]["launches"] = {
+            k: push_counts[k] for k in ("coarse_topw", "topk_index")}
+        hold("push_batch")
+        rng = np.random.RandomState(38)
+        dels = np.sort(rng.choice(len(fork.index), N_DIST_DEL,
+                                  replace=False))
+        timed("delete_1000", lambda: fork.delete(dels))
+        hold("delete_1000")
+        pt = qs[0].cpu().numpy()
+        timed("push_front", lambda: fork.push_front(pt))
+        hold("push_front")
+        timed("pop", fork.pop)
+        hold("pop")
+        timed("pop_front", fork.pop_front)
+        ref = hold("pop_front")
+        rec = timed("reconstruct", lambda: fork.reconstruct(123))
+        check(np.allclose(rec, ref.reconstruct(123), rtol=1e-6, atol=1e-5),
+              "reconstruct differs from the consolidated index's")
+        for name, q in probe.items():
+            got = view.search_padded(q, TOPK, w=W)
+            check(all(np.array_equal(a, b) for a, b in zip(got, res[name])),
+                  f"the parent view's {name} results changed")
+        n_end = len(fork.index)
+        del fork, ref
+        emit("distributed_mutations", card=smi, steps=steps, n_end=n_end,
+             last_refresh="native", parent_unchanged=True,
+             seconds=time.perf_counter() - t0)
+        del view
+        torch.cuda.empty_cache()
+
+        # ---- (d) two ranks of one process group on the card
+        t0 = time.perf_counter()
+        ranks_dir = os.path.join(tmp, "ranks")
+        os.makedirs(ranks_dir)
+        np.save(os.path.join(ranks_dir, "queries.npy"), qs.cpu().numpy())
+        build_recs = run_ranks("build", ranks_dir)
+        check(sorted(f for f in os.listdir(os.path.join(ranks_dir, "dir"))
+                     if f.startswith("shard_")) ==
+              [f"shard_{s:05d}.npz" for s in range(4)], "rank shard files")
+        load_recs = run_ranks("load", ranks_dir)
+        for phase in ("build", "load"):
+            for r in range(2):
+                z = np.load(os.path.join(ranks_dir, f"{phase}{r}.npz"))
+                check(np.array_equal(z["ids"], ids)
+                      and np.array_equal(z["dists"], dists),
+                      f"rank {r} ({phase}) differs from the single-process "
+                      f"view")
+        emit("distributed_ranks", card=smi, ranks=2,
+             backend=build_recs[0]["backend"], build=build_recs,
+             load=load_recs, equal_single_process=True,
+             seconds=time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def phase_sharded_two_level(index, q, smi, zero_counts, read_counts) -> None:
     """(b) two shards of the large-kc index on one card: a B=4096 batch at
     w=32 with distances bit-equal to the single card's (ids but at exact
@@ -3551,6 +3925,8 @@ def main() -> int:
          seconds=time.perf_counter() - t0)
     phase_sharded(index, queries, qs, gt, recall, smi, zero_counts,
                   read_counts)
+    phase_distributed(base, queries, qs, gt, recall, recall_oracle, smi,
+                      zero_counts, read_counts)
     t0 = time.perf_counter()
     emit("serving", card=smi, **phase_serving(index, queries, zero_counts,
                                               read_counts),

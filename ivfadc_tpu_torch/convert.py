@@ -25,9 +25,9 @@ ARRAY_KEYS = ("centroids", "codebooks", "rotation", "offsets", "caps",
 # (and `n_probe_groups` in meta)
 
 
-def index_from_arrays(arrays: dict, meta: dict, device) -> IVFADCIndex:
-    """arrays: the format-v1 arrays (ARRAY_KEYS) as numpy; meta: the header
-    (config dict, dim, data_dtype, coarse_kind, quantizer_method)."""
+def components_from_arrays(arrays: dict, meta: dict, device):
+    """(config, coarse quantizer, product quantizer) on `device` from the
+    format's arrays and header (shared with the shard-dir format)."""
     dev = torch.device(device)
     config = IVFADCConfig.from_dict(meta["config"])
 
@@ -45,6 +45,14 @@ def index_from_arrays(arrays: dict, meta: dict, device) -> IVFADCIndex:
         coarse = NaiveCoarseQuantizer(f32("centroids"), cmetric)
     quantizer = ProductQuantizer(f32("codebooks"), f32("rotation"),
                                  meta["quantizer_method"])
+    return config, coarse, quantizer
+
+
+def index_from_arrays(arrays: dict, meta: dict, device) -> IVFADCIndex:
+    """arrays: the format-v1 arrays (ARRAY_KEYS) as numpy; meta: the header
+    (config dict, dim, data_dtype, coarse_kind, quantizer_method)."""
+    dev = torch.device(device)
+    config, coarse, quantizer = components_from_arrays(arrays, meta, dev)
     codes = np.array(arrays["codes"])
     store = PostingStore(
         config.kc, config.m, codes.dtype,

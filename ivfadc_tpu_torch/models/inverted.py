@@ -39,6 +39,11 @@ a caller serializes them with readers (serving.py does).
 
 `MutationLog` records, per consumer, the cells and id renumberings since
 its last drain (the JAX package's sharded views replay them).
+
+A store built with neither host nor device arrays is metadata-only
+(`has_payload` False): the layout and histogram of a distributed view's
+payload-free base, whose postings live on the shards; reading its codes
+or ids raises.
 """
 
 from __future__ import annotations
@@ -188,13 +193,27 @@ class PostingStore:
     def __repr__(self) -> str:
         return (f"PostingStore({self.kc} cells, m={self.m}, "
                 f"{self.code_dtype.name} codes), {int(self.sizes.sum())} "
-                f"vectors")
+                f"vectors" + ("" if self.has_payload else " [metadata-only]"))
+
+    @property
+    def has_payload(self) -> bool:
+        """False for a metadata-only store (the base of a distributed
+        view): the cell layout and histogram exist, the codes and ids live
+        on the shards."""
+        return not (self._codes_h is None and self._codes_dev is None)
+
+    def _payload_missing(self):
+        return RuntimeError(
+            "metadata-only PostingStore (distributed build) has no host "
+            "payload: search and save through the sharded view")
 
     # ---- host views (hydrated from the device on first use) ----
 
     @property
     def codes(self) -> np.ndarray:
         if self._codes_h is None:
+            if self._codes_dev is None:
+                raise self._payload_missing()
             # a copy (astype), never the device tensor's own memory, which
             # a fork may still read
             self._codes_h = self._codes_dev.cpu().numpy().astype(
@@ -204,6 +223,8 @@ class PostingStore:
     @property
     def ids(self) -> np.ndarray:
         if self._ids_h is None:
+            if self._ids_dev is None:
+                raise self._payload_missing()
             self._ids_h = self._ids_dev.cpu().numpy().astype(np.int64)
         return self._ids_h[:self._total]
 

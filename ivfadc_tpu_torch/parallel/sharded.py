@@ -1,5 +1,4 @@
-"""Sharded IVFADC search in one process (port of the single-process half of
-`ivfadc_tpu/parallel/sharded.py`).
+"""Sharded IVFADC search (port of `ivfadc_tpu/parallel/sharded.py`).
 
 Design, as in the JAX package:
   * cells are dealt round-robin to S shards (cell c -> shard c % S); each
@@ -10,8 +9,8 @@ Design, as in the JAX package:
     every device that holds a shard;
   * queries are split over the mesh's data axis; each data group searches
     its slice on all S of its shards, and the shards' (B, k) candidates,
-    concatenated shard-major on the group's first device, go through one
-    exact top-k: the lowest flat position wins a tie, as `lax.top_k` does.
+    concatenated shard-major on one device, go through one exact top-k:
+    the lowest flat position wins a tie, as `lax.top_k` does.
 
 A shard is a dict of tensors on its device with the keys of
 `PostingStore.device_view_dense` (`offsets`, `sizes`, `decoded`, `scale`,
@@ -29,9 +28,26 @@ Wide ids: past the device int32 id cap the shards' id arrays hold per-shard
 slot indices and a host (S, cap_pad) uint64 array `_trans` maps (shard,
 slot) to the global id; the merge keeps each winner's shard.
 
-Every view is host-based: the base index keeps the truth, its store's
-`MutationLog` records what changed, and `refresh()` patches the shards
-(incremental) or re-partitions them (full).
+Two kinds of view:
+  * host-based (`ShardedIVFADCIndex(index, mesh)`): the base index keeps
+    the truth, its store's `MutationLog` records what changed, and
+    `refresh()` patches the shards (incremental) or re-partitions them
+    (full);
+  * distributed (`ShardedIVFADCIndex.build`, `load_sharded_index`): the
+    base is payload-free (the trained components and the global cell
+    layout), and the dynamic ops patch the shards natively: encode on the
+    device, scatter rows into the owner shard's cell tails, compact a cell
+    in place on delete, re-lay the shards out when a cell outgrows its
+    capacity (`_regrow_distributed`), renumber ids on the shards.
+
+Under a process group (parallel/bootstrap.py) every rank calls each entry
+point with the same arguments (the JAX package's SPMD contract). A rank
+makes only the shards of its own mesh positions; the host layout is
+repaired by an element-wise max over the ranks (a per-rank restore zero-
+fills the shards it does not hold); a search gathers every position's
+candidates across the ranks before the merge, so every rank returns the
+whole batch; the native ops compute their host-side coordinates on every
+rank alike and write the shards each rank holds. Wide ids raise there.
 """
 
 from __future__ import annotations
@@ -50,11 +66,15 @@ from ivfadc_tpu_torch.models.index import (IVFADCIndex, _bucket_batch,
                                            _env_coarse_engine, _env_extract,
                                            _env_merge_topk, _env_rank_engine,
                                            _lut_search)
-from ivfadc_tpu_torch.models.inverted import _row_norms
+from ivfadc_tpu_torch.models.inverted import PostingStore, _row_norms
 from ivfadc_tpu_torch.ops import pq as pq_ops
 from ivfadc_tpu_torch.ops.gather_scan import plan_gather
 from ivfadc_tpu_torch.ops.topk import topk_lastdim
-from ivfadc_tpu_torch.parallel.mesh import DATA_AXIS, SHARD_AXIS, make_mesh
+from ivfadc_tpu_torch.parallel.collectives import Collectives
+from ivfadc_tpu_torch.parallel.mesh import (DATA_AXIS, SHARD_AXIS,
+                                            make_mesh)
+from ivfadc_tpu_torch.parallel.mesh import canonical as _canonical
+from ivfadc_tpu_torch.parallel.persistence import _row_moves
 
 _LANE = 128
 
@@ -66,15 +86,6 @@ WIDE_NO_ID = np.uint64(0xFFFFFFFFFFFFFFFF)
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
-
-
-def _row_moves(sizes: np.ndarray):
-    """(cell_rep, within) for every live row, in cell order."""
-    sz = np.asarray(sizes, np.int64)
-    tot = int(sz.sum())
-    cell_rep = np.repeat(np.arange(len(sz)), sz)
-    within = np.arange(tot, dtype=np.int64) - np.repeat(np.cumsum(sz) - sz, sz)
-    return cell_rep, within
 
 
 def partition_store(store, n_shards: int, align: int = 0, wide: bool = False):
@@ -128,15 +139,6 @@ def partition_store(store, n_shards: int, align: int = 0, wide: bool = False):
     if wide:
         out["trans"] = trans
     return out
-
-
-def _canonical(dev) -> torch.device:
-    """A device with its index spelled out ("cuda" -> "cuda:<current>"), so
-    equal devices compare equal."""
-    dev = torch.device(dev)
-    if dev.type == "cuda" and dev.index is None:
-        return torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 def _on_device(dev: torch.device):
@@ -215,7 +217,7 @@ class ShardedIVFADCIndex:
         if wide:
             parts["trans"] = np.pad(parts["trans"], ((0, 0), (0, pad)),
                                     constant_values=WIDE_NO_ID)
-        self._wire(index, mesh, parts)
+        self._wire(index, mesh, parts, distributed=False)
         # the base store logs each mutation for refresh()
         self._mlog = index.store.attach_mutation_log()
         self._last_refresh = "init"
@@ -228,8 +230,9 @@ class ShardedIVFADCIndex:
 
     @property
     def device(self) -> torch.device:
-        """Where data group 0 merges, and so where results come from."""
-        return self._devices[0][0]
+        """Where results come from: data group 0's first device in one
+        process, this rank's first device of the mesh under a group."""
+        return self._home
 
     def memory_stats(self) -> dict:
         """Base-index accounting plus the shards' device bytes, totals
@@ -240,6 +243,8 @@ class ShardedIVFADCIndex:
         out = self.index.memory_stats()
         total = 0
         for view in self.views:
+            if view is None:                # a shard of another rank
+                continue
             scanned = view.get("decoded") if self.scan_mode == "dense" \
                 else view["codes"]
             total += sum(_nbytes(view.get(key)) for key in
@@ -252,6 +257,55 @@ class ShardedIVFADCIndex:
         return out
 
     # ------------------------------------------------------------ building
+    @classmethod
+    def build(cls, data, mesh=None, config=None, **kwargs
+              ) -> "ShardedIVFADCIndex":
+        """Distributed end-to-end build: train, encode and shard without the
+        flat posting arrays ever existing on one device (parallel/build.py).
+        The view's `.index` is payload-free (config, trained components,
+        the global cell histogram); the dynamic ops patch the shards
+        natively. `build_timings` holds the seconds of each stage."""
+        from ivfadc_tpu_torch.config import IVFADCConfig
+        from ivfadc_tpu_torch.parallel.build import build_distributed_parts
+        from ivfadc_tpu_torch.utils.profiling import BuildTimer
+        if config is None:
+            config = IVFADCConfig(**kwargs)
+        elif kwargs:
+            raise TypeError("pass either a config or kwargs, not both")
+        mesh = mesh if mesh is not None else make_mesh(n_data=1)
+        home = Collectives(mesh).home
+        timer = BuildTimer(home)
+        parts, coarse, quantizer, glayout = build_distributed_parts(
+            data, mesh, config, timer)
+        base = cls._meta_base(config, coarse, quantizer, glayout,
+                              int(data.shape[1]), home)
+        with timer.phase("views"):
+            self = cls._assemble(base, mesh, parts)
+        self.build_timings = timer.timings
+        return self
+
+    @staticmethod
+    def _meta_base(config, coarse, quantizer, glayout, dim,
+                   device) -> IVFADCIndex:
+        """Payload-free base index: config, trained components and the
+        global cell layout; the postings live on the shards."""
+        store = PostingStore(
+            config.kc, config.m, np.dtype(config.code_dtype),
+            offsets=glayout["offsets"], caps=glayout["caps"],
+            sizes=glayout["sizes"], codes=None, ids=None, device=device)
+        return IVFADCIndex(config, coarse, quantizer, store,
+                           np.dtype(np.float32), dim)
+
+    @classmethod
+    def _assemble(cls, base: IVFADCIndex, mesh, parts
+                  ) -> "ShardedIVFADCIndex":
+        """A distributed view around a payload-free base (distributed
+        build, sharded load)."""
+        self = object.__new__(cls)
+        self._wire(base, mesh, parts, distributed=True)
+        self._last_refresh = "native"
+        return self
+
     @classmethod
     def build_streaming(cls, chunks, mesh=None, config=None, *,
                         train_data=None, train_sample: int = 1 << 18,
@@ -281,12 +335,17 @@ class ShardedIVFADCIndex:
             VecsChunks(paths, chunk_rows=chunk_rows, max_rows=max_rows),
             mesh, config, train_sample=train_sample, **kwargs)
 
-    def _wire(self, base: IVFADCIndex, mesh, parts) -> None:
-        """Put the per-shard parts (numpy, from `partition_store` plus the
-        guard rows) on the mesh's devices and keep the host layout."""
+    def _wire(self, base: IVFADCIndex, mesh, parts, *,
+              distributed: bool) -> None:
+        """Put the per-shard parts on the mesh's devices (this rank's
+        positions only) and keep the host layout. `pq_codes` / `ids` are
+        (S, cap_pad, ...) numpy (`partition_store` plus the guard rows, a
+        load) or one tensor a shard (None where this rank holds none: the
+        distributed build, a regrow)."""
         self.index = base
         self.mesh = mesh
         self.n_shards = mesh.shape[SHARD_AXIS]
+        self._distributed_build = distributed
         self.scan_mode = base._resolve_scan_mode()
         self.window = parts["window"]
         self.align = parts["align"]
@@ -294,28 +353,61 @@ class ShardedIVFADCIndex:
         self.pos8 = parts["max_cap"] <= 127 * _LANE
         self._trans = parts.get("trans")
         self.wide_ids = self._trans is not None
-        self._devices = [[_canonical(d) for d in row] for row in mesh.devices]
+        if self.wide_ids and mesh.multi_process:
+            raise NotImplementedError(
+                "wide-id mode (ids beyond the device int32 cap) is "
+                "single-process: the host's slot -> id translation would "
+                "need a per-process exchange under a process group")
+        self._col = Collectives(mesh)
+        self._home = self._col.home
+        self._devices = [[_canonical(d) if mesh.is_local(g, s)
+                          else torch.device(d) for s, d in enumerate(row)]
+                         for g, row in enumerate(mesh.devices)]
         self._comp = {}
         self._scale = None
         if self.scan_mode == "dense" and base._resolve_cache() == "int8":
             self._scale = pq_ops.cache_scale(base.quantizer)
         made = {}
-        for row in self._devices:
+        for g, row in enumerate(self._devices):
             for s, dev in enumerate(row):
-                if (s, dev) not in made:
+                if mesh.is_local(g, s) and (s, dev) not in made:
                     made[s, dev] = self._make_view(parts, s, dev)
-        self._group_views = [[made[s, dev] for s, dev in enumerate(row)]
-                             for row in self._devices]
+        self._group_views = [[made.get((s, dev)) if mesh.is_local(g, s)
+                              else None for s, dev in enumerate(row)]
+                             for g, row in enumerate(self._devices)]
         self.views = self._group_views[0]
         # the gathered engine's plan on the per-shard scan: the global caps
         # for its p95, the per-shard max for covers_all
         self.gather_plan = plan_gather(
             np.asarray(base.store.caps), base.config.scan_gather_win,
             max_cap=parts["max_cap"])
-        # host snapshot of the per-shard layout, for refresh()
-        self._h_offsets = np.asarray(parts["offsets"], np.int64)
-        self._h_sizes = np.asarray(parts["sizes"], np.int64).copy()
-        self._h_caps = np.asarray(parts["caps"], np.int64)
+        # host snapshot of the per-shard layout, for refresh() and the
+        # native ops. Under a group a per-rank restore zero-fills the
+        # shards it does not hold: every entry is >= 0 and a zero-fill 0,
+        # so the element-wise max over the ranks is the whole layout
+        self._h_offsets = self._col.max_host(
+            np.asarray(parts["offsets"], np.int64))
+        self._h_sizes = self._col.max_host(
+            np.asarray(parts["sizes"], np.int64).copy())
+        codes = parts["pq_codes"]
+        self._cap_pad = int(codes.shape[1]) if isinstance(
+            codes, np.ndarray) else int(next(
+                c for c in codes if c is not None).shape[0])
+        if "caps" in parts:
+            self._h_caps = np.asarray(parts["caps"], np.int64)
+        else:
+            # from the offsets' diff, as the JAX package recovers them: the
+            # layout is a cumsum, so off[c+1] - off[c] is cell c's capacity,
+            # and the guarded array's tail bounds the last cell (whose cap
+            # then runs to the padded tail)
+            off = self._h_offsets
+            guard = base.config.scan_chunk + _LANE
+            total = self._cap_pad - guard
+            caps = np.diff(off, axis=1,
+                           append=np.full((off.shape[0], 1), total))
+            owner = (np.arange(base.config.kc) % self.n_shards)[None, :] \
+                == np.arange(self.n_shards)[:, None]
+            self._h_caps = np.where(owner, np.maximum(caps, 0), 0)
 
     def _components(self, dev: torch.device):
         """(coarse quantizer, PQ quantizer, int8 cache scale or None) on
@@ -337,8 +429,12 @@ class ShardedIVFADCIndex:
         """Shard s's tensors on `dev`: the LUT arrays, and in dense mode the
         decoded cache, ids2d and norms2d made as the single-card dense view
         makes them (so a row's norm is the single card's, bit for bit)."""
-        codes = _codes_tensor(parts["pq_codes"][s], dev)
-        ids = torch.tensor(parts["ids"][s], device=dev)
+        codes, ids = parts["pq_codes"][s], parts["ids"][s]
+        if isinstance(codes, torch.Tensor):
+            codes, ids = codes.to(dev), ids.to(dev)
+        else:
+            codes = _codes_tensor(codes, dev)
+            ids = torch.tensor(ids, device=dev)
         view = dict(
             offsets=torch.tensor(parts["offsets"][s], device=dev),
             sizes=torch.tensor(parts["sizes"][s], device=dev),
@@ -371,12 +467,16 @@ class ShardedIVFADCIndex:
         return pq_ops.decode_rotated(quantizer, codes)
 
     def _copies(self, s: int):
-        """Every distinct tensor set of shard s (one per device holding
-        it)."""
+        """Every distinct tensor set of shard s this rank holds (one per
+        device holding it)."""
         seen = {}
         for row in self._group_views:
-            seen[id(row[s])] = row[s]
+            if row[s] is not None:
+                seen[id(row[s])] = row[s]
         return list(seen.values())
+
+    def _local_shards(self):
+        return [s for s in range(self.n_shards) if self._copies(s)]
 
     # ------------------------------------------------------------- refresh
     def refresh(self) -> None:
@@ -387,7 +487,11 @@ class ShardedIVFADCIndex:
         on the host translation in wide-id mode) and only the dirty cells'
         rows are re-uploaded. A full re-partition when the log overflowed
         or a cell outgrew its per-shard capacity or the window.
-        `_last_refresh` names what ran: noop, incremental or full."""
+        `_last_refresh` names what ran: noop, incremental or full; on a
+        distributed view "native" (its ops patch the shards themselves)."""
+        if self._distributed_build:
+            self._last_refresh = "native"
+            return
         store = self.index.store
         log = self._mlog.drain()
         if log["overflow"]:
@@ -490,7 +594,8 @@ class ShardedIVFADCIndex:
                 sl = torch.as_tensor(slots, device=dev)
                 view["ids"][sl] = torch.as_tensor(id_vals.astype(np.int32),
                                                   device=dev)
-                codes = _codes_tensor(code_rows, dev)
+                codes = code_rows.to(dev) if isinstance(
+                    code_rows, torch.Tensor) else _codes_tensor(code_rows, dev)
                 view["codes"][sl] = codes
                 if view["decoded"] is None:
                     continue
@@ -513,12 +618,13 @@ class ShardedIVFADCIndex:
     def fork(self) -> "ShardedIVFADCIndex":
         """Consistent-snapshot clone for epoch-swap serving (serving.py):
         the shards' tensors are copied, the host bookkeeping cloned, the
-        base index forked (copy-on-write); the trained components are
-        shared. A mutation log the parent had not drained is replayed into
-        the fork, so it starts in sync with its base."""
+        base index forked (copy-on-write; a payload-free base copies its
+        layout); the trained components are shared. A mutation log the
+        parent had not drained is replayed into the fork, so it starts in
+        sync with its base."""
         new = object.__new__(type(self))
         new.__dict__.update(self.__dict__)
-        clones = {}
+        clones = {id(None): None}
         for row in self._group_views:
             for view in row:
                 if id(view) not in clones:
@@ -532,6 +638,8 @@ class ShardedIVFADCIndex:
         if self._trans is not None:
             new._trans = self._trans.copy()
         new.index = self.index.fork()
+        if self._distributed_build:
+            return new
         new._mlog = new.index.store.attach_mutation_log()
         old = self._mlog
         if old.overflow or old.cells or old.ops:
@@ -571,14 +679,24 @@ class ShardedIVFADCIndex:
 
     def _upgrade_to_wide(self) -> None:
         """Value mode -> wide-id mode, one way: the global ids go to the
-        host translation (through the row moves `partition_store` made)
-        and the shards' ids become their slot indices."""
+        host translation (through the row moves `partition_store` made, or
+        off the shards of a distributed view) and the shards' ids become
+        their slot indices."""
+        if self.mesh.multi_process:
+            raise NotImplementedError(
+                "wide-id upgrade is single-process; under a process group "
+                "rebuild through ShardedIVFADCIndex.build")
         S = self.n_shards
-        cap_pad = self.views[0]["ids"].shape[0]
+        cap_pad = self._cap_pad
         trans = np.full((S, cap_pad), WIDE_NO_ID, np.uint64)
         store = self.index.store
         sz = np.asarray(store.sizes, np.int64)
-        if sz.sum():
+        if self._distributed_build:
+            for s in range(S):
+                ids_h = self._copies(s)[0]["ids"].cpu().numpy()
+                live = ids_h >= 0
+                trans[s, live] = ids_h[live].astype(np.uint64)
+        elif sz.sum():
             cell_rep, within = _row_moves(sz)
             s_rep = cell_rep % S
             dst = self._h_offsets[s_rep, cell_rep] + within
@@ -594,13 +712,19 @@ class ShardedIVFADCIndex:
         self.wide_ids = True
 
     # --------------------------------------------------------- dynamic ops
-    # The base index mutates (its host truth), then refresh() patches the
-    # shards: the JAX package's host-based branch.
+    # A host-based view mutates its base index (the host truth), then
+    # refresh() patches the shards; a distributed view patches its shards
+    # natively (the JAX package's two branches).
     def push(self, point) -> None:
         """Append with id n."""
         self._ensure_id_headroom(1)
-        self.index.push(point)
-        self.refresh()
+        if not self._distributed_build:
+            self.index.push(point)
+            self.refresh()
+            return
+        point = np.asarray(point, np.float32)
+        self.index._check_push(point)
+        self._native_append(point[None], np.asarray([len(self.index)]))
 
     def push_batch(self, points) -> None:
         """Append B points, ids n..n+B-1."""
@@ -611,36 +735,344 @@ class ShardedIVFADCIndex:
                 f"push_batch expects (B, {self.index.dim}) points, "
                 f"got {tuple(points.shape)}")
         self._ensure_id_headroom(len(points))
-        self.index.push_batch(points)
-        self.refresh()
+        if not self._distributed_build:
+            self.index.push_batch(points)
+            self.refresh()
+            return
+        if len(points) == 0:
+            return
+        n0 = len(self.index)
+        self._native_append(points, np.arange(n0, n0 + len(points)))
 
     def push_front(self, point) -> None:
         """Insert with id 0; every live id moves up by one."""
         self._ensure_id_headroom(1)
-        self.index.push_front(point)
-        self.refresh()
+        if not self._distributed_build:
+            self.index.push_front(point)
+            self.refresh()
+            return
+        point = np.asarray(point, np.float32)
+        self.index._check_push(point)
+        # append first with the unused id n, then renumber in one pass
+        # (n -> 0, every other id + 1): an append that fails leaves every
+        # id where it was
+        n = len(self.index)
+        self._native_append(point[None], np.asarray([n]))
+        if self.wide_ids:
+            t = self._trans
+            live = t != WIDE_NO_ID
+            t[live] = np.where(t[live] == np.uint64(n), np.uint64(0),
+                               t[live] + np.uint64(1))
+            return
+        for s in self._local_shards():
+            for view in self._copies(s):
+                ids = view["ids"]
+                ids.copy_(torch.where(ids == n, 0,
+                                      torch.where(ids >= 0, ids + 1, ids)))
 
     def pop(self) -> np.ndarray:
         """Remove and reconstruct the point with id n-1."""
-        out = self.index.pop()
-        self.refresh()
-        return out
+        if not self._distributed_build:
+            out = self.index.pop()
+            self.refresh()
+            return out
+        n = len(self.index)
+        if n == 0:
+            raise IndexError("pop from empty index")
+        cell, codes = self._fetch_by_id(n - 1)
+        self._native_delete(np.asarray([n - 1], np.int64))
+        return self.index._reconstruct_from(cell, codes)
 
     def pop_front(self) -> np.ndarray:
         """Remove and reconstruct the point with id 0; ids shift down."""
-        out = self.index.pop_front()
-        self.refresh()
-        return out
+        if not self._distributed_build:
+            out = self.index.pop_front()
+            self.refresh()
+            return out
+        if len(self.index) == 0:
+            raise IndexError("pop from empty index")
+        cell, codes = self._fetch_by_id(0)
+        # the delete's rank shift is the pop_front shift: every id > 0
+        # drops by one
+        self._native_delete(np.zeros(1, np.int64))
+        return self.index._reconstruct_from(cell, codes)
 
     def delete(self, ids) -> None:
         """Delete by 0-based ids; surviving ids shift down to stay
         contiguous."""
-        self.index.delete(ids)
-        self.refresh()
+        if not self._distributed_build:
+            self.index.delete(ids)
+            self.refresh()
+            return
+        self._native_delete(np.unique(np.asarray(list(ids), np.int64)))
 
     def reconstruct(self, ext_id: int) -> np.ndarray:
         """The stored approximation of a point (non-destructive)."""
-        return self.index.reconstruct(ext_id)
+        if not self._distributed_build:
+            return self.index.reconstruct(ext_id)
+        cell, codes = self._fetch_by_id(int(ext_id))
+        return self.index._reconstruct_from(cell, codes)
+
+    # ------------------------------------------------- native dynamic ops
+    def _slot_to_cell(self, shard: int, slot: int) -> int:
+        """Owning cell of a per-shard slot: the offsets are a cumsum, so the
+        owner is the last cell whose offset is <= slot (zero-capacity cells
+        share its boundary and never win)."""
+        return int(np.searchsorted(self._h_offsets[shard], slot,
+                                   side="right") - 1)
+
+    def _locate_rows(self, targets: np.ndarray) -> np.ndarray:
+        """Flat positions (shard * cap_pad + slot), ascending, of the rows
+        holding the ids `targets`: one sweep of each shard's ids on its
+        device, gathered over the ranks under a group."""
+        found = {}
+        for s in self._local_shards():
+            ids = self._copies(s)[0]["ids"]
+            t = torch.as_tensor(np.asarray(targets).astype(np.int32),
+                                device=ids.device)
+            slots = torch.nonzero(torch.isin(ids, t))[:, 0]
+            found[s] = slots.cpu().numpy().astype(np.int64)
+        merged = {}
+        for part in self._col.allgather_object(found):
+            for s, slots in part.items():
+                merged.setdefault(s, slots)
+        if not merged:
+            return np.zeros(0, np.int64)
+        return np.sort(np.concatenate(
+            [s * self._cap_pad + slots for s, slots in merged.items()]))
+
+    def _gather_rows(self, s: int, slot: int) -> np.ndarray:
+        """The PQ code row at (shard, slot), read where the shard lives and
+        shared with every rank."""
+        row = None
+        if self._copies(s):
+            row = self._copies(s)[0]["codes"][slot].cpu().numpy().astype(
+                self.index.store.code_dtype)
+        if not self.mesh.multi_process:
+            return row
+        return self._col.broadcast_object(row, int(self.mesh.owners[0, s]))
+
+    def _fetch_by_id(self, ext_id: int):
+        """(cell, code row) of one external id, off the shards."""
+        if self.wide_ids:
+            hits = np.nonzero(self._trans == np.uint64(ext_id))
+            if len(hits[0]) != 1:
+                raise KeyError(f"id {ext_id} not present in the index")
+            s, slot = int(hits[0][0]), int(hits[1][0])
+        else:
+            pos = self._locate_rows(np.asarray([ext_id]))
+            if len(pos) != 1:
+                raise KeyError(f"id {ext_id} not present in the index")
+            s, slot = divmod(int(pos[0]), self._cap_pad)
+        return self._slot_to_cell(s, slot), self._gather_rows(s, slot).copy()
+
+    def _encode_device(self, points):
+        """Nearest cell (the coarse search at w = 1) and PQ codes of a batch
+        on the base's device, as the base index encodes a push; both stay
+        on the device."""
+        base = self.index
+        q = points.to(base.device, torch.float32) \
+            if isinstance(points, torch.Tensor) \
+            else torch.as_tensor(np.asarray(points, np.float32),
+                                 device=base.device)
+        cells, _ = base.coarse.search(q, 1)
+        cells = cells[:, 0].to(torch.int64)
+        resid = q - base.coarse.centroids[cells]
+        codes = pq_ops.encode(base.quantizer, resid,
+                              metric=base.quant_metric)
+        return cells, codes
+
+    def _native_append(self, points, new_ids: np.ndarray) -> None:
+        """Encode the points on the device, re-lay the shards out if a cell
+        outgrows its capacity (or the window), then write each row at its
+        owner shard's cell tail in every copy of the shard: id (its slot in
+        wide mode), PQ code, decoded row and norm. Rows of one cell keep
+        their input order (a stable sort), as the JAX package's fused
+        append places them."""
+        store = self.index.store
+        kc, S = store.kc, self.n_shards
+        new_ids = np.asarray(new_ids, np.int64)
+        cells_d, codes_d = self._encode_device(points)
+        cells = cells_d.cpu().numpy()
+        new_sizes = store.sizes + np.bincount(cells, minlength=kc)
+        allc = np.arange(kc)
+        owners = allc % S
+        if (bool(np.any(new_sizes > self._h_caps[owners, allc]))
+                or bool(np.any(new_sizes > store.caps))
+                or int(new_sizes.max(initial=0)) > self.window):
+            self._regrow_distributed(new_sizes)
+        order = np.argsort(cells, kind="stable")
+        sc = cells[order]
+        within = np.arange(len(sc)) - np.searchsorted(sc, sc)
+        s_idx = sc % S
+        slot = self._h_offsets[s_idx, sc] + store.sizes[sc] + within
+        vals = slot if self.wide_ids else new_ids[order]
+        codes_o = codes_d[torch.as_tensor(order, device=codes_d.device)]
+        for s in self._local_shards():
+            sel = np.nonzero(s_idx == s)[0]
+            if len(sel):
+                self._patch_payload(s, slot[sel], vals[sel], codes_o[
+                    torch.as_tensor(sel, device=codes_o.device)])
+        if self.wide_ids:
+            self._trans[s_idx, slot] = new_ids[order].astype(np.uint64)
+        store.sizes = new_sizes
+        self._h_sizes[owners, allc] = new_sizes
+        self._upload_sizes()
+
+    def _native_delete(self, dels: np.ndarray) -> None:
+        """Remove rows by external id: compact each dirty cell in place
+        (survivors keep their order, the tail clears to zero rows and id
+        -1), then rank-shift every surviving id. The coordinates are host
+        arithmetic; the rows move on the devices. In wide mode the locate
+        and the rank shift run on the host translation."""
+        store = self.index.store
+        n = len(self.index)
+        if dels.size == 0:
+            return
+        if int(dels[0]) < 0 or int(dels[-1]) >= n:
+            raise IndexError(
+                f"delete ids must be within [0, {n}), got "
+                f"[{int(dels[0])}, {int(dels[-1])}]")
+        D = len(dels)
+        if self.wide_ids:
+            dels_u = dels.astype(np.uint64)
+            s_all, slot_all = np.nonzero(np.isin(self._trans, dels_u))
+            if len(s_all) != D:
+                raise KeyError(
+                    f"only {len(s_all)}/{D} of the requested ids are present")
+            s_all, slot_all = s_all.astype(np.int64), slot_all.astype(np.int64)
+        else:
+            pos = self._locate_rows(dels)
+            if len(pos) != D:
+                raise KeyError(
+                    f"only {len(pos)}/{D} of the requested ids are present")
+            s_all, slot_all = pos // self._cap_pad, pos % self._cap_pad
+        cells_all = np.empty(D, np.int64)
+        for s in np.unique(s_all):
+            mk = s_all == s
+            cells_all[mk] = np.searchsorted(
+                self._h_offsets[s], slot_all[mk], side="right") - 1
+        moves = {}                               # shard -> (src, dst, live)
+        for c in np.unique(cells_all):
+            s, sz = int(c) % self.n_shards, int(store.sizes[c])
+            off = int(self._h_offsets[s, c])
+            span = np.arange(off, off + sz, dtype=np.int64)
+            keep = ~np.isin(span, slot_all[(s_all == s) & (cells_all == c)])
+            kcnt = int(keep.sum())
+            mv = moves.setdefault(s, ([], [], []))
+            mv[0].append(np.concatenate([span[keep], span[:sz - kcnt]]))
+            mv[1].append(span)
+            mv[2].append(np.arange(sz) < kcnt)
+            if self.wide_ids:
+                span_gids = self._trans[s, span]
+                self._trans[s, off:off + kcnt] = span_gids[keep]
+                self._trans[s, off + kcnt:off + sz] = WIDE_NO_ID
+            store.sizes[c] = kcnt
+            self._h_sizes[s, c] = kcnt
+        for s in self._local_shards():
+            if s in moves:
+                self._compact(s, *(np.concatenate(m) for m in moves[s]))
+        if self.wide_ids:
+            t = self._trans
+            live_t = t != WIDE_NO_ID
+            t[live_t] -= np.searchsorted(dels_u, t[live_t]).astype(np.uint64)
+        else:
+            for s in self._local_shards():
+                for view in self._copies(s):
+                    ids = view["ids"]
+                    d = torch.as_tensor(dels.astype(np.int32),
+                                        device=ids.device)
+                    below = torch.searchsorted(d, ids, out_int32=True)
+                    ids.copy_(torch.where(ids >= 0, ids - below, ids))
+        self._upload_sizes()
+
+    def _compact(self, s: int, src, dst, live) -> None:
+        """In every copy of shard s: the rows at `src` move to `dst` where
+        `live`, and `dst` clears (id -1, zero code, zero decoded row and
+        norm) elsewhere; what is read is read before anything is written."""
+        for view in self._copies(s):
+            dev = view["ids"].device
+            src_t = torch.as_tensor(src, device=dev)
+            dst_t = torch.as_tensor(dst, device=dev)
+            lv = torch.as_tensor(live, device=dev)
+            ids = view["ids"]
+            new = torch.where(lv, dst_t.to(ids.dtype), -1) if self.wide_ids \
+                else torch.where(lv, ids[src_t], -1)
+            ids[dst_t] = new
+            for key in ("codes", "decoded"):
+                arr = view.get(key)
+                if arr is not None:
+                    arr[dst_t] = torch.where(lv[:, None], arr[src_t],
+                                             torch.zeros_like(arr[src_t]))
+            if view.get("norms2d") is not None:
+                flat = view["norms2d"].view(-1)
+                flat[dst_t] = torch.where(lv, flat[src_t],
+                                          torch.zeros_like(flat[src_t]))
+
+    def _regrow_distributed(self, new_sizes: np.ndarray) -> None:
+        """Re-lay the shards out for a grown cell histogram: capacities grow
+        to at least 1.5x the new sizes, cells keep their owner (c % S), so
+        the move is a gather within each shard; the views (decoded caches,
+        norms) are made again by `_wire`."""
+        store = self.index.store
+        cfg = self.index.config
+        kc, S, a = store.kc, self.n_shards, max(int(self.align), 8)
+        cells = np.arange(kc)
+        owners = cells % S
+        grow = max(float(cfg.cell_slack), 1.5)
+        sizes_per_new = np.zeros((S, kc), np.int64)
+        sizes_per_new[owners, cells] = new_sizes
+        want = np.ceil(sizes_per_new * grow).astype(np.int64) + 8
+        caps_per = np.where(sizes_per_new > 0,
+                            np.maximum(a, ((want + a - 1) // a) * a), 0)
+        offsets_per = np.zeros((S, kc), np.int64)
+        np.cumsum(caps_per[:, :-1], axis=1, out=offsets_per[:, 1:])
+        cap_shard = _round_up(
+            int((offsets_per[:, -1] + caps_per[:, -1]).max()), _LANE)
+        cap_pad = _round_up(cap_shard + cfg.scan_chunk + _LANE, _LANE)
+        cur = np.asarray(store.sizes, np.int64)
+        cell_rep, within = _row_moves(cur)
+        s_rep = cell_rep % S
+        src = self._h_offsets[s_rep, cell_rep] + within
+        dst = offsets_per[s_rep, cell_rep] + within
+        pq_codes, ids = [None] * S, [None] * S
+        for s in self._local_shards():
+            view = self._copies(s)[0]
+            dev = view["ids"].device
+            mk = s_rep == s
+            gidx = np.zeros(cap_pad, np.int64)
+            gidx[dst[mk]] = src[mk]
+            mask = np.zeros(cap_pad, bool)
+            mask[dst[mk]] = True
+            g = torch.as_tensor(gidx, device=dev)
+            m = torch.as_tensor(mask, device=dev)
+            pq_codes[s] = torch.where(m[:, None], view["codes"][g], 0)
+            ids[s] = torch.where(m, torch.arange(
+                cap_pad, dtype=torch.int32, device=dev), -1) \
+                if self.wide_ids else torch.where(m, view["ids"][g], -1)
+        trans = None
+        if self.wide_ids:
+            trans = np.full((S, cap_pad), WIDE_NO_ID, np.uint64)
+            trans[s_rep, dst] = self._trans[s_rep, src]
+        # the global single-store layout keeps the grown sizes too (save,
+        # consolidate and reshard derive from it)
+        g_want = np.ceil(new_sizes * grow).astype(np.int64) + 8
+        g_caps = np.maximum(a, ((g_want + a - 1) // a) * a)
+        g_off = np.zeros(kc, np.int64)
+        np.cumsum(g_caps[:-1], out=g_off[1:])
+        store.caps, store.offsets = g_caps, g_off
+        store._total = int((g_off + g_caps).max()) if kc else 0
+        sizes_per = np.zeros((S, kc), np.int64)
+        sizes_per[owners, cells] = cur
+        parts = dict(
+            offsets=offsets_per.astype(np.int32),
+            sizes=sizes_per.astype(np.int32), caps=caps_per,
+            pq_codes=pq_codes, ids=ids,
+            window=_round_up(max(1, int(new_sizes.max(initial=0))), _LANE),
+            align=self.align, max_cap=int(caps_per.max(initial=0)))
+        if trans is not None:
+            parts["trans"] = trans
+        self._wire(self.index, self.mesh, parts, distributed=True)
 
     # -------------------------------------------------------------- search
     def _dispatch(self, queries, k: int, w: int, overlap: bool):
@@ -680,6 +1112,10 @@ class ShardedIVFADCIndex:
             coarse_engine=_env_coarse_engine(),
             rank_engine=_env_rank_engine(), merge_topk=_env_merge_topk())
         Bl = Bp // n_data
+        if self.mesh.multi_process:
+            ids, dists, shards = self._dispatch_group(q, Bl, overlap, opts)
+            return ids, (shards if self.wide_ids else None), \
+                metric.finalize(dists), B
         outs = []
         for g in range(n_data):
             q_g = q[g * Bl:(g + 1) * Bl]
@@ -697,18 +1133,57 @@ class ShardedIVFADCIndex:
         dists = metric.finalize(dists)
         return ids, (shards if self.wide_ids else None), dists, B
 
-    def _group_search(self, g: int, q: torch.Tensor, *, k, w, dense,
-                      include_base, apply_rot, chunk, merge, gather_win,
-                      gather_all, extract, coarse_engine, rank_engine,
-                      merge_topk):
+    def _dispatch_group(self, q, Bl: int, overlap: bool, opts):
+        """The search under a process group: every rank scans the shards
+        it holds, every position's (Bl, k) candidates are gathered over the
+        ranks, and every rank merges every data group (kernel 6), so each
+        returns the whole batch -> raw (ids, dists, source shard) on this
+        rank's device."""
+        D, S, k = self.mesh.shape[DATA_AXIS], self.n_shards, opts["k"]
+        waves = [(0, Bl // 2), (Bl // 2, Bl)] if overlap and Bl >= 16 \
+            else [(0, Bl)]
+        per_wave = []
+        for lo, hi in waves:
+            cand = [None] * (D * S)
+            for g in range(D):
+                q_g = q[g * Bl + lo:g * Bl + hi]
+                for s, pair in enumerate(self._group_candidates(g, q_g,
+                                                                **opts)):
+                    cand[g * S + s] = pair
+            ids = self._col.gather([None if c is None else c[0]
+                                    for c in cand])
+            dists = self._col.gather([None if c is None else c[1]
+                                      for c in cand])
+            with _on_device(self._home):
+                per_wave.append([merge_candidates(
+                    ids[g * S:(g + 1) * S], dists[g * S:(g + 1) * S], k)
+                    for g in range(D)])
+        return tuple(torch.cat([torch.cat([w[g][i] for w in per_wave])
+                                for g in range(D)]) for i in range(3))
+
+    def _group_search(self, g: int, q: torch.Tensor, **opts):
         """Every shard of data group g on the queries `q`, then the exact
         cross-shard merge on the group's first device -> raw (ids, dists,
         source shard), -1 / +inf padded."""
+        dev0 = self._devices[g][0]
+        cand = self._group_candidates(g, q, **opts)
+        with _on_device(dev0):
+            return merge_candidates([c[0].to(dev0) for c in cand],
+                                    [c[1].to(dev0) for c in cand], opts["k"])
+
+    def _group_candidates(self, g: int, q: torch.Tensor, *, k, w, dense,
+                          include_base, apply_rot, chunk, merge, gather_win,
+                          gather_all, extract, coarse_engine, rank_engine,
+                          merge_topk):
+        """Each shard's raw (ids, dists) candidates of data group g on the
+        queries `q`, on its own device; None for a shard of another rank."""
         cfg = self.index.config
         metric = self.index.quant_metric
-        dev0 = self._devices[g][0]
-        probes, cand_i, cand_d = {}, [], []
+        probes, out = {}, []
         for s, view in enumerate(self._group_views[g]):
+            if view is None:
+                out.append(None)
+                continue
             dev = self._devices[g][s]
             coarse, quantizer, _ = self._components(dev)
             with _on_device(dev):
@@ -738,10 +1213,8 @@ class ShardedIVFADCIndex:
                         apply_rot=apply_rot,
                         residual_based=metric.residual_based,
                         extract=extract, rank_engine=rank_engine)
-            cand_i.append(ids_s.to(dev0))
-            cand_d.append(d_s.to(dev0))
-        with _on_device(dev0):
-            return merge_candidates(cand_i, cand_d, k)
+            out.append((ids_s, d_s))
+        return out
 
     def _translate_wide(self, slots: np.ndarray, shards: np.ndarray
                         ) -> np.ndarray:

@@ -1459,3 +1459,154 @@ def _same_results(a, b, q, ties_ok: bool):
         for x, y, d in zip(ai, bi, ad):
             for v in np.unique(d[d < d[-1]]):
                 assert set(x[d == v]) == set(y[d == v])
+
+
+def _distributed_view(mesh_devices):
+    """A distributed build of _dynamic_index's points (20,000 x 64, kc=64)
+    over a 1 x S mesh of the given devices, and the queries."""
+    from ivfadc_tpu_torch import ShardedIVFADCIndex, make_mesh
+    _, data, q = _dynamic_index(128)
+    view = ShardedIVFADCIndex.build(
+        data, make_mesh(n_shards=len(mesh_devices), devices=mesh_devices),
+        kc=64, m=8, k=16, seed=0, coarse_maxiter=3, quantization_maxiter=3)
+    return view, data, q
+
+
+@pytest.mark.cuda
+def test_distributed_build_on_the_card_equals_consolidated_twin(dev,
+                                                                tmp_path):
+    """A distributed build over 4 shards of cuda:0: dense views on the
+    card, a payload-free base, and both scan routes equal to the plain
+    index consolidated from its own directory (distances bit-equal, ids
+    but at exact ties)."""
+    from ivfadc_tpu_torch.parallel import (consolidate_sharded_index,
+                                           save_sharded_index)
+    view, data, q = _distributed_view(["cuda:0"] * 4)
+    assert view.scan_mode == "dense" and not view.index.store.has_payload
+    assert all(v["decoded"].is_cuda and v["ids"].is_cuda
+               for v in view.views)
+    save_sharded_index(str(tmp_path / "d"), view)
+    plain = consolidate_sharded_index(str(tmp_path / "d"))
+    assert plain.device.type == "cuda" and len(plain) == len(data)
+    _same_results(view, plain, q, ties_ok=True)
+
+
+@pytest.mark.cuda
+def test_shard_dir_roundtrip_on_the_card(dev, tmp_path):
+    """save -> load onto the same 4 shards (results bit-equal) and onto 2
+    (a reshard: distances bit-equal, ids but at ties); the out-of-core
+    consolidation loads on the card equal to the in-memory one."""
+    from ivfadc_tpu_torch import IVFADCIndex, make_mesh
+    from ivfadc_tpu_torch.parallel import (consolidate_sharded_index,
+                                           consolidate_sharded_to_file,
+                                           load_sharded_index,
+                                           save_sharded_index)
+    view, _, q = _distributed_view(["cuda:0"] * 4)
+    d = str(tmp_path / "d")
+    save_sharded_index(d, view)
+    _same_results(view, load_sharded_index(d, view.mesh), q, ties_ok=False)
+    _same_results(view, load_sharded_index(
+        d, make_mesh(n_shards=2, devices=["cuda:0"] * 2)), q, ties_ok=True)
+    consolidate_sharded_to_file(d, str(tmp_path / "f.npz"))
+    flat = IVFADCIndex.load(str(tmp_path / "f.npz"))
+    mem = consolidate_sharded_index(d)
+    for key in ("offsets", "caps", "sizes", "codes", "ids"):
+        np.testing.assert_array_equal(getattr(flat.store, key),
+                                      getattr(mem.store, key))
+    _same_results(flat, mem, q, ties_ok=False)
+
+
+@pytest.mark.cuda
+def test_native_push_batch_regrow_on_the_card(dev, tmp_path):
+    """A native push_batch on a fork of a distributed view: the pushes'
+    cells by kernel 7, cells outgrowing their capacity (a regrow), then a
+    delete; after each, both scan routes equal a fresh view over the
+    consolidated state and ids stay 0..n-1; the parent is unchanged."""
+    from ivfadc_tpu_torch import ShardedIVFADCIndex
+    from ivfadc_tpu_torch.parallel import (consolidate_sharded_index,
+                                           save_sharded_index)
+    view, data, q = _distributed_view(["cuda:0"] * 4)
+    before = view.search_padded(q, 10, w=8)
+    fork = view.fork()
+    caps = fork._h_caps.copy()
+    n7 = coarse_scan.TOPW_KERNEL.launches
+    fork.push_batch(np.repeat(data[:4], 400, axis=0) + 0.01)
+    assert coarse_scan.TOPW_KERNEL.launches > n7
+    assert not np.array_equal(caps, fork._h_caps)
+    for step in ("push_batch", "delete"):
+        if step == "delete":
+            fork.delete(np.arange(0, len(fork.index), 13))
+        d = str(tmp_path / step)
+        save_sharded_index(d, fork)
+        ref = consolidate_sharded_index(d)
+        ids = ref.store.ids
+        np.testing.assert_array_equal(np.sort(ids[ids >= 0]),
+                                      np.arange(len(ref)))
+        _same_results(fork, ShardedIVFADCIndex(ref, fork.mesh), q,
+                      ties_ok=True)
+    after = view.search_padded(q, 10, w=8)
+    assert all(np.array_equal(a, b) for a, b in zip(before, after))
+
+
+_NCCL_WORKER = r'''
+import os, sys
+sys.path.insert(0, os.environ["IVFADC_ROOT"])
+import numpy as np
+import torch
+from ivfadc_tpu_torch.parallel import (initialize_cluster, make_mesh,
+                                       process_info, shutdown_cluster,
+                                       ShardedIVFADCIndex)
+from ivfadc_tpu_torch.utils.datasets import synthetic_clustered
+rank = int(os.environ["RANK_X"])
+assert initialize_cluster(os.environ["COORD"], 2, rank, [rank])
+assert process_info()["backend"] == "nccl", process_info()
+data = synthetic_clustered(20000, 64, seed=0)
+view = ShardedIVFADCIndex.build(data, make_mesh(n_shards=2), kc=64, m=8,
+                                k=16, seed=0, coarse_maxiter=3,
+                                quantization_maxiter=3)
+q = np.load(os.environ["QUERIES"])
+ids, dists = view.search_padded(q, 10, w=8)
+np.savez(os.environ["OUT"] + f"{rank}.npz", ids=ids, dists=dists)
+shutdown_cluster()
+'''
+
+
+@pytest.mark.cuda
+def test_two_rank_nccl_group_equals_single_process(dev, tmp_path):
+    """Two ranks, one card each (NCCL), build over a global 1 x 2 mesh and
+    search: both ranks' results bit-equal to a single-process view over
+    the same two cards. Needs two or more cards."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    view, _, q = _distributed_view(["cuda:0", "cuda:1"])
+    ids, dists = view.search_padded(q, 10, w=8)
+    np.save(str(tmp_path / "q.npy"), q)
+    (tmp_path / "w.py").write_text(_NCCL_WORKER)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, IVFADC_ROOT=root, COORD=f"127.0.0.1:{port}",
+               QUERIES=str(tmp_path / "q.npy"), OUT=str(tmp_path / "r"))
+    procs = [subprocess.Popen([sys.executable, str(tmp_path / "w.py")],
+                              env=dict(env, RANK_X=str(r)),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, o in zip(procs, outs):
+        assert p.returncode == 0, o[-4000:]
+    for r in range(2):
+        z = np.load(str(tmp_path / f"r{r}.npz"))
+        np.testing.assert_array_equal(z["ids"], ids)
+        np.testing.assert_array_equal(z["dists"], dists)

@@ -256,7 +256,12 @@ def test_import_loads_no_jax():
             "'ivfadc_tpu_torch.ops.gather_scan', "
             "'ivfadc_tpu_torch.models.inverted', "
             "'ivfadc_tpu_torch.parallel.mesh', "
-            "'ivfadc_tpu_torch.parallel.sharded'} <= set(mods), mods\n"
+            "'ivfadc_tpu_torch.parallel.sharded', "
+            "'ivfadc_tpu_torch.parallel.bootstrap', "
+            "'ivfadc_tpu_torch.parallel.build', "
+            "'ivfadc_tpu_torch.parallel.collectives', "
+            "'ivfadc_tpu_torch.parallel.distributed', "
+            "'ivfadc_tpu_torch.parallel.persistence'} <= set(mods), mods\n"
             "for m in mods: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', "
             "'ivfadc_tpu') or m.startswith(('jax.', 'jaxlib.', "
