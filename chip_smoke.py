@@ -122,10 +122,11 @@ phases, printing one JSON line per phase; any failure raises (exit != 0):
            host peak RSS and device peak memory of both builds
   tune     IVFADCIndex.autotune on a B=16384 batch over the JAX package's
            default candidates (pb 16/32/64/128 x chunk 512/1024/2048):
-           pb = 128 (which the grouped scan does not take) an error row,
-           every other candidate's ids and distances bit-equal to the
-           default config's; the candidates' times; memory_stats, its
-           scan-cache bytes equal to the dense view's own tensors'
+           12 timed rows, none an error (pb = 128 runs 64-row tiles),
+           every candidate's ids and distances bit-equal to the default
+           config's, and at pb = 4 / 20 / 100 / 256 too; the candidates'
+           times; memory_stats, its scan-cache bytes equal to the dense
+           view's own tensors'
   serving  counts zeroed: a BatchingSearcher(max_batch=1024,
            max_wait_ms=2, pipeline=2) over the SIFT1M index and 8 client
            threads for 5 s (6 send single queries, 2 arrays of 256):
@@ -185,6 +186,20 @@ phases, printing one JSON line per phase; any failure raises (exit != 0):
            fresh group loads and searches; every rank bit-equal to the
            single-process view; a rank that fails or outlasts its limit
            fails the phase
+  multichip  `phase_multichip`, after distributed, one line a part: the
+           entry point (`ivfadc_tpu_torch/dryrun.py`: the LUT forward on
+           the card against the CPU, the tiny dry run over a 2 x 4 mesh
+           and its OK line), then the dry run's sequence at the build
+           phase's width over make_mesh(n_shards=4, n_data=2) on one card:
+           train_step against the one-position step, the (2, 4) view of
+           the index (B=16384: kernel 1 twice, 2-4 eight times, 6 twice;
+           B=256: 1 twice, 5 eight times, 6 ten times) against the single
+           card, ShardedIVFADCIndex.build over (2, 4) (seconds by stage,
+           recall@10 within 0.01 of the 1 x 4 build's, its consolidated
+           twin), push_batch / delete / pop on a fork each held to a fresh
+           view, a save and a load onto (1, 2), build_streaming over
+           (2, 4), a wide-id build under a cap below n equal to the
+           uncapped build; batch ms beside the single card's, device peak
   two_level  the large-kc configuration at the Deep1B-shard shape: n=2M,
            d=96, kc=2^18 (k-means|| seeding, 8-row cells), m=16, k=256,
            coarse_quantizer="hnsw"; kernel 8a and kernels 2 (and 11: the
@@ -2593,12 +2608,16 @@ def phase_streaming(index, data, base, qa, qs, gt, recall_full, zero_counts,
     return out
 
 
+EXTRA_PBS = (4, 20, 100, 256)          # scan_pb values autotune does not try
+
+
 def phase_tune(index, q) -> dict:
     """autotune on a B=16384 batch with the JAX package's default
-    candidates (pb 16/32/64/128 x chunk 512/1024/2048): pb = 128, which the
-    grouped scan does not take, must be an error row; every timed
-    candidate's ids and distances bit-equal to the default config's; then
-    memory_stats, its scan-cache bytes against the view's own tensors."""
+    candidates (pb 16/32/64/128 x chunk 512/1024/2048): 12 timed rows,
+    none an error (pb = 128 runs 64-row tiles, `dense_scan.tile_height`);
+    every candidate's ids and distances bit-equal to the default
+    config's, and those of EXTRA_PBS too; then memory_stats, its
+    scan-cache bytes against the view's own tensors."""
     cfg0 = index.config
     want = index.search_padded(q, TOPK, w=W)
     t1 = time.perf_counter()
@@ -2608,16 +2627,13 @@ def phase_tune(index, q) -> dict:
         rows = out["results"]
         check(len(rows) == 12, f"autotune tried {len(rows)} candidates")
         for r in rows:
-            check(("error" in r) == (r["pb"] == 128),
-                  f"autotune row {r}: only pb = 128 may fail")
+            check("error" not in r, f"autotune row {r} failed")
         best = out["best"]
         check(out["applied"] and best is not None
               and index.config.scan_pb == best["pb"]
               and index.config.scan_chunk == best["chunk"],
               "autotune did not apply its best candidate")
         for r in rows:
-            if "error" in r:
-                continue
             index.config = dataclasses.replace(cfg0, scan_pb=r["pb"],
                                                scan_chunk=r["chunk"])
             index._drop_plans()
@@ -2626,6 +2642,14 @@ def phase_tune(index, q) -> dict:
                   and np.array_equal(got[1], want[1]),
                   f"autotune candidate pb={r['pb']} chunk={r['chunk']}: "
                   f"results differ from the default config's")
+        # the other pb values the JAX package takes (C.23)
+        for pb in EXTRA_PBS:
+            index.config = dataclasses.replace(cfg0, scan_pb=pb)
+            got = index.search_padded(q, TOPK, w=W)
+            check(np.array_equal(got[0], want[0])
+                  and np.array_equal(got[1], want[1]),
+                  f"scan_pb={pb}: results differ from the default "
+                  f"config's")
     finally:
         index.config = cfg0
         index._drop_plans()
@@ -2637,9 +2661,9 @@ def phase_tune(index, q) -> dict:
           f"memory_stats scan cache {stats['device_scan_cache_bytes']} vs "
           f"the view's {scan_bytes} bytes")
     return dict(batch=q.shape[0], tune_s=tune_s, best=out["best"],
-                candidates=[dict(r, ms=1e3 * r["seconds"])
-                            if "seconds" in r else r for r in rows],
-                results_identical=True, default_pb=cfg0.scan_pb,
+                candidates=[dict(r, ms=1e3 * r["seconds"]) for r in rows],
+                results_identical=True, extra_pbs_identical=EXTRA_PBS,
+                default_pb=cfg0.scan_pb,
                 default_chunk=cfg0.scan_chunk, memory_stats=stats,
                 scan_cache_bytes_of_view=scan_bytes)
 
@@ -3222,8 +3246,9 @@ def run_ranks(phase: str, out_dir: str) -> list:
 
 
 def phase_distributed(base, queries, qs, gt, recall, recall_oracle, smi,
-                      zero_counts, read_counts) -> None:
-    """The distributed build at the SIFT1M width (one line a part):
+                      zero_counts, read_counts) -> float:
+    """The distributed build at the SIFT1M width (one line a part; returns
+    the 1 x 4 build's recall@10):
 
       distributed          (a) ShardedIVFADCIndex.build of the build phase's
                            1M points over make_mesh(n_shards=4) on one card
@@ -3467,6 +3492,284 @@ def phase_distributed(base, queries, qs, gt, recall, recall_oracle, smi,
              seconds=time.perf_counter() - t0)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return rec10
+
+
+N_MC_PUSH = 65536                    # the (2, 4) view's push_batch
+N_MC_DEL = 1000                      # its delete
+WIDE_CAP_MC = 1 << 19                # the wide-id build's lowered cap (< N)
+CODES_DIFF_MAX = 1e-3                # train_step: rows whose codes may differ
+
+
+def phase_multichip(index, base, queries, qs, gt, recall, recall_1x4, smi,
+                    zero_counts, read_counts) -> None:
+    """The port's `entry()` and multi-chip dry run (emits one line a
+    part); every mesh position repeats the one card, so no number here is
+    a scaling across cards:
+
+      multichip_entry  (a) `dryrun.entry()` on the card (the LUT forward,
+                       kernel 7 probes): ids equal to the same forward on
+                       CPU copies of its arguments, distances within 1e-5
+                       relative; then `dryrun_multichip(8)` at its tiny
+                       shapes over a (data=2, shard=4) mesh: every step's
+                       asserts and its OK line
+      multichip        (b) the dry run's sequence at the batch cell's width
+                       (the 1M points, its config, seed 0) over a (2, 4)
+                       mesh: train_step over the data axis from the single
+                       index's centres and codebooks against the one-
+                       position train_step (assignments equal, centres to
+                       float rounding, C.22; codes equal on all but
+                       CODES_DIFF_MAX of the rows); the (2, 4) view of the
+                       single index at B=16384 and B=256 against the single
+                       card (distances bit-equal, tie rows counted; kernel
+                       1 and the merge's 6 once a data group, 2-4 or 5 and
+                       6 once a shard a group); ShardedIVFADCIndex.build
+                       over (2, 4): seconds by stage, recall@10 within
+                       0.01 of the 1 x 4 build's, held to its consolidated
+                       twin; on a fork push_batch of 65,536 (a regrow), a
+                       1000-id delete and pop, each held to a fresh view
+                       over its consolidated state, ids 0..n-1; a save and
+                       a load onto (1, 2); build_streaming over (2, 4) from
+                       262,144-row chunks, held to its base index, recall
+                       within 0.02 of the full build's; a wide-id build
+                       under IVFADC_DEVICE_ID_CAP=2^19 < n: uint64 ids and
+                       distances equal to the uncapped build's, then a
+                       push_batch and a delete. Printed: train_step s, the
+                       build's s by stage, batch ms beside the single
+                       card's, save / load s, the device peak"""
+    import io
+    import shutil
+
+    import torch
+    from ivfadc_tpu_torch import IVFADCConfig, ShardedIVFADCIndex, make_mesh
+    from ivfadc_tpu_torch import dryrun
+    from ivfadc_tpu_torch.models.coarse import NaiveCoarseQuantizer
+    from ivfadc_tpu_torch.parallel import (consolidate_sharded_index,
+                                           load_sharded_index,
+                                           save_sharded_index)
+    from ivfadc_tpu_torch.parallel.distributed import train_step
+    from ivfadc_tpu_torch.utils.datasets import synthetic_clustered
+    from ivfadc_tpu_torch.utils.evaluation import recall_at_r
+
+    # ---- (a) the entry point and the tiny dry run
+    t0 = time.perf_counter()
+    fn, args = dryrun.entry()
+    ids_e, dists_e = fn(*args)
+    cpu_args = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    cpu_args[1] = NaiveCoarseQuantizer(args[1].centroids.cpu(),
+                                       args[1].metric)
+    ids_c, dists_c = fn(*cpu_args)
+    check(torch.equal(ids_e.cpu(), ids_c), "entry: card and CPU ids differ")
+    entry_err = float((dists_e.cpu() - dists_c).abs().max())
+    check(torch.allclose(dists_e.cpu(), dists_c, rtol=1e-5, atol=1e-5),
+          f"entry: distances differ by {entry_err}")
+    printed = io.StringIO()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        tiny = dryrun.dryrun_multichip(8)
+    dry_s = time.perf_counter() - t1
+    ok_line = [ln for ln in printed.getvalue().splitlines()
+               if ln.startswith("dryrun_multichip OK")]
+    check(tiny["mesh"] == {"data": 2, "shard": 4} and len(ok_line) == 1
+          and "mesh={'data': 2, 'shard': 4}" in ok_line[0],
+          "the tiny dry run's OK line")
+    emit("multichip_entry", card=smi, entry_shape=list(ids_e.shape),
+         entry_max_abs_err=entry_err, dryrun_s=dry_s,
+         dryrun_devices=tiny["devices"], dryrun_ok_line=ok_line[0],
+         seconds=time.perf_counter() - t0)
+
+    # ---- (b) the same sequence at full width over a (2, 4) mesh
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh(n_shards=4, n_data=2, devices=[SHARD_DEVICE] * 8)
+    out = dict(mesh=dict(mesh.shape))
+    metric = index.quant_metric
+    cents, cbs = index.coarse.centroids, index.quantizer.codebooks
+    mask = torch.ones(N, dtype=torch.float32)
+    ts = {}
+    for key, m_ in (("one", make_mesh(n_shards=1,
+                                      devices=[SHARD_DEVICE])),
+                    ("2x4", mesh)):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ts[key] = train_step(cents, cbs, base, mask, mesh=m_,
+                             metric=metric, m=M)
+        torch.cuda.synchronize()
+        out[f"train_step_s_{key}"] = time.perf_counter() - t1
+    (c1, a1, k1), (c2, a2, k2) = ts["one"], ts["2x4"]
+    check(torch.equal(a1, a2), "train_step: assignments differ")
+    cent_err = float((c1 - c2).abs().max())
+    check(torch.allclose(c1, c2, rtol=1e-5, atol=1e-4),
+          f"train_step: centres differ by {cent_err}")
+    codes_diff = float((k1 != k2).any(dim=1).float().mean())
+    check(codes_diff <= CODES_DIFF_MAX,
+          f"train_step: {codes_diff} of the rows' codes differ")
+    out.update(train_step_centre_max_abs_diff=cent_err,
+               train_step_codes_rows_differ=codes_diff)
+    del ts, c1, a1, k1, c2, a2, k2
+
+    q16, q256 = queries[:BATCH], queries[BATCH:BATCH + B_SMALL]
+    batches = {"b16384": q16, "b256": q256}
+    # per data group: one coarse probe, a scan a shard (the grouped route
+    # at 8192 queries a group, per probe at 128), one merge (kernel 6);
+    # the per-probe route's position top-k is kernel 6 too, once a shard
+    want = {"b16384": dict(coarse_probe=2, cell_rank=8, grouped_scan=8,
+                           topk_payload=8, topk_index=2, probe_scan=0),
+            "b256": dict(coarse_probe=2, cell_rank=0, grouped_scan=0,
+                         topk_payload=0, probe_scan=8, topk_index=10)}
+
+    def searched(view, what):
+        res, launch = {}, {}
+        for name, q in batches.items():
+            zero_counts()
+            res[name] = view.search_padded(q, TOPK, w=W)
+            counts = read_counts(f"multichip_{what}_{name}",
+                                 [k for k, v in want[name].items() if v])
+            launch[name] = {k: counts[k] for k in want[name]}
+            check(launch[name] == want[name],
+                  f"{what} {name}: launches {launch[name]}, want "
+                  f"{want[name]}")
+        return res, launch
+
+    def timed_ms(fn_):
+        ms = []
+        for r in range(11):                    # the first: warm-up
+            t = batch_ms(fn_)
+            if r:
+                ms.append(t)
+        return float(np.median(ms))
+
+    # the (2, 4) view of the single index
+    t1 = time.perf_counter()
+    view = ShardedIVFADCIndex(index, mesh)
+    torch.cuda.synchronize()
+    out["view_s"] = time.perf_counter() - t1
+    res, out["launches_view"] = searched(view, "view")
+    out["view_tie_rows"] = {name: ties_only(*res[name], *index.search_padded(
+        q, TOPK, w=W)) for name, q in batches.items()}
+    out["batch_ms"] = {name: dict(
+        single=timed_ms(lambda: index._device_search(q, TOPK, W)),
+        view_2x4=timed_ms(lambda: view._dispatch(q, TOPK, W, False)))
+        for name, q in batches.items()}
+    del view
+
+    # the distributed build over (2, 4)
+    cfg = IVFADCConfig(kc=KC, k=KQ, m=M, seed=0)
+    t1 = time.perf_counter()
+    dview = ShardedIVFADCIndex.build(base, mesh, cfg)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t1
+    out["build_stages_s"] = dview.build_timings
+    check(not dview.index.store.has_payload and len(dview.index) == N,
+          "the (2, 4) build")
+    res, out["launches_build"] = searched(dview, "build")
+    rec = recall_at_r(dview.search_padded(qs, TOPK, w=W)[0], gt, TOPK)
+    check(abs(rec - recall_1x4) <= 0.01,
+          f"(2, 4) build recall {rec} vs the 1 x 4 build's {recall_1x4}")
+    out.update(recall_at_10=rec, recall_at_10_1x4=recall_1x4)
+    tmp = tempfile.mkdtemp(dir=ROOT)
+    try:
+        def consolidated(view_, step):
+            d = os.path.join(tmp, step)
+            save_sharded_index(d, view_)
+            ref = consolidate_sharded_index(d, device="cuda")
+            shutil.rmtree(d)
+            live = ref.store.ids[ref.store.ids >= 0]
+            check(np.array_equal(np.sort(live), np.arange(len(ref)))
+                  and len(ref) == len(view_.index),
+                  f"{step}: ids not 0..n-1")
+            return ref
+
+        twin = consolidated(dview, "twin")
+        out["consolidated_tie_rows"] = {
+            name: ties_only(*res[name], *twin.search_padded(q, TOPK, w=W))
+            for name, q in batches.items()}
+        del twin
+
+        # native ops on a fork, each held to a fresh view
+        fork = dview.fork()
+        steps = {}
+        big = synthetic_clustered(N_MC_PUSH, D, seed=39)
+        dels = np.sort(np.random.RandomState(40).choice(
+            N + N_MC_PUSH, N_MC_DEL, replace=False))
+        caps = fork._h_caps.copy()
+        for step, op in (("push_batch", lambda: fork.push_batch(big)),
+                         ("delete_1000", lambda: fork.delete(dels)),
+                         ("pop", fork.pop)):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            op()
+            torch.cuda.synchronize()
+            steps[step] = dict(ms=1e3 * (time.perf_counter() - t1))
+            if step == "push_batch":
+                check(not np.array_equal(caps, fork._h_caps),
+                      "push_batch: no regrow")
+            ref = consolidated(fork, step)
+            fresh = ShardedIVFADCIndex(ref, mesh)
+            steps[step]["tie_rows"] = {
+                name: ties_only(*fork.search_padded(q, TOPK, w=W),
+                                *fresh.search_padded(q, TOPK, w=W))
+                for name, q in batches.items()}
+            del ref, fresh
+        out["native_steps"] = steps
+        d = os.path.join(tmp, "fork")
+        t1 = time.perf_counter()
+        save_sharded_index(d, fork)
+        out["save_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        v12 = load_sharded_index(d, make_mesh(n_shards=2,
+                                              devices=[SHARD_DEVICE] * 2))
+        torch.cuda.synchronize()
+        out["load_1x2_s"] = time.perf_counter() - t1
+        out["load_1x2_tie_rows"] = {
+            name: ties_only(*fork.search_padded(q, TOPK, w=W),
+                            *v12.search_padded(q, TOPK, w=W))
+            for name, q in batches.items()}
+        del v12, fork
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the streamed build over (2, 4)
+    chunks = [base[i:i + 262144] for i in range(0, N, 262144)]
+    t1 = time.perf_counter()
+    sview = ShardedIVFADCIndex.build_streaming(
+        chunks, mesh, IVFADCConfig(kc=KC, k=KQ, m=M, seed=0,
+                                   kmeanspp_sample=65536))
+    torch.cuda.synchronize()
+    out["stream_build_s"] = time.perf_counter() - t1
+    s_ids, s_d = sview.search_padded(qs, TOPK, w=W)
+    out["stream_recall_at_10"] = recall_at_r(s_ids, gt, TOPK)
+    check(abs(out["stream_recall_at_10"] - recall) <= 0.02,
+          f"(2, 4) streamed build recall {out['stream_recall_at_10']} vs "
+          f"{recall}")
+    out["stream_tie_rows"] = ties_only(s_ids, s_d, *sview.index.search_padded(
+        qs, TOPK, w=W))
+    del sview
+
+    # wide ids: the same build under a device id cap below n
+    ref_i, ref_d = dview.search_padded(q16, TOPK, w=W)
+    del dview
+    with env(IVFADC_DEVICE_ID_CAP=str(WIDE_CAP_MC)):
+        t1 = time.perf_counter()
+        wview = ShardedIVFADCIndex.build(base, mesh, cfg)
+        torch.cuda.synchronize()
+        out["wide_build_s"] = time.perf_counter() - t1
+        check(wview.wide_ids, "the capped build is not in wide-id mode")
+        w_ids, w_d = wview.search_padded(q16, TOPK, w=W)
+        check(w_ids.dtype == np.uint64
+              and np.array_equal(w_ids, ref_i.astype(np.uint64))
+              and np.array_equal(w_d, ref_d),
+              "wide ids differ from the uncapped build's")
+        wview.push_batch(big[:1000])
+        wview.delete([1, 7])
+        check(len(wview.index) == N + 998, "wide view length")
+        del wview
+    emit("multichip", card=smi, n=N, d=D, kc=KC, m=M, k=KQ,
+         device_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+         wide_device_id_cap=WIDE_CAP_MC, **out,
+         seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
 
 
 def phase_sharded_two_level(index, q, smi, zero_counts, read_counts) -> None:
@@ -3925,8 +4228,11 @@ def main() -> int:
          seconds=time.perf_counter() - t0)
     phase_sharded(index, queries, qs, gt, recall, smi, zero_counts,
                   read_counts)
-    phase_distributed(base, queries, qs, gt, recall, recall_oracle, smi,
-                      zero_counts, read_counts)
+    recall_1x4 = phase_distributed(base, queries, qs, gt, recall,
+                                   recall_oracle, smi, zero_counts,
+                                   read_counts)
+    phase_multichip(index, base, queries, qs, gt, recall, recall_1x4, smi,
+                    zero_counts, read_counts)
     t0 = time.perf_counter()
     emit("serving", card=smi, **phase_serving(index, queries, zero_counts,
                                               read_counts),

@@ -201,8 +201,8 @@ class IVFADCConfig:
             raise AssertionError(
                 f"{n} vectors exceed the device int32 id representation "
                 f"({device_id_cap()}); build through ShardedIVFADCIndex "
-                f"(.build_streaming / .build_from_files), whose wide-id "
-                f"mode lifts the cap to the index_dtype capacity")
+                f"(.build / .build_streaming), whose wide-id mode lifts "
+                f"the cap to the index_dtype capacity")
 
     @property
     def code_dtype(self) -> str:

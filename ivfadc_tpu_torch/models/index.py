@@ -864,10 +864,10 @@ class IVFADCIndex:
         `self.config` (which `save()` persists); the config is restored
         between candidates and on exit. Times are `utils.timing.true_time`
         (CUDA events on the card). A candidate that raises is recorded
-        with its error and skipped: the grouped scan takes pb in {8, 16,
-        ..., 64}, so pb = 128 is an error row wherever the batch takes
-        the grouped route. The CUDA scans walk 128-row groups whatever
-        the chunk, so on the card the chunk axis changes no result and is
+        with its error and skipped. The grouped kernels run at
+        `ops.dense_scan.tile_height(pb)` (pb = 64 and 128 launch the same
+        tiles), and the CUDA scans walk 128-row groups whatever the
+        chunk, so on the card neither axis changes a result; both are
         swept for parity of the configuration. Returns {"best": row or
         None, "results": [rows], "applied": bool} (and "reason" when the
         dense path is inactive)."""

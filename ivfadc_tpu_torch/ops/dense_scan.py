@@ -17,8 +17,8 @@ that the JAX package reaches, one CUDA kernel template each
   "knorm"    fold, emitted ids, row norms computed in the kernel: the
              two-level coarse quantizer's stage 2, and IVFADC_NORMS=off
   "pos8"     fold, cell-relative block-index payloads in int8, in-kernel
-  "pos"      norms (int32 below pb = 32 or past 127 blocks a cell): stores
-             without 128-row cells (no ids2d)
+  "pos"      norms (int32 below 32-row tiles or past 127 blocks a cell):
+             stores without 128-row cells (no ids2d)
   "exact"    merge="exact": a 128-lane buffer that holds each probe's true
              top-k_out distances, absolute slot payloads, in-kernel norms
   "extract"  fold + emitted ids + in-kernel norms, finished in the kernel
@@ -59,6 +59,7 @@ from ivfadc_tpu_torch.ops.cell_rank import (MAX_KC, tile_layout,
                                             tile_slots)
 
 _CAND = 128          # lanes per fold bank (rows per group)
+MAX_PB = 64          # the grouped kernels' tallest tile (csrc/dense_scan.cu)
 _ELEMS = {torch.int8: "int8", torch.bfloat16: "bf16"}
 
 _GROUPED_ARGS = [_build.P] * 8 + [_build.I] * 5 + [_build.F] + [_build.P] * 3
@@ -274,6 +275,18 @@ def grouped_scan_plain(tile_start, tile_size, v_tiles, base_tiles, decoded,
     return out_d, out_p
 
 
+def tile_height(pb: int) -> int:
+    """The tile height the tile prep and the grouped kernels run at for a
+    configured `scan_pb`: min(round_up(pb, 8), MAX_PB). The JAX package
+    tiles at any pb >= 1; the kernels step tiles by 8 rows and hold at
+    most MAX_PB probes' fold buffers. A probe's fold buffer does not
+    depend on which probes share its tile, so every pb gives the results
+    of the configured one (the config keeps its value)."""
+    if pb < 1:
+        raise ValueError(f"scan_pb must be >= 1, got {pb}")
+    return min(-(-pb // 8) * 8, MAX_PB)
+
+
 def grouped_scan(tile_start, tile_size, v_tiles, base_tiles, decoded, scale,
                  ids2d, norms2d, *, pb: int, nf: int, norm_coef: float,
                  merge: str = "fold", pos8: bool = False, extract_k: int = 0,
@@ -289,7 +302,7 @@ def grouped_scan(tile_start, tile_size, v_tiles, base_tiles, decoded, scale,
     plain version; CUDA tensors launch the kernel."""
     variant = _grouped_variant(ids2d, norms2d, merge, nf, pos8, extract_k)
     elem = _elem(decoded, scale)
-    if nf % _CAND or pb % 8 or not 8 <= pb <= 64:
+    if nf % _CAND or pb % 8 or not 8 <= pb <= MAX_PB:
         raise ValueError(f"grouped scan needs nf % 128 == 0 and pb in "
                          f"{{8, 16, ..., 64}}, got nf={nf}, pb={pb}")
     if variant == "exact" and not 1 <= k_out <= _CAND:
@@ -348,17 +361,24 @@ def grouped_dense_scan(cells, offsets, sizes, v, base, decoded, scale=None,
     (rows/128, 128) layout (cells 128-row aligned), or None. Returns
     (cand_d (B, w, nf) f32, cand_p (B, w, nf)) in the original probe order:
     with ids2d EXTERNAL ids; without, under the fold, the 128-row block
-    index within the cell (int8 when pos8 and pb >= 32, the caller vouching
-    that every cell holds at most 127 blocks); under merge="exact"
+    index within the cell (int8 when pos8 and the tile height is >= 32,
+    the caller vouching that every cell holds at most 127 blocks); under
+    merge="exact"
     (nf = 128) absolute slots. extract_k > 0 (ids2d, fold, no norms2d,
     2 * extract_k <= 128): (dists, ids (B, w, extract_k)), each probe's
     extract_k best. `chunk` is kept for the JAX signature: the CUDA kernels
     walk 128-row groups, and nf | chunk makes the fold's result independent
     of it. `rank_engine` picks the counting kernel's engine (kc <= MAX_KC).
+    `pb` is the configured scan_pb; the tiles are `tile_height(pb)` tall.
     """
     if nf % _CAND or chunk % nf:
         raise ValueError(f"nf must be a 128-multiple dividing chunk, "
                          f"got nf={nf}, chunk={chunk}")
+    pb = tile_height(pb)
+    # the JAX package writes int8 payloads only from pb = 32 (Mosaic's int8
+    # tile is (32, 128)); the gate is a property of the tile the kernel
+    # writes, so it is decided on the height the kernel runs at. The
+    # payload width changes no result.
     pos8 = pos8 and pb >= 32
     d_dec = decoded.shape[-1]
     if v.shape[-1] != d_dec:
@@ -588,7 +608,7 @@ def grouped_scan_qc(tile_start, tile_size, c_t, qidx, q_pad, c_pad, rot_pad,
     (out_d (T*pb, nf) f32, out_p (T*pb, nf) i32 external ids). CPU tensors
     run the plain version; CUDA tensors launch the kernel."""
     elem = _elem(decoded, scale)
-    if nf % _CAND or pb % 8 or not 8 <= pb <= 64:
+    if nf % _CAND or pb % 8 or not 8 <= pb <= MAX_PB:
         raise ValueError(f"grouped scan needs nf % 128 == 0 and pb in "
                          f"{{8, 16, ..., 64}}, got nf={nf}, pb={pb}")
     kw = dict(pb=pb, nf=nf, norm_coef=norm_coef, base_mult=base_mult,
@@ -669,13 +689,15 @@ def grouped_dense_scan_qc(cells, offsets, sizes, queries, cents, rot,
     base_mult is 2 under the reference score (cdist == ||r||^2 for the
     sqeuclidean coarse and quantizer metrics) and 1 under "pure". Returns
     (cand_d (B, w, nf) f32, cand_ids (B, w, nf) i32 external ids). `chunk`
-    is kept for the JAX signature (nf | chunk)."""
+    is kept for the JAX signature (nf | chunk); the tiles are
+    `tile_height(pb)` tall."""
     if ids2d is None or kc > MAX_KC:
         raise ValueError(f"the qc scan needs ids2d and kc <= {MAX_KC}")
     if nf % _CAND or chunk % nf:
         raise ValueError(f"nf must be a 128-multiple dividing chunk, "
                          f"got nf={nf}, chunk={chunk}")
     B, w = cells.shape
+    pb = tile_height(pb)
     tile_start, tile_size, c_t, qidx, q_pad, c_pad, rot_pad, row = \
         qc_tile_inputs(cells, offsets, sizes, queries, cents, rot,
                        decoded.shape[-1], kc=kc, pb=pb,

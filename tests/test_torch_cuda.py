@@ -1610,3 +1610,62 @@ def test_two_rank_nccl_group_equals_single_process(dev, tmp_path):
         z = np.load(str(tmp_path / f"r{r}.npz"))
         np.testing.assert_array_equal(z["ids"], ids)
         np.testing.assert_array_equal(z["dists"], dists)
+
+
+@pytest.mark.cuda
+def test_dryrun_entry_and_multichip_on_the_card(dev, capsys):
+    """`python -m ivfadc_tpu_torch.dryrun 8` on the card: the LUT entry's
+    forward (kernel 7 probes) gives the ids of the same forward on CPU
+    copies of its arguments, distances within 1e-5 relative; the dry run
+    holds every step over a 2 x 4 mesh (positions repeat the card where
+    fewer than 8 are visible) and prints the OK line."""
+    from ivfadc_tpu_torch import dryrun
+    from ivfadc_tpu_torch.models.coarse import NaiveCoarseQuantizer
+    fn, args = dryrun.entry()
+    assert args[0].device.type == "cuda"
+    n0 = coarse_scan.TOPW_KERNEL.launches
+    ids, dists = fn(*args)
+    assert coarse_scan.TOPW_KERNEL.launches > n0
+    coarse = args[1]
+    cpu_args = [a.cpu() if isinstance(a, torch.Tensor) else a
+                for a in args]
+    cpu_args[1] = NaiveCoarseQuantizer(coarse.centroids.cpu(), coarse.metric)
+    ids_c, dists_c = fn(*cpu_args)
+    assert torch.equal(ids.cpu(), ids_c)
+    np.testing.assert_allclose(dists.cpu().numpy(), dists_c.numpy(),
+                               rtol=1e-5, atol=1e-5)
+    out = dryrun.dryrun_multichip(8)
+    assert out["mesh"] == {"data": 2, "shard": 4} and out["match"] == 1.0
+    assert out["devices"] == ("distinct" if torch.cuda.device_count() >= 8
+                              else "repeated")
+    assert "dryrun_multichip OK: mesh={'data': 2, 'shard': 4}" in \
+        capsys.readouterr().out
+
+
+@pytest.mark.cuda
+def test_every_scan_pb_on_the_card(dev, monkeypatch):
+    """Every scan_pb the JAX package takes searches on the card: the
+    grouped kernels run tiles of tile_height(pb) probes, and a probe's
+    fold does not depend on its tile, so ids and distances equal pb =
+    64's bit for bit, on the placement route and on the qc route."""
+    import dataclasses
+    from ivfadc_tpu_torch import IVFADCIndex
+    from ivfadc_tpu_torch.utils.datasets import synthetic_clustered
+    data = synthetic_clustered(20000, 128, seed=3)
+    idx = IVFADCIndex.build(data, kc=64, m=8, k=64, seed=0, device="cuda")
+    q = torch.as_tensor(data[:512], device=dev) + 0.05    # 512 * 8 >= 4 * 64
+    cfg0 = idx.config
+    for vbase in ("place", "qc"):
+        monkeypatch.setenv("IVFADC_VBASE", vbase)
+        idx.config = cfg0
+        want = idx.search_padded(q, 10, w=8)
+        kern = dense_scan.QC_KERNELS["int8"] if vbase == "qc" \
+            else dense_scan.KERNEL
+        for pb in (4, 8, 20, 100, 128, 256):
+            idx.config = dataclasses.replace(cfg0, scan_pb=pb)
+            n0 = kern.launches
+            got = idx.search_padded(q, 10, w=8)
+            assert kern.launches == n0 + 1, (vbase, pb)
+            np.testing.assert_array_equal(got[0], want[0])
+            np.testing.assert_array_equal(got[1], want[1])
+    idx.config = cfg0
