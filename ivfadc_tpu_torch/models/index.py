@@ -64,7 +64,7 @@ from ivfadc_tpu_torch.ops.coarse_scan import coarse_probe_vbase
 from ivfadc_tpu_torch.ops.kmeans import (assign_blocks, kmeans, kmeans_block,
                                          make_generator)
 from ivfadc_tpu_torch.ops.metrics import Metric, get_metric
-from ivfadc_tpu_torch.utils.profiling import BuildTimer
+from ivfadc_tpu_torch.utils.profiling import BuildTimer, span, tally
 
 # auto-cap for PQ codebook training when quantization_sample is unset (0)
 _PQ_TRAIN_AUTOCAP = 1 << 20
@@ -176,56 +176,59 @@ def _dense_probe(cq, rotation, queries, *, w: int, metric: Metric,
                  rank_engine: str | None = None):
     """Coarse probe + scan-vector prep -> (cells (B,w), v (B,w,dq),
     base (B,w), norm_coef)."""
-    queries = queries.to(torch.float32)
-    B, d = queries.shape
-    dq = rotation.shape[0]                                # quantizer dim
-    if _fused_probe_ok(cq, rotation, queries, w, metric, residual_based):
-        # fully fused coarse probe: cells / v / base from one kernel; the
-        # rotation is the PQ identity or OPQ's orthogonal Procrustes
-        # solution, so the v2 engine's score-derived base holds
-        cells, _, v, base = coarse_probe_vbase(
-            queries, cq.centroids, w, rotation, apply_rot, include_base,
-            engine=coarse_engine, rot_orthogonal=True)
-        return cells, v, base, 1.0
-    cells, cdists = cq.search(queries, w, extract=extract,
-                              rank_engine=rank_engine)
-    cent = cq.centroids[cells.to(torch.int64)]            # (B, w, d)
-    if residual_based:
-        r = queries[:, None, :] - cent
-        if d != dq:                     # ragged-subspace zero padding
-            r = torch.nn.functional.pad(r, (0, dq - d))
-        if apply_rot:
-            r = r @ rotation
-        v = -2.0 * r
-        base = torch.sum(r * r, dim=-1)
-        if include_base:
-            base = base + cdists
-        norm_coef = 1.0
-    else:
-        # inner-product family: q.x_hat = q.c + q.decode, so the scan
-        # vector is the query itself and the coarse term (under the QUANT
-        # metric) is the base; no norm term
-        qv = queries
-        if d != dq:
-            qv = torch.nn.functional.pad(qv, (0, dq - d))
-        q = qv @ rotation if apply_rot else qv
-        v = (-q)[:, None, :].expand(B, w, dq)
-        base = pairwise_rows(metric, queries, cent)
-        norm_coef = 0.0
-    # a quantizer may PAD probes past its candidate supply (cell 0 with an
-    # infinite distance): a finite recomputed base would re-scan cell 0 and
-    # duplicate its neighbours in the final top-k
-    base = torch.where(torch.isfinite(cdists), base, float("inf"))
-    return cells, v, base, norm_coef
+    with span("ivfadc.probe"):
+        queries = queries.to(torch.float32)
+        B, d = queries.shape
+        dq = rotation.shape[0]                                # quantizer dim
+        if _fused_probe_ok(cq, rotation, queries, w, metric, residual_based):
+            # fully fused coarse probe: cells / v / base from one kernel; the
+            # rotation is the PQ identity or OPQ's orthogonal Procrustes
+            # solution, so the v2 engine's score-derived base holds
+            cells, _, v, base = coarse_probe_vbase(
+                queries, cq.centroids, w, rotation, apply_rot, include_base,
+                engine=coarse_engine, rot_orthogonal=True)
+            return cells, v, base, 1.0
+        cells, cdists = cq.search(queries, w, extract=extract,
+                                  rank_engine=rank_engine)
+        cent = cq.centroids[cells.to(torch.int64)]            # (B, w, d)
+        if residual_based:
+            r = queries[:, None, :] - cent
+            if d != dq:                     # ragged-subspace zero padding
+                r = torch.nn.functional.pad(r, (0, dq - d))
+            if apply_rot:
+                r = r @ rotation
+            v = -2.0 * r
+            base = torch.sum(r * r, dim=-1)
+            if include_base:
+                base = base + cdists
+            norm_coef = 1.0
+        else:
+            # inner-product family: q.x_hat = q.c + q.decode, so the scan
+            # vector is the query itself and the coarse term (under the QUANT
+            # metric) is the base; no norm term
+            qv = queries
+            if d != dq:
+                qv = torch.nn.functional.pad(qv, (0, dq - d))
+            q = qv @ rotation if apply_rot else qv
+            v = (-q)[:, None, :].expand(B, w, dq)
+            base = pairwise_rows(metric, queries, cent)
+            norm_coef = 0.0
+        # a quantizer may PAD probes past its candidate supply (cell 0 with an
+        # infinite distance): a finite recomputed base would re-scan cell 0 and
+        # duplicate its neighbours in the final top-k
+        base = torch.where(torch.isfinite(cdists), base, float("inf"))
+        return cells, v, base, norm_coef
 
 
 def _lut_search(cq, codebooks, rotation, view, queries, *, k: int, w: int,
                 window: int, metric: Metric, include_base: bool,
                 apply_rot: bool, residual_based: bool, extract: bool = False,
-                rank_engine: str | None = None):
+                rank_engine: str | None = None, rows: int | None = None):
     """LUT search: coarse probe -> ADC tables -> posting scan -> k smallest,
     in query blocks that bound the scan's (queries, w, window) temporaries.
-    Returns raw (ids, dists); the caller applies `metric.finalize`."""
+    Returns raw (ids, dists); the caller applies `metric.finalize`. `rows`:
+    the leading query rows that are not padding, for `counting()` (None:
+    all)."""
     from ivfadc_tpu_torch.ops.adc import build_adc_tables, scan_postings
     queries = queries.to(torch.float32)
     d = queries.shape[1]
@@ -234,27 +237,35 @@ def _lut_search(cq, codebooks, rotation, view, queries, *, k: int, w: int,
     outs = []
     for s in range(0, queries.shape[0], block):
         q = queries[s:s + block]
-        cells, cdists = cq.search(q, w, extract=extract,
-                                  rank_engine=rank_engine)    # (b, w)
-        cent = cq.centroids[cells.to(torch.int64)]            # (b, w, d)
-        if residual_based:
-            vecs = q[:, None, :] - cent
-            base = cdists if include_base else torch.zeros_like(cdists)
-        else:
-            vecs = q[:, None, :].expand(q.shape[0], w, d)
-            base = pairwise_rows(metric, q, cent)
-        base = torch.where(torch.isfinite(cdists), base, float("inf"))
-        if d != dq:                     # ragged-subspace zero padding
-            vecs = torch.nn.functional.pad(vecs, (0, dq - d))
-        if apply_rot:
-            vecs = vecs @ rotation
-        tables = build_adc_tables(metric, vecs, codebooks)    # (b, w, m, kq)
+        with span("ivfadc.probe"):
+            cells, cdists = cq.search(q, w, extract=extract,
+                                      rank_engine=rank_engine)  # (b, w)
+            cent = cq.centroids[cells.to(torch.int64)]          # (b, w, d)
+            if residual_based:
+                vecs = q[:, None, :] - cent
+                base = cdists if include_base else torch.zeros_like(cdists)
+            else:
+                vecs = q[:, None, :].expand(q.shape[0], w, d)
+                base = pairwise_rows(metric, q, cent)
+            base = torch.where(torch.isfinite(cdists), base, float("inf"))
+            if d != dq:                     # ragged-subspace zero padding
+                vecs = torch.nn.functional.pad(vecs, (0, dq - d))
+            if apply_rot:
+                vecs = vecs @ rotation
+            tables = build_adc_tables(metric, vecs, codebooks)  # (b,w,m,kq)
+        t = tally()
+        if t is not None:
+            t.probed(cells, view["sizes"],
+                     None if rows is None else max(0, rows - s))
+            t.scanned(q.shape[0] * w * window)
         outs.append(scan_postings(
             tables, base, cells, view["offsets"], view["sizes"],
             view["codes"], view["ids"], k=k, window=window))
     if len(outs) == 1:
         return outs[0]
-    return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
+    with span("ivfadc.merge"):
+        return (torch.cat([o[0] for o in outs]),
+                torch.cat([o[1] for o in outs]))
 
 
 def _pad_to_k(out_ids, out_dists, k):
@@ -317,18 +328,26 @@ def _dense_finish(cells, v, base, dev, *, k, w, chunk, pb, nf, norm_coef,
                   merge: str = "fold", pos8: bool = False,
                   extract: bool = False, rank_engine: str | None = None,
                   merge_topk: str = "pallas", gather_win: int = 0,
-                  gather_all: bool = False):
+                  gather_all: bool = False, rows: int | None = None):
     """Scan + merge (the JAX `_dense_finish`): returns raw (ids, dists);
     the caller applies `metric.finalize`. Batches whose probes share cells
     (B*w >= 4*kc) take the cell-grouped scan, smaller ones the per-probe
     scan; with a gather window (`_gather_plan`) the cells within it go to
-    the gathered engine instead, all of them when `gather_all`."""
+    the gathered engine instead, all of them when `gather_all`. `rows`:
+    the leading query rows that are not padding, for `counting()` (None:
+    all)."""
     B = cells.shape[0]
     kc_ = dev["offsets"].shape[0]
     k_out = min(k, 128)
     n_lanes = nf if merge == "fold" else 128
+    t = tally()
+    if t is not None:
+        t.probed(cells, dev["sizes"], rows)
     if B * w >= 4 * kc_:
-        from ivfadc_tpu_torch.ops.dense_scan import grouped_dense_scan
+        from ivfadc_tpu_torch.ops.dense_scan import (grouped_dense_scan,
+                                                     grouped_pairs)
+        if t is not None:
+            t.scanned(grouped_pairs(cells, dev["sizes"], kc=kc_, pb=pb))
         # id emission needs the fold and 128-row cells; extraction needs id
         # emission, and runs with the row norms computed in the kernel; a
         # score without a norm term (inner product) reads no norms stream
@@ -343,46 +362,56 @@ def _dense_finish(cells, v, base, dev, *, k, w, chunk, pb, nf, norm_coef,
             dev["norms2d"] if use_norms else None, kc=kc_, k_out=k_out,
             chunk=chunk, norm_coef=norm_coef, pb=pb, merge=merge, nf=n_lanes,
             pos8=pos8, extract_k=extract_k, rank_engine=rank_engine)
-        n_cand = out_d.shape[-1]
-        flat_d = out_d.reshape(B, w * n_cand)
-        flat_p = out_p.reshape(B, w * n_cand)
-        if emit_ids:
-            return _topk_ids(flat_d, flat_p, k, merge_topk)
-        return _topk_positions(flat_d, flat_p, k, cells, dev["offsets"],
-                               n_cand, dev["ids"], merge)
+        with span("ivfadc.merge"):
+            n_cand = out_d.shape[-1]
+            flat_d = out_d.reshape(B, w * n_cand)
+            flat_p = out_p.reshape(B, w * n_cand)
+            if emit_ids:
+                return _topk_ids(flat_d, flat_p, k, merge_topk)
+            return _topk_positions(flat_d, flat_p, k, cells, dev["offsets"],
+                                   n_cand, dev["ids"], merge)
     # mostly-distinct cells: grouping would emit about one tile per probe
     from ivfadc_tpu_torch.ops.dense_scan import dense_scan
-    cells64 = cells.to(torch.int64)
-    starts_p = dev["offsets"][cells64]
-    sizes_p = dev["sizes"][cells64]
+    with span("ivfadc.tileprep"):
+        cells64 = cells.to(torch.int64)
+        starts_p = dev["offsets"][cells64]
+        sizes_p = dev["sizes"][cells64]
     g_res = None
     if gather_win:
         # tiny cells: gather exactly the probed rows and score them as one
         # batched contraction; larger cells stay on the scan kernel
         from ivfadc_tpu_torch.ops.gather_scan import gathered_scan
-        small = sizes_p <= gather_win
-        gd, gi = gathered_scan(starts_p, torch.where(small, sizes_p, 0), v,
-                               base, dev["decoded"], dev["scale"],
-                               dev["ids"], win=gather_win,
+        with span("ivfadc.tileprep"):
+            small = sizes_p <= gather_win
+            g_sizes = torch.where(small, sizes_p, 0)
+        if t is not None:
+            t.scanned(cells.numel() * gather_win)
+        gd, gi = gathered_scan(starts_p, g_sizes, v, base, dev["decoded"],
+                               dev["scale"], dev["ids"], win=gather_win,
                                norm_coef=norm_coef)
-        g_res = _topk_ids(gd.reshape(B, w * gather_win),
-                          gi.reshape(B, w * gather_win), k)
+        with span("ivfadc.merge"):
+            g_res = _topk_ids(gd.reshape(B, w * gather_win),
+                              gi.reshape(B, w * gather_win), k)
         if gather_all:
             return g_res
-        sizes_p = torch.where(small, 0, sizes_p)
+        with span("ivfadc.tileprep"):
+            sizes_p = torch.where(small, 0, sizes_p)
+    if t is not None:
+        t.scanned(sizes_p.sum())
     out_d, out_p = dense_scan(
         starts_p, sizes_p, v, base, dev["decoded"], dev["scale"],
         k_out=k_out, chunk=chunk, norm_coef=norm_coef, merge=merge,
         nf=n_lanes)
-    n_cand = out_d.shape[-1]
-    s_res = _topk_positions(out_d.reshape(B, w * n_cand),
-                            out_p.reshape(B, w * n_cand), k, cells,
-                            dev["offsets"], n_cand, dev["ids"], merge)
-    if g_res is None:
-        return s_res
-    # hybrid merge: every global winner is in one side's top-k
-    return _topk_ids(torch.cat([g_res[1], s_res[1]], dim=1),
-                     torch.cat([g_res[0], s_res[0]], dim=1), k)
+    with span("ivfadc.merge"):
+        n_cand = out_d.shape[-1]
+        s_res = _topk_positions(out_d.reshape(B, w * n_cand),
+                                out_p.reshape(B, w * n_cand), k, cells,
+                                dev["offsets"], n_cand, dev["ids"], merge)
+        if g_res is None:
+            return s_res
+        # hybrid merge: every global winner is in one side's top-k
+        return _topk_ids(torch.cat([g_res[1], s_res[1]], dim=1),
+                         torch.cat([g_res[0], s_res[0]], dim=1), k)
 
 
 def _bucket_batch(b: int) -> int:
@@ -663,49 +692,60 @@ class IVFADCIndex:
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Padded fixed-shape search on the index device. queries (B, d)
         numpy array or tensor -> (ids (B, k) i32, dists (B, k) f32)."""
-        if k < 1:
-            raise AssertionError("k has to be >= 1")
-        if w < 1:
-            raise AssertionError("w has to be >= 1")
-        if len(self) > device_id_cap():
-            raise AssertionError(
-                f"{len(self)} vectors exceed the device int32 id cap "
-                f"({device_id_cap()})")
-        extract = _env_extract()
-        w = min(w, self.config.kc)
-        dev = self.device
-        q = torch.as_tensor(queries, device=dev).to(torch.float32)
-        B = q.shape[0]
-        Bp = _bucket_batch(B)
-        if Bp != B:
-            q = torch.nn.functional.pad(q, (0, 0, 0, Bp - B))
-        include_base = (self.config.score_mode == "reference"
-                        or not self.quant_metric.residual_based)
-        mode = self._resolve_scan_mode()
-        if mode == "dense" and k > 128:
-            # the dense kernels keep at most 128 candidates per probe lane
-            # set; the LUT engine scores every probed posting, so any k is
-            # exact there
-            mode = "lut"
+        with span("ivfadc.setup"):
+            if k < 1:
+                raise AssertionError("k has to be >= 1")
+            if w < 1:
+                raise AssertionError("w has to be >= 1")
+            if len(self) > device_id_cap():
+                raise AssertionError(
+                    f"{len(self)} vectors exceed the device int32 id cap "
+                    f"({device_id_cap()})")
+            extract = _env_extract()
+            w = min(w, self.config.kc)
+            dev = self.device
+            q = torch.as_tensor(queries, device=dev).to(torch.float32)
+            B = q.shape[0]
+            Bp = _bucket_batch(B)
+            if Bp != B:
+                q = torch.nn.functional.pad(q, (0, 0, 0, Bp - B))
+            include_base = (self.config.score_mode == "reference"
+                            or not self.quant_metric.residual_based)
+            mode = self._resolve_scan_mode()
+            if mode == "dense" and k > 128:
+                # the dense kernels keep at most 128 candidates per probe
+                # lane set; the LUT engine scores every probed posting, so
+                # any k is exact there
+                mode = "lut"
+            if mode == "dense":
+                plan = self._dense_plan(q, w, extract)
+            else:
+                view = self.store.device_view()
+        t = tally()
+        if t is not None:
+            t.search(B, Bp, w)
         if mode == "dense":
             out_ids, out_dists = self._dense_search(q, k, w, include_base,
-                                                    extract)
+                                                    extract, plan, rows=B)
         else:
             out_ids, out_dists = _lut_search(
                 self.coarse, self.quantizer.codebooks,
-                self.quantizer.rotation, self.store.device_view(), q, k=k,
-                w=w, window=self.store.window, metric=self.quant_metric,
+                self.quantizer.rotation, view, q, k=k, w=w,
+                window=self.store.window, metric=self.quant_metric,
                 include_base=include_base,
                 apply_rot=self.quantizer.method == "opq",
                 residual_based=self.quant_metric.residual_based,
-                extract=extract, rank_engine=_env_rank_engine())
-        out_dists = self.quant_metric.finalize(out_dists)
-        if Bp == B:
-            return out_ids, out_dists
-        return out_ids[:B], out_dists[:B]
+                extract=extract, rank_engine=_env_rank_engine(), rows=B)
+        with span("ivfadc.merge"):
+            out_dists = self.quant_metric.finalize(out_dists)
+            if Bp == B:
+                return out_ids, out_dists
+            return out_ids[:B], out_dists[:B]
 
-    def _dense_search(self, q, k: int, w: int, include_base: bool,
-                      extract: bool):
+    def _dense_plan(self, q, w: int, extract: bool) -> dict:
+        """The dense route's host-side choices for one search: the engines,
+        the dense view, the merge, the scan chunk, the gather plan, the
+        pos8 gate and whether the qc route serves the batch."""
         gather_win, gather_all = self._gather_plan()
         engines = dict(coarse_engine=_env_coarse_engine(),
                        rank_engine=_env_rank_engine())
@@ -714,26 +754,36 @@ class IVFADCIndex:
                                             self.config.scan_chunk,
                                             cache=self._resolve_cache())
         merge = self._resolve_merge_mode()
-        apply_rot = self.quantizer.method == "opq"
-        if vbase == "qc" and not gather_win and \
-                self._qc_ok(q, w, view, merge, extract):
-            return self._qc_search(q, k, w, include_base, view, apply_rot,
-                                   merge_topk, **engines)
+        qc = vbase == "qc" and not gather_win and \
+            self._qc_ok(q, w, view, merge, extract)
+        return dict(
+            engines=engines, merge_topk=merge_topk, view=view, merge=merge,
+            apply_rot=self.quantizer.method == "opq", qc=qc,
+            gather_win=gather_win, gather_all=gather_all,
+            chunk=self._effective_chunk(),
+            # int8 block indices while every cell holds at most 127 blocks
+            pos8=bool(int(self.store.caps.max(initial=0)) <= 127 * 128))
+
+    def _dense_search(self, q, k: int, w: int, include_base: bool,
+                      extract: bool, plan: dict, rows: int | None = None):
+        engines = plan["engines"]
+        if plan["qc"]:
+            return self._qc_search(q, k, w, include_base, plan["view"],
+                                   plan["apply_rot"], plan["merge_topk"],
+                                   chunk=plan["chunk"], rows=rows, **engines)
         cells, v, base, norm_coef = _dense_probe(
             self.coarse, self.quantizer.rotation, q, w=w,
             metric=self.quant_metric, include_base=include_base,
-            apply_rot=apply_rot,
+            apply_rot=plan["apply_rot"],
             residual_based=self.quant_metric.residual_based, extract=extract,
             **engines)
         return _dense_finish(
-            cells, v, base, view, k=k, w=w, chunk=self._effective_chunk(),
+            cells, v, base, plan["view"], k=k, w=w, chunk=plan["chunk"],
             pb=self.config.scan_pb, nf=self.config.scan_fold_lanes,
-            norm_coef=norm_coef, merge=merge,
-            # int8 block indices while every cell holds at most 127 blocks
-            pos8=bool(int(self.store.caps.max(initial=0)) <= 127 * 128),
+            norm_coef=norm_coef, merge=plan["merge"], pos8=plan["pos8"],
             extract=extract, rank_engine=engines["rank_engine"],
-            merge_topk=merge_topk, gather_win=gather_win,
-            gather_all=gather_all)
+            merge_topk=plan["merge_topk"], gather_win=plan["gather_win"],
+            gather_all=plan["gather_all"], rows=rows)
 
     def _qc_ok(self, q, w: int, view, merge: str, extract: bool) -> bool:
         """The JAX package's gate of the qc route, letter for letter: the
@@ -758,31 +808,40 @@ class IVFADCIndex:
                 and kc * d_dec * 4 <= _QC_MAX_CENT_BYTES)
 
     def _qc_search(self, q, k: int, w: int, include_base: bool, view,
-                   apply_rot: bool, merge_topk: str, *, coarse_engine: str,
-                   rank_engine: str):
+                   apply_rot: bool, merge_topk: str, *, chunk: int,
+                   coarse_engine: str, rank_engine: str,
+                   rows: int | None = None):
         """The qc route: cells from the fused probe (its v / base are not
         used) or the quantizer's search, then the grouped scan that derives
         v and base in its kernel, then the id top-k. Raw (ids, dists)."""
-        from ivfadc_tpu_torch.ops.dense_scan import grouped_dense_scan_qc
+        from ivfadc_tpu_torch.ops.dense_scan import (grouped_dense_scan_qc,
+                                                     grouped_pairs)
         cq, rot = self.coarse, self.quantizer.rotation
         B = q.shape[0]
-        if _fused_probe_ok(cq, rot, q, w, self.quant_metric, True):
-            cells = coarse_probe_vbase(q, cq.centroids, w, rot, apply_rot,
-                                       include_base, engine=coarse_engine,
-                                       rot_orthogonal=True)[0]
-        else:
-            cells, _ = cq.search(q, w, rank_engine=rank_engine)
+        kc = view["offsets"].shape[0]
+        with span("ivfadc.probe"):
+            if _fused_probe_ok(cq, rot, q, w, self.quant_metric, True):
+                cells = coarse_probe_vbase(
+                    q, cq.centroids, w, rot, apply_rot, include_base,
+                    engine=coarse_engine, rot_orthogonal=True)[0]
+            else:
+                cells, _ = cq.search(q, w, rank_engine=rank_engine)
+        t = tally()
+        if t is not None:
+            t.probed(cells, view["sizes"], rows)
+            t.scanned(grouped_pairs(cells, view["sizes"], kc=kc,
+                                    pb=self.config.scan_pb))
         out_d, out_p = grouped_dense_scan_qc(
             cells, view["offsets"], view["sizes"], q, cq.centroids,
             rot if apply_rot else None, view["decoded"], view["scale"],
-            view["ids2d"], kc=view["offsets"].shape[0],
-            chunk=self._effective_chunk(), norm_coef=1.0,
+            view["ids2d"], kc=kc, chunk=chunk, norm_coef=1.0,
             pb=self.config.scan_pb, nf=self.config.scan_fold_lanes,
             apply_rot=apply_rot, base_mult=2.0 if include_base else 1.0,
             rank_engine=rank_engine)
-        n_cand = out_d.shape[-1]
-        return _topk_ids(out_d.reshape(B, w * n_cand),
-                         out_p.reshape(B, w * n_cand), k, merge_topk)
+        with span("ivfadc.merge"):
+            n_cand = out_d.shape[-1]
+            return _topk_ids(out_d.reshape(B, w * n_cand),
+                             out_p.reshape(B, w * n_cand), k, merge_topk)
 
     def _effective_chunk(self) -> int:
         """Scan chunk adapted to the cell-size distribution: the p95 cell
@@ -934,39 +993,45 @@ class IVFADCIndex:
         """Single point (d,) -> (ids, dists) trimmed to the valid (<= k)
         results. Batch (B, d) -> (list_of_ids, list_of_dists). Ids are
         0-based, dtype = config.index_dtype."""
-        if isinstance(points, torch.Tensor):    # stays on its device
-            pts = points
-            out_dtype = _np_dtype(pts.dtype) if pts.dtype.is_floating_point \
-                else np.dtype(np.float32)
-        else:
-            pts = np.asarray(points)
-            out_dtype = pts.dtype if np.issubdtype(pts.dtype, np.floating) \
-                else np.float32
-        single = pts.ndim == 1
-        if single:
-            pts = pts[None, :]
-        if pts.shape[1] != self.dim:
-            raise AssertionError(
-                f"query dimension {pts.shape[1]} != index dimension {self.dim}")
-        ids, dists = self._device_search(pts, k, w)
-        ids = ids.cpu().numpy()
-        dists = dists.cpu().numpy()
-        id_dtype = np.dtype(self.config.index_dtype)
-        if single:
-            m = ids[0] >= 0
-            return ids[0][m].astype(id_dtype), dists[0][m].astype(out_dtype)
-        out_i, out_d = [], []
-        for row_i, row_d in zip(ids, dists):
-            m = row_i >= 0
-            out_i.append(row_i[m].astype(id_dtype))
-            out_d.append(row_d[m].astype(out_dtype))
-        return out_i, out_d
+        with span("ivfadc.search"):
+            if isinstance(points, torch.Tensor):    # stays on its device
+                pts = points
+                out_dtype = _np_dtype(pts.dtype) \
+                    if pts.dtype.is_floating_point else np.dtype(np.float32)
+            else:
+                pts = np.asarray(points)
+                out_dtype = pts.dtype \
+                    if np.issubdtype(pts.dtype, np.floating) else np.float32
+            single = pts.ndim == 1
+            if single:
+                pts = pts[None, :]
+            if pts.shape[1] != self.dim:
+                raise AssertionError(
+                    f"query dimension {pts.shape[1]} != index dimension "
+                    f"{self.dim}")
+            ids, dists = self._device_search(pts, k, w)
+            with span("ivfadc.to_host"):
+                ids = ids.cpu().numpy()
+                dists = dists.cpu().numpy()
+                id_dtype = np.dtype(self.config.index_dtype)
+                if single:
+                    m = ids[0] >= 0
+                    return (ids[0][m].astype(id_dtype),
+                            dists[0][m].astype(out_dtype))
+                out_i, out_d = [], []
+                for row_i, row_d in zip(ids, dists):
+                    m = row_i >= 0
+                    out_i.append(row_i[m].astype(id_dtype))
+                    out_d.append(row_d[m].astype(out_dtype))
+                return out_i, out_d
 
     def search_padded(self, points, k: int, w: int = 1
                       ) -> Tuple[np.ndarray, np.ndarray]:
         """Batch search with fixed (B, k) numpy outputs, -1 / +inf padding."""
-        ids, dists = self._device_search(points, k, w)
-        return ids.cpu().numpy(), dists.cpu().numpy()
+        with span("ivfadc.search"):
+            ids, dists = self._device_search(points, k, w)
+            with span("ivfadc.to_host"):
+                return ids.cpu().numpy(), dists.cpu().numpy()
 
     def search_stream(self, points, k: int, w: int = 1, *,
                       batch: int = 16384, stats=None
@@ -982,10 +1047,14 @@ class IVFADCIndex:
         if n == 0:
             return (np.empty((0, k), np.int32), np.empty((0, k), np.float32))
         t0 = time.perf_counter()
-        outs = [self._device_search(points[s:s + batch], k, w)
-                for s in range(0, n, batch)]
-        ids = torch.cat([i for i, _ in outs]).cpu().numpy()
-        dists = torch.cat([d for _, d in outs]).cpu().numpy()
+        with span("ivfadc.search"):
+            outs = [self._device_search(points[s:s + batch], k, w)
+                    for s in range(0, n, batch)]
+            with span("ivfadc.merge"):
+                ids = torch.cat([i for i, _ in outs])
+                dists = torch.cat([d for _, d in outs])
+            with span("ivfadc.to_host"):
+                ids, dists = ids.cpu().numpy(), dists.cpu().numpy()
         if stats is not None:
             stats.record(n, time.perf_counter() - t0)
         return ids, dists

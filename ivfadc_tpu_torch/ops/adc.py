@@ -23,6 +23,7 @@ import torch
 from ivfadc_tpu_torch.ops.kmeans import _pairwise
 from ivfadc_tpu_torch.ops.metrics import Metric
 from ivfadc_tpu_torch.ops.topk import MAX_N, topk_lastdim_payload
+from ivfadc_tpu_torch.utils.profiling import span
 
 
 def build_adc_tables(metric: Metric, residuals: torch.Tensor,
@@ -51,31 +52,33 @@ def scan_postings(tables, base, cells, offsets, sizes, codes, ids, *, k: int,
     padding), ascending by distance, equal distances in candidate order."""
     B, w, m, kq = tables.shape
     dev = tables.device
-    cells = cells.to(torch.int64)
-    starts = offsets.to(torch.int64)[cells]                    # (B, w)
-    lanes = torch.arange(window, dtype=torch.int64, device=dev)
-    valid = lanes[None, None, :] < sizes.to(torch.int64)[cells][..., None]
-    pos = torch.where(valid, starts[..., None] + lanes[None, None, :], 0)
+    with span("ivfadc.scan"):
+        cells = cells.to(torch.int64)
+        starts = offsets.to(torch.int64)[cells]                # (B, w)
+        lanes = torch.arange(window, dtype=torch.int64, device=dev)
+        valid = lanes[None, None, :] \
+            < sizes.to(torch.int64)[cells][..., None]
+        pos = torch.where(valid, starts[..., None] + lanes[None, None, :], 0)
 
-    cand_ids = ids[pos].to(torch.int32)                        # (B, w, window)
-    acc = base.to(torch.float32)[..., None].expand(B, w, window)
-    for j in range(m):
-        cj = codes[pos, j].to(torch.int64)                     # (B, w, window)
-        acc = acc + torch.gather(tables[:, :, j, :], 2, cj)
-    scores = torch.where(valid, acc, float("inf")).reshape(B, w * window)
-    cand_ids = cand_ids.reshape(B, w * window)
-
-    k_eff = min(k, w * window)
-    if k_eff <= 128 and w * window <= MAX_N:
-        out_dists, out_ids = topk_lastdim_payload(scores, cand_ids, k_eff)
-    else:
-        out_dists, which = torch.sort(scores, dim=1, stable=True)
-        out_dists = out_dists[:, :k_eff]
-        out_ids = torch.gather(cand_ids, 1, which[:, :k_eff])
-    out_ids = torch.where(torch.isfinite(out_dists), out_ids, -1)
-    if k_eff < k:
-        pad = k - k_eff
-        out_ids = torch.nn.functional.pad(out_ids, (0, pad), value=-1)
-        out_dists = torch.nn.functional.pad(out_dists, (0, pad),
-                                            value=float("inf"))
-    return out_ids, out_dists
+        cand_ids = ids[pos].to(torch.int32)                    # (B, w, window)
+        acc = base.to(torch.float32)[..., None].expand(B, w, window)
+        for j in range(m):
+            cj = codes[pos, j].to(torch.int64)                 # (B, w, window)
+            acc = acc + torch.gather(tables[:, :, j, :], 2, cj)
+        scores = torch.where(valid, acc, float("inf")).reshape(B, w * window)
+        cand_ids = cand_ids.reshape(B, w * window)
+    with span("ivfadc.merge"):
+        k_eff = min(k, w * window)
+        if k_eff <= 128 and w * window <= MAX_N:
+            out_dists, out_ids = topk_lastdim_payload(scores, cand_ids, k_eff)
+        else:
+            out_dists, which = torch.sort(scores, dim=1, stable=True)
+            out_dists = out_dists[:, :k_eff]
+            out_ids = torch.gather(cand_ids, 1, which[:, :k_eff])
+        out_ids = torch.where(torch.isfinite(out_dists), out_ids, -1)
+        if k_eff < k:
+            pad = k - k_eff
+            out_ids = torch.nn.functional.pad(out_ids, (0, pad), value=-1)
+            out_dists = torch.nn.functional.pad(out_dists, (0, pad),
+                                                value=float("inf"))
+        return out_ids, out_dists

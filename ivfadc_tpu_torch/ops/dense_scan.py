@@ -57,6 +57,7 @@ import torch
 from ivfadc_tpu_torch import _build
 from ivfadc_tpu_torch.ops.cell_rank import (MAX_KC, tile_layout,
                                             tile_slots)
+from ivfadc_tpu_torch.utils.profiling import span
 
 _CAND = 128          # lanes per fold bank (rows per group)
 MAX_PB = 64          # the grouped kernels' tallest tile (csrc/dense_scan.cu)
@@ -311,8 +312,10 @@ def grouped_scan(tile_start, tile_size, v_tiles, base_tiles, decoded, scale,
     kw = dict(pb=pb, nf=nf, norm_coef=norm_coef, merge=merge, pos8=pos8,
               extract_k=extract_k, k_out=k_out)
     if v_tiles.device.type == "cpu":
-        return grouped_scan_plain(tile_start, tile_size, v_tiles, base_tiles,
-                                  decoded, scale, ids2d, norms2d, **kw)
+        with span("ivfadc.scan"):
+            return grouped_scan_plain(tile_start, tile_size, v_tiles,
+                                      base_tiles, decoded, scale, ids2d,
+                                      norms2d, **kw)
     T = tile_start.shape[0]
     d = v_tiles.shape[1]
     dev = v_tiles.device
@@ -320,29 +323,32 @@ def grouped_scan(tile_start, tile_size, v_tiles, base_tiles, decoded, scale,
         raise ValueError(f"feature dim must be a 128-multiple shared by v "
                          f"and the decoded cache, got {d} / "
                          f"{decoded.shape[1]}")
-    args = [tile_start.to(torch.int32), tile_size.to(torch.int32),
-            v_tiles.to(torch.bfloat16), base_tiles.to(torch.float32),
-            decoded,
-            None if elem == "bf16"
-            else scale.to(torch.bfloat16).to(torch.float32),
-            None if ids2d is None else ids2d.to(torch.int32),
-            None if norms2d is None else norms2d.to(torch.float32)]
-    args = [None if a is None else a.contiguous() for a in args]
-    for a in args:
-        if a is None:
-            continue
-        if a.device != dev:
-            raise ValueError("grouped scan inputs must be on one device")
-        if a.data_ptr() % 16:
-            raise ValueError("grouped scan inputs must be 16-byte aligned")
-    width = extract_k or nf
-    out_d = torch.empty((T * pb, width), dtype=torch.float32, device=dev)
-    out_p = torch.empty((T * pb, width), dtype=torch.int8
-                        if variant == "pos8" else torch.int32, device=dev)
-    GROUPED_KERNELS[variant, elem](
-        *(None if a is None else a.data_ptr() for a in args), T, d, pb, nf,
-        extract_k or k_out, float(norm_coef), out_d.data_ptr(),
-        out_p.data_ptr(), _build.stream_ptr(dev))
+    with span("ivfadc.tileprep"):
+        args = [tile_start.to(torch.int32), tile_size.to(torch.int32),
+                v_tiles.to(torch.bfloat16), base_tiles.to(torch.float32),
+                decoded,
+                None if elem == "bf16"
+                else scale.to(torch.bfloat16).to(torch.float32),
+                None if ids2d is None else ids2d.to(torch.int32),
+                None if norms2d is None else norms2d.to(torch.float32)]
+        args = [None if a is None else a.contiguous() for a in args]
+        for a in args:
+            if a is None:
+                continue
+            if a.device != dev:
+                raise ValueError("grouped scan inputs must be on one device")
+            if a.data_ptr() % 16:
+                raise ValueError(
+                    "grouped scan inputs must be 16-byte aligned")
+        width = extract_k or nf
+        out_d = torch.empty((T * pb, width), dtype=torch.float32, device=dev)
+        out_p = torch.empty((T * pb, width), dtype=torch.int8
+                            if variant == "pos8" else torch.int32, device=dev)
+    with span("ivfadc.scan"):
+        GROUPED_KERNELS[variant, elem](
+            *(None if a is None else a.data_ptr() for a in args), T, d, pb,
+            nf, extract_k or k_out, float(norm_coef), out_d.data_ptr(),
+            out_p.data_ptr(), _build.stream_ptr(dev))
     return out_d, out_p
 
 
@@ -381,17 +387,33 @@ def grouped_dense_scan(cells, offsets, sizes, v, base, decoded, scale=None,
     # payload width changes no result.
     pos8 = pos8 and pb >= 32
     d_dec = decoded.shape[-1]
-    if v.shape[-1] != d_dec:
-        v = torch.nn.functional.pad(v, (0, d_dec - v.shape[-1]))
-    B, w, _ = v.shape
-    tile_start, tile_size, v_tiles, base_tiles, row = place_tiles(
-        cells, offsets, sizes, v, base, kc=kc, pb=pb, rank_engine=rank_engine)
+    with span("ivfadc.tileprep"):
+        if v.shape[-1] != d_dec:
+            v = torch.nn.functional.pad(v, (0, d_dec - v.shape[-1]))
+        B, w, _ = v.shape
+        tile_start, tile_size, v_tiles, base_tiles, row = place_tiles(
+            cells, offsets, sizes, v, base, kc=kc, pb=pb,
+            rank_engine=rank_engine)
     out_d, out_p = grouped_scan(tile_start, tile_size, v_tiles, base_tiles,
                                 decoded, scale, ids2d, norms2d, pb=pb, nf=nf,
                                 norm_coef=norm_coef, merge=merge, pos8=pos8,
                                 extract_k=extract_k, k_out=k_out)
-    width = out_d.shape[1]
-    return out_d[row].reshape(B, w, width), out_p[row].reshape(B, w, width)
+    with span("ivfadc.merge"):
+        width = out_d.shape[1]
+        return (out_d[row].reshape(B, w, width),
+                out_p[row].reshape(B, w, width))
+
+
+def grouped_pairs(cells, sizes, *, kc: int, pb: int):
+    """The (probe slot, row) pairs the grouped scan scores for the probes
+    `cells` (B, w) over cells of `sizes` (kc,): cell c's n_c probes fill
+    ceil(n_c / h) tiles of h = tile_height(pb) slots, empty slots
+    included, and each slot meets the cell's sizes[c] rows, so
+    sum_c ceil(n_c / h) * h * sizes[c], the sum over the tiles of
+    tile_size * h. An int64 device scalar (`profiling.counting`)."""
+    h = tile_height(pb)
+    n = torch.bincount(cells.reshape(-1).to(torch.int64), minlength=kc)
+    return ((n + h - 1) // h * h * sizes.to(torch.int64)).sum()
 
 
 def sort_ranks(cells_flat, kc: int):
@@ -538,33 +560,38 @@ def dense_scan(starts, sizes, v, base, decoded, scale=None, *, k_out: int,
         v = torch.nn.functional.pad(v, (0, pad_to - v.shape[-1]))
     B, w, dv = v.shape
     P = B * w
-    args = [starts.reshape(P).to(torch.int32),
-            sizes.reshape(P).to(torch.int32),
-            base.reshape(P).to(torch.float32),
-            v.reshape(P, dv).to(torch.bfloat16), decoded,
-            None if elem == "bf16"
-            else scale.to(torch.bfloat16).to(torch.float32)]
+    with span("ivfadc.tileprep"):
+        args = [starts.reshape(P).to(torch.int32),
+                sizes.reshape(P).to(torch.int32),
+                base.reshape(P).to(torch.float32),
+                v.reshape(P, dv).to(torch.bfloat16), decoded,
+                None if elem == "bf16"
+                else scale.to(torch.bfloat16).to(torch.float32)]
     if dev.type == "cpu":
-        out_d, out_p = probe_scan_plain(*args, nf=nf, norm_coef=norm_coef,
-                                        merge=merge, k_out=k_out)
+        with span("ivfadc.scan"):
+            out_d, out_p = probe_scan_plain(*args, nf=nf,
+                                            norm_coef=norm_coef, merge=merge,
+                                            k_out=k_out)
         return out_d.reshape(B, w, nf), out_p.reshape(B, w, nf)
     if d_dec % 128:
         raise ValueError(f"the decoded cache's feature dim must be a "
                          f"128-multiple, got {d_dec}")
-    args = [None if a is None else a.contiguous() for a in args]
-    for a in args:
-        if a is None:
-            continue
-        if a.device != dev:
-            raise ValueError("dense scan inputs must be on one device")
-        if a.data_ptr() % 16:
-            raise ValueError("dense scan inputs must be 16-byte aligned")
-    out_d = torch.empty((P, nf), dtype=torch.float32, device=dev)
-    out_p = torch.empty((P, nf), dtype=torch.int32, device=dev)
-    PROBE_KERNELS[merge, elem](
-        *(None if a is None else a.data_ptr() for a in args), P, d_dec, dv,
-        nf, k_out, float(norm_coef), out_d.data_ptr(), out_p.data_ptr(),
-        _build.stream_ptr(dev))
+    with span("ivfadc.tileprep"):
+        args = [None if a is None else a.contiguous() for a in args]
+        for a in args:
+            if a is None:
+                continue
+            if a.device != dev:
+                raise ValueError("dense scan inputs must be on one device")
+            if a.data_ptr() % 16:
+                raise ValueError("dense scan inputs must be 16-byte aligned")
+        out_d = torch.empty((P, nf), dtype=torch.float32, device=dev)
+        out_p = torch.empty((P, nf), dtype=torch.int32, device=dev)
+    with span("ivfadc.scan"):
+        PROBE_KERNELS[merge, elem](
+            *(None if a is None else a.data_ptr() for a in args), P, d_dec,
+            dv, nf, k_out, float(norm_coef), out_d.data_ptr(),
+            out_p.data_ptr(), _build.stream_ptr(dev))
     return out_d.reshape(B, w, nf), out_p.reshape(B, w, nf)
 
 
@@ -614,9 +641,10 @@ def grouped_scan_qc(tile_start, tile_size, c_t, qidx, q_pad, c_pad, rot_pad,
     kw = dict(pb=pb, nf=nf, norm_coef=norm_coef, base_mult=base_mult,
               apply_rot=apply_rot)
     if q_pad.device.type == "cpu":
-        return grouped_scan_qc_plain(tile_start, tile_size, c_t, qidx, q_pad,
-                                     c_pad, rot_pad, decoded, scale, ids2d,
-                                     **kw)
+        with span("ivfadc.scan"):
+            return grouped_scan_qc_plain(tile_start, tile_size, c_t, qidx,
+                                         q_pad, c_pad, rot_pad, decoded,
+                                         scale, ids2d, **kw)
     T = tile_start.shape[0]
     d = q_pad.shape[1]
     dev = q_pad.device
@@ -626,27 +654,30 @@ def grouped_scan_qc(tile_start, tile_size, c_t, qidx, q_pad, c_pad, rot_pad,
                          f"queries, centroids, rotation and decoded cache, "
                          f"got {d} / {c_pad.shape[1]} / "
                          f"{tuple(rot_pad.shape)} / {decoded.shape[1]}")
-    args = [tile_start.to(torch.int32), tile_size.to(torch.int32),
-            c_t.to(torch.int32), qidx.to(torch.int32),
-            q_pad.to(torch.float32), c_pad.to(torch.float32),
-            rot_pad.to(torch.bfloat16), decoded,
-            None if elem == "bf16"
-            else scale.to(torch.bfloat16).to(torch.float32),
-            ids2d.to(torch.int32)]
-    args = [None if a is None else a.contiguous() for a in args]
-    for a in args:
-        if a is None:
-            continue
-        if a.device != dev:
-            raise ValueError("qc scan inputs must be on one device")
-        if a.data_ptr() % 16:
-            raise ValueError("qc scan inputs must be 16-byte aligned")
-    out_d = torch.empty((T * pb, nf), dtype=torch.float32, device=dev)
-    out_p = torch.empty((T * pb, nf), dtype=torch.int32, device=dev)
-    QC_KERNELS[elem](*(None if a is None else a.data_ptr() for a in args),
-                     T, d, pb, nf, float(norm_coef), float(base_mult),
-                     int(apply_rot), out_d.data_ptr(), out_p.data_ptr(),
-                     _build.stream_ptr(dev))
+    with span("ivfadc.tileprep"):
+        args = [tile_start.to(torch.int32), tile_size.to(torch.int32),
+                c_t.to(torch.int32), qidx.to(torch.int32),
+                q_pad.to(torch.float32), c_pad.to(torch.float32),
+                rot_pad.to(torch.bfloat16), decoded,
+                None if elem == "bf16"
+                else scale.to(torch.bfloat16).to(torch.float32),
+                ids2d.to(torch.int32)]
+        args = [None if a is None else a.contiguous() for a in args]
+        for a in args:
+            if a is None:
+                continue
+            if a.device != dev:
+                raise ValueError("qc scan inputs must be on one device")
+            if a.data_ptr() % 16:
+                raise ValueError("qc scan inputs must be 16-byte aligned")
+        out_d = torch.empty((T * pb, nf), dtype=torch.float32, device=dev)
+        out_p = torch.empty((T * pb, nf), dtype=torch.int32, device=dev)
+    with span("ivfadc.scan"):
+        QC_KERNELS[elem](*(None if a is None else a.data_ptr()
+                           for a in args),
+                         T, d, pb, nf, float(norm_coef), float(base_mult),
+                         int(apply_rot), out_d.data_ptr(), out_p.data_ptr(),
+                         _build.stream_ptr(dev))
     return out_d, out_p
 
 
@@ -698,12 +729,14 @@ def grouped_dense_scan_qc(cells, offsets, sizes, queries, cents, rot,
                          f"got nf={nf}, chunk={chunk}")
     B, w = cells.shape
     pb = tile_height(pb)
-    tile_start, tile_size, c_t, qidx, q_pad, c_pad, rot_pad, row = \
-        qc_tile_inputs(cells, offsets, sizes, queries, cents, rot,
-                       decoded.shape[-1], kc=kc, pb=pb,
-                       rank_engine=rank_engine)
+    with span("ivfadc.tileprep"):
+        tile_start, tile_size, c_t, qidx, q_pad, c_pad, rot_pad, row = \
+            qc_tile_inputs(cells, offsets, sizes, queries, cents, rot,
+                           decoded.shape[-1], kc=kc, pb=pb,
+                           rank_engine=rank_engine)
     out_d, out_p = grouped_scan_qc(
         tile_start, tile_size, c_t, qidx, q_pad, c_pad, rot_pad, decoded,
         scale, ids2d, pb=pb, nf=nf, norm_coef=norm_coef, base_mult=base_mult,
         apply_rot=apply_rot)
-    return out_d[row].reshape(B, w, nf), out_p[row].reshape(B, w, nf)
+    with span("ivfadc.merge"):
+        return out_d[row].reshape(B, w, nf), out_p[row].reshape(B, w, nf)

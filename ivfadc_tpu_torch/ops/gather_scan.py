@@ -23,6 +23,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ivfadc_tpu_torch.utils.profiling import span
+
 # elements of one block's (probes, win, d) row gather; larger probe sets
 # are scored in blocks of probes (results do not change: probes are
 # independent)
@@ -46,35 +48,38 @@ def gathered_scan(starts, sizes, v, base, decoded,
 
     Returns (dists (B, w, win) f32, ids (B, w, win) i32) with +inf / -1 in
     lanes past each cell's size."""
-    if v.shape[-1] != decoded.shape[-1]:    # decoded is lane-padded
-        v = torch.nn.functional.pad(v, (0, decoded.shape[-1] - v.shape[-1]))
-    B, w, d = v.shape
-    P = B * w
-    j = torch.arange(win, dtype=torch.int64, device=v.device)[None, :]
-    valid = j < sizes.reshape(P, 1).to(torch.int64)              # (P, win)
-    idx = torch.where(valid, starts.reshape(P, 1).to(torch.int64) + j, 0)
-    idx = torch.clamp_max(idx, decoded.shape[0] - 1)
-    vb = v.reshape(P, d).to(torch.bfloat16)
-    sc = None if scale is None else scale.to(torch.bfloat16)
-    base = base.reshape(P, 1).to(torch.float32)
-    block = max(1, _BLOCK_ELEMS // max(1, win * d))
-    outs = []
-    for s in range(0, P, block):
-        rows = decoded[idx[s:s + block]].to(torch.bfloat16)     # (p, win, d)
-        if sc is not None:
-            rows = rows * sc
-        # bf16 values multiply exactly in f32, which sums them
-        scores = torch.bmm(rows.to(torch.float32),
-                           vb[s:s + block, :, None].to(torch.float32))[..., 0]
-        if norm_coef != 0.0:
-            scores = scores + norm_coef * (rows * rows).to(
-                torch.float32).sum(-1)
-        outs.append(scores + base[s:s + block])
-    scores = torch.cat(outs) if outs else base.new_empty((0, win))
-    scores = torch.where(valid, scores, float("inf"))
-    payload = ids[idx].to(torch.int64) if ids is not None else idx
-    out_ids = torch.where(valid, payload, -1).to(torch.int32)
-    return scores.reshape(B, w, win), out_ids.reshape(B, w, win)
+    with span("ivfadc.scan"):
+        if v.shape[-1] != decoded.shape[-1]:    # decoded is lane-padded
+            v = torch.nn.functional.pad(
+                v, (0, decoded.shape[-1] - v.shape[-1]))
+        B, w, d = v.shape
+        P = B * w
+        j = torch.arange(win, dtype=torch.int64, device=v.device)[None, :]
+        valid = j < sizes.reshape(P, 1).to(torch.int64)          # (P, win)
+        idx = torch.where(valid, starts.reshape(P, 1).to(torch.int64) + j, 0)
+        idx = torch.clamp_max(idx, decoded.shape[0] - 1)
+        vb = v.reshape(P, d).to(torch.bfloat16)
+        sc = None if scale is None else scale.to(torch.bfloat16)
+        base = base.reshape(P, 1).to(torch.float32)
+        block = max(1, _BLOCK_ELEMS // max(1, win * d))
+        outs = []
+        for s in range(0, P, block):
+            rows = decoded[idx[s:s + block]].to(torch.bfloat16)  # (p,win,d)
+            if sc is not None:
+                rows = rows * sc
+            # bf16 values multiply exactly in f32, which sums them
+            scores = torch.bmm(
+                rows.to(torch.float32),
+                vb[s:s + block, :, None].to(torch.float32))[..., 0]
+            if norm_coef != 0.0:
+                scores = scores + norm_coef * (rows * rows).to(
+                    torch.float32).sum(-1)
+            outs.append(scores + base[s:s + block])
+        scores = torch.cat(outs) if outs else base.new_empty((0, win))
+        scores = torch.where(valid, scores, float("inf"))
+        payload = ids[idx].to(torch.int64) if ids is not None else idx
+        out_ids = torch.where(valid, payload, -1).to(torch.int32)
+        return scores.reshape(B, w, win), out_ids.reshape(B, w, win)
 
 
 def plan_gather(caps, limit: int, max_cap=None) -> Tuple[int, bool]:

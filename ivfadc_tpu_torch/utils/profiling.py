@@ -1,8 +1,35 @@
-"""Build-phase timing, a profiler trace and search counters (port of
-`ivfadc_tpu/utils/profiling.py`).
+"""Build-phase timing, a profiler trace, search stage spans and search
+counters (port of `ivfadc_tpu/utils/profiling.py`, plus `span` and
+`counting`).
 
 Phase timings end at a device sync, so the numbers cover the device work
 the phase queued, not only its launches.
+
+Search stages: every search names the stage its host is in with `span`,
+which records a range only while a torch.profiler records (`trace` is
+one); otherwise it is one shared no-op object. The stages, in a search's
+order:
+
+  ivfadc.search   each `search` / `search_padded` / `search_stream` call,
+                  from entry to the host results
+  ivfadc.setup    checks, the query copy and bucket padding, environment
+                  reads, route choice, the dense view, the scan chunk, the
+                  gather plan and the pos8 gate
+  ivfadc.probe    the coarse probe and the scan vectors it yields (the
+                  fused kernel, the quantizer's search, the LUT tables)
+  ivfadc.tileprep the grouped scan's tile placement, the per-probe scan's
+                  slot ranges, the kernels' argument casts
+  ivfadc.scan     the scan kernels (grouped, qc, per-probe), the gathered
+                  engine and the LUT engine's table lookups
+  ivfadc.merge    the output reorder, the top-k merges, `finalize`, the
+                  batch slice
+  ivfadc.to_host  the device-to-host copy of the results
+
+A stage opened inside another stage records nothing: the outer stage owns
+the work (the two-level quantizer's grouped stage 2 is probe work). The
+ranges are host ranges (torch.profiler's function scope, which puts no
+annotation on the device's timeline); a device operation belongs to the
+stage its launch, the runtime call with its correlation id, lies in.
 """
 
 from __future__ import annotations
@@ -56,6 +83,166 @@ def trace(log_dir: str):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+SEARCH = "ivfadc.search"
+STAGES = ("ivfadc.setup", "ivfadc.probe", "ivfadc.tileprep", "ivfadc.scan",
+          "ivfadc.merge", "ivfadc.to_host")
+_STAGE_SET = frozenset(STAGES)
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_RecordFunctionFast = torch._C._profiler._RecordFunctionFast
+_open = threading.local()        # .stage: the stage this thread is in
+
+
+class _NoSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("name", "stage", "rf")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.stage = name in _STAGE_SET
+        self.rf = None
+
+    def __enter__(self):
+        if self.stage:
+            if getattr(_open, "stage", None) is not None:
+                return self               # inside a stage: the outer owns it
+            _open.stage = self.name
+        self.rf = _RecordFunctionFast(self.name)
+        self.rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+            if self.stage:
+                _open.stage = None
+        return False
+
+
+def span(name: str):
+    """A named host range while a torch.profiler records, else the shared
+    no-op object: no record function, no allocation, no device work. It
+    never syncs and reads no device value. Stage names (`STAGES`) do not
+    nest: one opened inside another records nothing."""
+    if not _profiler_enabled():
+        return _NO_SPAN
+    return _Span(name)
+
+
+COUNTS = ("searches", "queries", "padded_queries", "probes",
+          "postings_probed", "scan_pairs")
+_DEVICE_COUNTS = ("postings_probed", "scan_pairs")
+
+
+class _Tally:
+    """The counters of one `counting()` block: host ints, and per device
+    one (2,) int64 tensor that the searches add their device sums into."""
+
+    def __init__(self):
+        self.host = dict.fromkeys(COUNTS, 0)
+        self.dev: Dict[torch.device, torch.Tensor] = {}
+        self.lock = threading.Lock()
+
+    def _add(self, name: str, value) -> None:
+        if isinstance(value, torch.Tensor):
+            acc = self.dev.get(value.device)
+            if acc is None:
+                with self.lock:
+                    acc = self.dev.setdefault(value.device, torch.zeros(
+                        len(_DEVICE_COUNTS), dtype=torch.int64,
+                        device=value.device))
+            acc[_DEVICE_COUNTS.index(name)].add_(value)
+        else:
+            with self.lock:
+                self.host[name] += int(value)
+
+    def search(self, queries: int, padded: int, w: int) -> None:
+        """One search of `queries` rows, bucketed to `padded`, w probes a
+        row."""
+        with self.lock:
+            self.host["searches"] += 1
+            self.host["queries"] += queries
+            self.host["padded_queries"] += padded
+            self.host["probes"] += queries * w
+
+    def probed(self, cells, sizes, rows=None) -> None:
+        """postings_probed += the probed cells' sizes over the first `rows`
+        query rows of `cells` (B, w) (None: every row)."""
+        c = cells if rows is None else cells[:rows]
+        self._add("postings_probed", sizes[c.to(torch.int64)].sum())
+
+    def scanned(self, pairs) -> None:
+        """scan_pairs += `pairs` (an int or a device scalar)."""
+        self._add("scan_pairs", pairs)
+
+    def read(self) -> Dict[str, int]:
+        out = dict(self.host)
+        for acc in self.dev.values():
+            for name, v in zip(_DEVICE_COUNTS, acc.tolist()):
+                out[name] += v
+        return out
+
+
+_tally: "_Tally | None" = None
+
+
+def tally():
+    """The open `counting()` block's counters, or None: the search path
+    counts only `if tally() is not None`."""
+    return _tally
+
+
+@contextlib.contextmanager
+def counting():
+    """Count the searches run inside the block; yields a dict that holds,
+    once the block ends, Python ints:
+
+      searches, queries, padded_queries (the bucketed batch rows), probes
+                      (queries x w)
+      postings_probed the probed cells' sizes summed over the real (not
+                      padding) query rows: the (query, posting) pairs the
+                      problem needs (`probe_stats`'
+                      scanned_postings_per_query x queries)
+      scan_pairs      the (probe slot, row) pairs the scan scores, from
+                      each route's own loop bounds, padding rows included:
+                      grouped and qc scans sum_c ceil(n_c / h) * h *
+                      size_c over the probed cells (n_c probes in cell c,
+                      h = tile_height(pb) slots a tile, empty slots
+                      included: the sum over the tiles of tile_size * h);
+                      per-probe scan sum over probes of the cell's size;
+                      gathered engine probes x window; LUT engine probes x
+                      window
+
+    Inside, each search adds device-side sums into one small tensor per
+    device, read once (one sync) when the block ends. Outside any block
+    the counters launch nothing and allocate nothing. Searches on any
+    thread count; blocks do not nest. The sharded views count their
+    scans' postings and pairs, padding rows included, not their
+    searches."""
+    global _tally
+    if _tally is not None:
+        raise RuntimeError("counting() blocks do not nest")
+    t = _tally = _Tally()
+    counts: Dict[str, int] = {}
+    try:
+        yield counts
+    finally:
+        _tally = None
+        counts.update(t.read())
 
 
 class SearchStats:

@@ -1669,3 +1669,44 @@ def test_every_scan_pb_on_the_card(dev, monkeypatch):
             np.testing.assert_array_equal(got[0], want[0])
             np.testing.assert_array_equal(got[1], want[1])
     idx.config = cfg0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [4096, 64])        # grouped, per-probe
+def test_every_device_op_of_a_search_has_one_stage(dev, B):
+    """Under torch.profiler a SIFT-shaped search (d = 128, m = 8) names
+    its stages (utils/profiling.py): every device operation's launch, the
+    runtime call with its correlation id, lies in exactly one stage span,
+    and the spans put no event on the device's timeline."""
+    from torch.profiler import ProfilerActivity, profile
+    from ivfadc_tpu_torch import IVFADCIndex
+    from ivfadc_tpu_torch.utils import profiling
+    from ivfadc_tpu_torch.utils.datasets import synthetic_clustered
+    data = synthetic_clustered(50000, 128, seed=0)
+    idx = IVFADCIndex.build(data, kc=256, m=8, k=256, seed=0,
+                            coarse_maxiter=3, quantization_maxiter=3)
+    q = torch.as_tensor(data[:B], device=dev) + 0.05
+    want = idx.search_padded(q, 10, w=8)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = idx.search_padded(q, 10, w=8)
+        torch.cuda.synchronize()
+    np.testing.assert_array_equal(got[0], want[0])
+    ev = prof.events()
+    ops = [e for e in ev if getattr(e, "device_type", None)
+           == torch.autograd.DeviceType.CUDA]
+    assert ops and not any(e.name.startswith("ivfadc.") for e in ops)
+    launch = {e.id: e.time_range.start for e in ev
+              if e.device_type == torch.autograd.DeviceType.CPU
+              and e.name.startswith("cu")}
+    stages = [(e.time_range.start, e.time_range.end) for e in ev
+              if e.name in profiling.STAGES]
+    bad = []
+    for e in ops:
+        t = launch.get(e.id)
+        n = None if t is None else sum(s0 <= t <= s1 for s0, s1 in stages)
+        if n != 1:
+            bad.append((e.name[:48], e.id, t, n))
+    assert not bad, bad
+    names = {e.name for e in ev if e.name.startswith("ivfadc.")}
+    assert names == {profiling.SEARCH, *profiling.STAGES}
