@@ -16,6 +16,7 @@ every module without a CUDA toolkit.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -157,12 +158,17 @@ class HostFn:
                 f"{lib.ivfadc_error_string(err).decode()} (error {err})")
 
 
+_capturing = threading.local()      # .log: the kernels a capture launched
+
+
 class Kernel(HostFn):
     """One C entry point of a kernel library plus its launch count.
 
     `launches` grows by one for every successful call, and is the only
     place a kernel's use is counted: a run can show that its path went
     through the kernel by zeroing the count before and reading it after.
+    A call inside `capturing()` is logged instead, and each replay of the
+    captured graph counts its launches (`credit`).
     """
 
     def __init__(self, lib: str, fn: str, argtypes):
@@ -171,7 +177,29 @@ class Kernel(HostFn):
 
     def __call__(self, *args) -> None:
         super().__call__(*args)
-        self.launches += 1
+        log = getattr(_capturing, "log", None)
+        if log is None:
+            self.launches += 1
+        else:
+            log.append(self)
+
+
+@contextlib.contextmanager
+def capturing():
+    """Log, instead of counting, the kernels this thread launches inside
+    the block (a CUDA graph's capture); yields the log."""
+    log: List[Kernel] = []
+    _capturing.log = log
+    try:
+        yield log
+    finally:
+        _capturing.log = None
+
+
+def credit(kernels: List[Kernel]) -> None:
+    """Count one launch of each kernel a replayed graph holds."""
+    for kern in kernels:
+        kern.launches += 1
 
 
 def stream_ptr(device) -> int:

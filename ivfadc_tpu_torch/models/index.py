@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from ivfadc_tpu_torch.config import DTYPE_TO_BITS, IVFADCConfig, device_id_cap
+from ivfadc_tpu_torch.models import graphs
 from ivfadc_tpu_torch.models.coarse import (NaiveCoarseQuantizer,
                                             make_coarse_quantizer,
                                             pairwise_rows)
@@ -342,12 +343,10 @@ def _dense_finish(cells, v, base, dev, *, k, w, chunk, pb, nf, norm_coef,
     n_lanes = nf if merge == "fold" else 128
     t = tally()
     if t is not None:
-        t.probed(cells, dev["sizes"], rows)
+        _count_dense(t, cells, dev["sizes"], w=w, pb=pb,
+                     gather_win=gather_win, gather_all=gather_all, rows=rows)
     if B * w >= 4 * kc_:
-        from ivfadc_tpu_torch.ops.dense_scan import (grouped_dense_scan,
-                                                     grouped_pairs)
-        if t is not None:
-            t.scanned(grouped_pairs(cells, dev["sizes"], kc=kc_, pb=pb))
+        from ivfadc_tpu_torch.ops.dense_scan import grouped_dense_scan
         # id emission needs the fold and 128-row cells; extraction needs id
         # emission, and runs with the row norms computed in the kernel; a
         # score without a norm term (inner product) reads no norms stream
@@ -384,8 +383,6 @@ def _dense_finish(cells, v, base, dev, *, k, w, chunk, pb, nf, norm_coef,
         with span("ivfadc.tileprep"):
             small = sizes_p <= gather_win
             g_sizes = torch.where(small, sizes_p, 0)
-        if t is not None:
-            t.scanned(cells.numel() * gather_win)
         gd, gi = gathered_scan(starts_p, g_sizes, v, base, dev["decoded"],
                                dev["scale"], dev["ids"], win=gather_win,
                                norm_coef=norm_coef)
@@ -396,8 +393,6 @@ def _dense_finish(cells, v, base, dev, *, k, w, chunk, pb, nf, norm_coef,
             return g_res
         with span("ivfadc.tileprep"):
             sizes_p = torch.where(small, 0, sizes_p)
-    if t is not None:
-        t.scanned(sizes_p.sum())
     out_d, out_p = dense_scan(
         starts_p, sizes_p, v, base, dev["decoded"], dev["scale"],
         k_out=k_out, chunk=chunk, norm_coef=norm_coef, merge=merge,
@@ -414,6 +409,28 @@ def _dense_finish(cells, v, base, dev, *, k, w, chunk, pb, nf, norm_coef,
                          torch.cat([g_res[0], s_res[0]], dim=1), k)
 
 
+def _count_dense(t, cells, sizes, *, w: int, pb: int, gather_win: int = 0,
+                 gather_all: bool = False, rows: int | None = None) -> None:
+    """A dense search's device counts (`profiling.counting`) from its probed
+    cells (B, w) and the cells' sizes (kc,): the postings the first `rows`
+    query rows probe, and the pairs its scan scores by the route's loop
+    bounds (grouped or qc: `grouped_pairs`; per probe: the probed cells'
+    sizes, less those the gathered engine takes at `gather_win` pairs a
+    probe)."""
+    t.probed(cells, sizes, rows)
+    if cells.shape[0] * w >= 4 * sizes.shape[0]:
+        from ivfadc_tpu_torch.ops.dense_scan import grouped_pairs
+        t.scanned(grouped_pairs(cells, sizes, kc=sizes.shape[0], pb=pb))
+        return
+    sizes_p = sizes[cells.to(torch.int64)]
+    if gather_win:
+        t.scanned(cells.numel() * gather_win)
+        if gather_all:
+            return
+        sizes_p = torch.where(sizes_p <= gather_win, 0, sizes_p)
+    t.scanned(sizes_p.sum())
+
+
 def _bucket_batch(b: int) -> int:
     """Batch sizes padded to a small set of buckets (the JAX package's
     policy, kept so both packages see the same padded batches)."""
@@ -425,6 +442,25 @@ def _bucket_batch(b: int) -> int:
     if p >= b:
         return p
     return ((b + 1023) // 1024) * 1024
+
+
+def _pad_rows(q: torch.Tensor, rows: int) -> torch.Tensor:
+    """q (B, d) with zero rows appended up to `rows`."""
+    if q.shape[0] == rows:
+        return q
+    return torch.nn.functional.pad(q, (0, 0, 0, rows - q.shape[0]))
+
+
+def _to_host(ids: torch.Tensor, dists: torch.Tensor
+             ) -> Tuple[np.ndarray, np.ndarray]:
+    """One search's results as host arrays. From a card they land in
+    page-locked buffers (`graphs.stage_host`), which the arrays hold until
+    they are freed."""
+    if not ids.is_cuda:
+        return ids.cpu().numpy(), dists.cpu().numpy()
+    (ids, dists), done = graphs.stage_host((ids, dists))
+    done.synchronize()
+    return ids.numpy(), dists.numpy()
 
 
 def _host_rows(chunk) -> np.ndarray:
@@ -688,10 +724,10 @@ class IVFADCIndex:
             config, train_sample=train_sample, **kwargs)
 
     # ----------------------------------------------------------------- search
-    def _device_search(self, queries, k: int, w: int
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _device_search(self, queries, k: int, w: int, host: bool = False):
         """Padded fixed-shape search on the index device. queries (B, d)
-        numpy array or tensor -> (ids (B, k) i32, dists (B, k) f32)."""
+        numpy array or tensor -> (ids (B, k) i32, dists (B, k) f32), on the
+        device or (host) as numpy arrays."""
         with span("ivfadc.setup"):
             if k < 1:
                 raise AssertionError("k has to be >= 1")
@@ -707,8 +743,6 @@ class IVFADCIndex:
             q = torch.as_tensor(queries, device=dev).to(torch.float32)
             B = q.shape[0]
             Bp = _bucket_batch(B)
-            if Bp != B:
-                q = torch.nn.functional.pad(q, (0, 0, 0, Bp - B))
             include_base = (self.config.score_mode == "reference"
                             or not self.quant_metric.residual_based)
             mode = self._resolve_scan_mode()
@@ -717,16 +751,29 @@ class IVFADCIndex:
                 # lane set; the LUT engine scores every probed posting, so
                 # any k is exact there
                 mode = "lut"
+            key = None
             if mode == "dense":
-                plan = self._dense_plan(q, w, extract)
+                plan = self._dense_plan(Bp, w, extract)
+                key = self._graph_key(plan, q, Bp, k, w, include_base,
+                                      extract)
             else:
                 view = self.store.device_view()
+            if key is None:
+                q = _pad_rows(q, Bp)
         t = tally()
         if t is not None:
             t.search(B, Bp, w)
+        if key is not None:
+            with span("ivfadc.graph"):
+                out = self._graph_search(key, q, Bp, k, w, include_base,
+                                         extract, plan, t, host)
+            if out is not None:
+                return out
+            with span("ivfadc.setup"):          # the key's first call
+                q = _pad_rows(q, Bp)
         if mode == "dense":
-            out_ids, out_dists = self._dense_search(q, k, w, include_base,
-                                                    extract, plan, rows=B)
+            out_ids, out_dists, _ = self._dense_search(
+                q, k, w, include_base, extract, plan, rows=B)
         else:
             out_ids, out_dists = _lut_search(
                 self.coarse, self.quantizer.codebooks,
@@ -738,14 +785,61 @@ class IVFADCIndex:
                 extract=extract, rank_engine=_env_rank_engine(), rows=B)
         with span("ivfadc.merge"):
             out_dists = self.quant_metric.finalize(out_dists)
-            if Bp == B:
-                return out_ids, out_dists
-            return out_ids[:B], out_dists[:B]
+            if Bp != B:
+                out_ids, out_dists = out_ids[:B], out_dists[:B]
+        if not host:
+            return out_ids, out_dists
+        with span("ivfadc.to_host"):
+            return _to_host(out_ids, out_dists)
 
-    def _dense_plan(self, q, w: int, extract: bool) -> dict:
-        """The dense route's host-side choices for one search: the engines,
-        the dense view, the merge, the scan chunk, the gather plan, the
-        pos8 gate and whether the qc route serves the batch."""
+    def _graph_key(self, plan: dict, q, Bp: int, k: int, w: int,
+                   include_base: bool, extract: bool) -> Optional[tuple]:
+        """The shape key of this dense search's CUDA graph
+        (models/graphs.py): everything the captured work depends on. None
+        where the search runs eager: off the current CUDA device, or while
+        the current stream is capturing already."""
+        where = graphs.stream_key(q.device)
+        if where is None:
+            return None
+        p, cfg = plan, self.config
+        return (Bp, q.shape[1], k, w, include_base, extract, cfg.scan_pb,
+                cfg.scan_fold_lanes, p["engines"]["coarse_engine"],
+                p["engines"]["rank_engine"], p["merge_topk"], p["merge"],
+                p["apply_rot"], p["qc"], p["gather_win"], p["gather_all"],
+                p["chunk"], p["pos8"], id(p["view"]), id(self.coarse),
+                id(self.quantizer), where)
+
+    def _graph_search(self, key: tuple, q, Bp: int, k: int, w: int,
+                      include_base: bool, extract: bool, plan: dict, t,
+                      host: bool):
+        """The dense search from the store's graph of `key` -> (ids, dists)
+        of q's rows (numpy arrays where `host`), or None where this call
+        runs eager (the key's first calls).
+        The graph holds the padded batch's route up to `finalize`; the
+        counts of an open `counting()` block are summed from its probed
+        cells after each replay."""
+        def body(static_q):
+            ids, dists, cells = self._dense_search(
+                static_q, k, w, include_base, extract, plan)
+            with span("ivfadc.merge"):
+                return ids, self.quant_metric.finalize(dists), cells
+
+        after = None
+        if t is not None:
+            def after(outs):
+                _count_dense(t, outs[2], plan["view"]["sizes"], w=w,
+                             pb=self.config.scan_pb,
+                             gather_win=plan["gather_win"],
+                             gather_all=plan["gather_all"], rows=q.shape[0])
+        return self.store.graphs.run(
+            key, q, Bp, body, pin=(plan["view"], self.coarse, self.quantizer),
+            after=after, host=host)
+
+    def _dense_plan(self, Bp: int, w: int, extract: bool) -> dict:
+        """The dense route's host-side choices for a search of Bp padded
+        rows: the engines, the dense view, the merge, the scan chunk, the
+        gather plan, the pos8 gate and whether the qc route serves the
+        batch."""
         gather_win, gather_all = self._gather_plan()
         engines = dict(coarse_engine=_env_coarse_engine(),
                        rank_engine=_env_rank_engine())
@@ -755,7 +849,7 @@ class IVFADCIndex:
                                             cache=self._resolve_cache())
         merge = self._resolve_merge_mode()
         qc = vbase == "qc" and not gather_win and \
-            self._qc_ok(q, w, view, merge, extract)
+            self._qc_ok(Bp, w, view, merge, extract)
         return dict(
             engines=engines, merge_topk=merge_topk, view=view, merge=merge,
             apply_rot=self.quantizer.method == "opq", qc=qc,
@@ -766,6 +860,8 @@ class IVFADCIndex:
 
     def _dense_search(self, q, k: int, w: int, include_base: bool,
                       extract: bool, plan: dict, rows: int | None = None):
+        """The dense route over the padded batch q -> raw (ids, dists) and
+        the probed cells (B, w)."""
         engines = plan["engines"]
         if plan["qc"]:
             return self._qc_search(q, k, w, include_base, plan["view"],
@@ -777,24 +873,23 @@ class IVFADCIndex:
             apply_rot=plan["apply_rot"],
             residual_based=self.quant_metric.residual_based, extract=extract,
             **engines)
-        return _dense_finish(
+        return *_dense_finish(
             cells, v, base, plan["view"], k=k, w=w, chunk=plan["chunk"],
             pb=self.config.scan_pb, nf=self.config.scan_fold_lanes,
             norm_coef=norm_coef, merge=plan["merge"], pos8=plan["pos8"],
             extract=extract, rank_engine=engines["rank_engine"],
             merge_topk=plan["merge_topk"], gather_win=plan["gather_win"],
-            gather_all=plan["gather_all"], rows=rows)
+            gather_all=plan["gather_all"], rows=rows), cells
 
-    def _qc_ok(self, q, w: int, view, merge: str, extract: bool) -> bool:
+    def _qc_ok(self, B: int, w: int, view, merge: str, extract: bool) -> bool:
         """The JAX package's gate of the qc route, letter for letter: the
         residual sqeuclidean quantizer over the naive sqeuclidean coarse
         quantizer, emitted ids, the fold, no extraction, a grouped batch
-        (B*w >= 4*kc) of the counting prep (kc <= 4096), and the resident
-        queries (<= 6 MiB) and centroids (<= 4 MiB) in f32 at d_dec
-        features. (The gate's last term, no gather window, is the
+        of B padded rows (B*w >= 4*kc) of the counting prep (kc <= 4096),
+        and the resident queries (<= 6 MiB) and centroids (<= 4 MiB) in f32
+        at d_dec features. (The gate's last term, no gather window, is the
         caller's.)"""
         from ivfadc_tpu_torch.ops.cell_rank import MAX_KC
-        B = q.shape[0]
         kc = view["offsets"].shape[0]
         d_dec = view["decoded"].shape[-1]
         cq = self.coarse
@@ -813,9 +908,9 @@ class IVFADCIndex:
                    rows: int | None = None):
         """The qc route: cells from the fused probe (its v / base are not
         used) or the quantizer's search, then the grouped scan that derives
-        v and base in its kernel, then the id top-k. Raw (ids, dists)."""
-        from ivfadc_tpu_torch.ops.dense_scan import (grouped_dense_scan_qc,
-                                                     grouped_pairs)
+        v and base in its kernel, then the id top-k. Raw (ids, dists) and
+        the probed cells."""
+        from ivfadc_tpu_torch.ops.dense_scan import grouped_dense_scan_qc
         cq, rot = self.coarse, self.quantizer.rotation
         B = q.shape[0]
         kc = view["offsets"].shape[0]
@@ -828,9 +923,8 @@ class IVFADCIndex:
                 cells, _ = cq.search(q, w, rank_engine=rank_engine)
         t = tally()
         if t is not None:
-            t.probed(cells, view["sizes"], rows)
-            t.scanned(grouped_pairs(cells, view["sizes"], kc=kc,
-                                    pb=self.config.scan_pb))
+            _count_dense(t, cells, view["sizes"], w=w, pb=self.config.scan_pb,
+                         rows=rows)
         out_d, out_p = grouped_dense_scan_qc(
             cells, view["offsets"], view["sizes"], q, cq.centroids,
             rot if apply_rot else None, view["decoded"], view["scale"],
@@ -841,7 +935,8 @@ class IVFADCIndex:
         with span("ivfadc.merge"):
             n_cand = out_d.shape[-1]
             return _topk_ids(out_d.reshape(B, w * n_cand),
-                             out_p.reshape(B, w * n_cand), k, merge_topk)
+                             out_p.reshape(B, w * n_cand), k,
+                             merge_topk) + (cells,)
 
     def _effective_chunk(self) -> int:
         """Scan chunk adapted to the cell-size distribution: the p95 cell
@@ -964,9 +1059,11 @@ class IVFADCIndex:
                             row = {"pb": pb, "chunk": chunk, "merge": merge,
                                    "gather_win": gw_eff}
                             try:
+                                # two warm calls: the eager one, then the
+                                # CUDA graph's capture
                                 row["seconds"] = float(true_time(
                                     lambda: self._device_search(q, k, w),
-                                    reps=reps, warm=1))
+                                    reps=reps, warm=2))
                             except (ValueError, RuntimeError) as e:
                                 row["error"] = \
                                     f"{type(e).__name__}: {e}"[:200]
@@ -984,10 +1081,12 @@ class IVFADCIndex:
                 "applied": best is not None and apply}
 
     def _drop_plans(self) -> None:
-        """Drop the scan chunk and gather plan cached on the store: they
-        are keyed on the caps, not on the config autotune swaps."""
+        """Drop the scan chunk, gather plan and search graphs cached on the
+        store: they are keyed on the caps, not on the config autotune
+        swaps."""
         self.store._chunk_cache = None
         self.store._gather_cache = None
+        self.store.graphs.clear()
 
     def search(self, points, k: int, w: int = 1):
         """Single point (d,) -> (ids, dists) trimmed to the valid (<= k)
@@ -1009,10 +1108,8 @@ class IVFADCIndex:
                 raise AssertionError(
                     f"query dimension {pts.shape[1]} != index dimension "
                     f"{self.dim}")
-            ids, dists = self._device_search(pts, k, w)
+            ids, dists = self._device_search(pts, k, w, host=True)
             with span("ivfadc.to_host"):
-                ids = ids.cpu().numpy()
-                dists = dists.cpu().numpy()
                 id_dtype = np.dtype(self.config.index_dtype)
                 if single:
                     m = ids[0] >= 0
@@ -1029,9 +1126,7 @@ class IVFADCIndex:
                       ) -> Tuple[np.ndarray, np.ndarray]:
         """Batch search with fixed (B, k) numpy outputs, -1 / +inf padding."""
         with span("ivfadc.search"):
-            ids, dists = self._device_search(points, k, w)
-            with span("ivfadc.to_host"):
-                return ids.cpu().numpy(), dists.cpu().numpy()
+            return self._device_search(points, k, w, host=True)
 
     def search_stream(self, points, k: int, w: int = 1, *,
                       batch: int = 16384, stats=None
@@ -1054,6 +1149,8 @@ class IVFADCIndex:
                 ids = torch.cat([i for i, _ in outs])
                 dists = torch.cat([d for _, d in outs])
             with span("ivfadc.to_host"):
+                # pageable: page-locked staging would hold the whole
+                # stream's results in torch's host cache for the process
                 ids, dists = ids.cpu().numpy(), dists.cpu().numpy()
         if stats is not None:
             stats.record(n, time.perf_counter() - t0)

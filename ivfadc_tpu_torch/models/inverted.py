@@ -56,6 +56,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ivfadc_tpu_torch.models.graphs import SearchGraphs
+
 _LANE = 128
 
 # dirty slots beyond max(_DIRTY_LIMIT, total_cap // 8) drop the views for
@@ -187,6 +189,10 @@ class PostingStore:
         self._mlogs: "weakref.WeakSet[MutationLog]" = weakref.WeakSet()
         # grows whose rows moved inside the cached views (no rebuild)
         self.grow_patches = 0
+        # the index's captured dense searches, which read the dense view's
+        # tensors by address: dropped with any view a rebuild replaces, or
+        # a tensor a copy-on-write clones
+        self.graphs = SearchGraphs()
         # the view accessors and fork (module docstring)
         self._lock = threading.Lock()
 
@@ -391,14 +397,15 @@ class PostingStore:
 
     # ------------------------------------------------- device-view upkeep
     def _invalidate(self) -> None:
-        """Drop the cached device views and the index's caches keyed on
-        caps; the next search rebuilds them (and reads IVFADC_NORMS
-        again)."""
+        """Drop the cached device views, the index's caches keyed on caps
+        and its search graphs; the next search rebuilds them (and reads
+        IVFADC_NORMS again)."""
         self._device = None
         self._device_dense = None
         self._chunk_cache = None
         self._gather_cache = None
         self._dirty_slots = set()
+        self.graphs.clear()
 
     def _views(self):
         return [v for v in (self._device, self._device_dense) if v is not None]
@@ -410,6 +417,7 @@ class PostingStore:
         if shared and key in shared:
             shared.discard(key)
             view[key] = view[key].clone()
+            self.graphs.clear()
             if key == "ids" and view.get("ids2d") is not None:
                 view["ids2d"] = view["ids"].reshape(-1, _LANE)
                 shared.discard("ids2d")
@@ -585,6 +593,7 @@ class PostingStore:
                     or view[key].shape[0] < need
                     or view["ids"].shape[0] < need):
                 setattr(self, name, None)
+                self.graphs.clear()
             else:
                 views.append((view, key))
         if self._device is None and self._device_dense is None:
@@ -773,6 +782,7 @@ class PostingStore:
         if (self._device_dense is not None
                 and self._device_dense["cache"] != cache):
             self._device_dense = None            # cache type switch: rebuild
+            self.graphs.clear()
         self._flush_dirty()
         if self._device_dense is None:
             if cache == "int8":

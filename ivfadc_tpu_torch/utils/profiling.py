@@ -23,6 +23,10 @@ order:
                   engine and the LUT engine's table lookups
   ivfadc.merge    the output reorder, the top-k merges, `finalize`, the
                   batch slice
+  ivfadc.graph    a dense search replayed from its CUDA graph
+                  (models/graphs.py): the query copy in, the capture on a
+                  key's second call, the replay, the copies out and the
+                  counters' sums; it stands for probe to merge
   ivfadc.to_host  the device-to-host copy of the results
 
 A stage opened inside another stage records nothing: the outer stage owns
@@ -87,12 +91,13 @@ def trace(log_dir: str):
 
 SEARCH = "ivfadc.search"
 STAGES = ("ivfadc.setup", "ivfadc.probe", "ivfadc.tileprep", "ivfadc.scan",
-          "ivfadc.merge", "ivfadc.to_host")
+          "ivfadc.merge", "ivfadc.graph", "ivfadc.to_host")
 _STAGE_SET = frozenset(STAGES)
 
 _profiler_enabled = torch._C._autograd._profiler_enabled
 _RecordFunctionFast = torch._C._profiler._RecordFunctionFast
-_open = threading.local()        # .stage: the stage this thread is in
+_open = threading.local()        # .stage: the stage this thread is in,
+                                 # .quiet: counting is off (`uncounted`)
 
 
 class _NoSpan:
@@ -144,7 +149,7 @@ def span(name: str):
 
 
 COUNTS = ("searches", "queries", "padded_queries", "probes",
-          "postings_probed", "scan_pairs")
+          "postings_probed", "scan_pairs", "graph_captures", "graph_replays")
 _DEVICE_COUNTS = ("postings_probed", "scan_pairs")
 
 
@@ -189,6 +194,10 @@ class _Tally:
         """scan_pairs += `pairs` (an int or a device scalar)."""
         self._add("scan_pairs", pairs)
 
+    def graph(self, captured: bool) -> None:
+        """One search run from its CUDA graph: captured, or replayed."""
+        self._add("graph_captures" if captured else "graph_replays", 1)
+
     def read(self) -> Dict[str, int]:
         out = dict(self.host)
         for acc in self.dev.values():
@@ -202,8 +211,22 @@ _tally: "_Tally | None" = None
 
 def tally():
     """The open `counting()` block's counters, or None: the search path
-    counts only `if tally() is not None`."""
+    counts only `if tally() is not None`. None inside `uncounted()`."""
+    if _tally is None or getattr(_open, "quiet", False):
+        return None
     return _tally
+
+
+@contextlib.contextmanager
+def uncounted():
+    """No counting on this thread inside the block: a CUDA graph's capture
+    must not hold the sums of one `counting()` block (the graph's caller
+    counts each replay instead)."""
+    _open.quiet = True
+    try:
+        yield
+    finally:
+        _open.quiet = False
 
 
 @contextlib.contextmanager
@@ -226,6 +249,11 @@ def counting():
                       per-probe scan sum over probes of the cell's size;
                       gathered engine probes x window; LUT engine probes x
                       window
+      graph_captures, graph_replays
+                      dense searches run from a CUDA graph (models/
+                      graphs.py): captured (a key's second call), replayed
+                      (every later call); the counts above read the same
+                      as on the eager path
 
     Inside, each search adds device-side sums into one small tensor per
     device, read once (one sync) when the block ends. Outside any block

@@ -1675,9 +1675,10 @@ def test_every_scan_pb_on_the_card(dev, monkeypatch):
 @pytest.mark.parametrize("B", [4096, 64])        # grouped, per-probe
 def test_every_device_op_of_a_search_has_one_stage(dev, B):
     """Under torch.profiler a SIFT-shaped search (d = 128, m = 8) names
-    its stages (utils/profiling.py): every device operation's launch, the
-    runtime call with its correlation id, lies in exactly one stage span,
-    and the spans put no event on the device's timeline."""
+    its stages (utils/profiling.py), replayed from its CUDA graph and
+    eager: every device operation's launch, the runtime call with its
+    correlation id, lies in exactly one stage span, and the spans put no
+    event on the device's timeline."""
     from torch.profiler import ProfilerActivity, profile
     from ivfadc_tpu_torch import IVFADCIndex
     from ivfadc_tpu_torch.utils import profiling
@@ -1687,11 +1688,17 @@ def test_every_device_op_of_a_search_has_one_stage(dev, B):
                             coarse_maxiter=3, quantization_maxiter=3)
     q = torch.as_tensor(data[:B], device=dev) + 0.05
     want = idx.search_padded(q, 10, w=8)
+    idx.search_padded(q, 10, w=8)                     # the graph's capture
+    # a replay (one `ivfadc.graph` stage), then the eager path of a key's
+    # first call (the stages from probe to merge)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         got = idx.search_padded(q, 10, w=8)
+        idx.store.graphs.clear()
+        got_eager = idx.search_padded(q, 10, w=8)
         torch.cuda.synchronize()
     np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got_eager[0], want[0])
     ev = prof.events()
     ops = [e for e in ev if getattr(e, "device_type", None)
            == torch.autograd.DeviceType.CUDA]
@@ -1710,3 +1717,213 @@ def test_every_device_op_of_a_search_has_one_stage(dev, B):
     assert not bad, bad
     names = {e.name for e in ev if e.name.startswith("ivfadc.")}
     assert names == {profiling.SEARCH, *profiling.STAGES}
+
+
+# ------------------------------------------- the dense search's CUDA graphs
+def _graph_index(align: int = 0):
+    from ivfadc_tpu_torch import IVFADCIndex
+    from ivfadc_tpu_torch.utils.datasets import synthetic_clustered
+    data = synthetic_clustered(50000, 128, seed=0)
+    idx = IVFADCIndex.build(data, kc=256, m=8, k=256, seed=0,
+                            cell_align=align, coarse_maxiter=3,
+                            quantization_maxiter=3)
+    rng = np.random.RandomState(7)
+    q = torch.as_tensor(data[rng.randint(0, 50000, 10000)]
+                        + 0.05 * rng.randn(10000, 128).astype(np.float32),
+                        device="cuda")
+    return idx, data, q
+
+
+def _eager_search(idx, q, k: int = 10, w: int = 8):
+    """The eager dense route, called directly: the padded batch through
+    `_dense_search` and `finalize`, as `_device_search` runs a key's first
+    call."""
+    from ivfadc_tpu_torch.models.index import _bucket_batch, _pad_rows
+    B = q.shape[0]
+    Bp = _bucket_batch(B)
+    include_base = (idx.config.score_mode == "reference"
+                    or not idx.quant_metric.residual_based)
+    plan = idx._dense_plan(Bp, w, False)
+    ids, dists, _ = idx._dense_search(_pad_rows(q, Bp), k, w, include_base,
+                                      False, plan)
+    return ids[:B], idx.quant_metric.finalize(dists)[:B]
+
+
+def _replays_equal_eager(idx, q, calls: int = 3):
+    """`calls` searches of q through `_device_search` (the key's graph,
+    captured where it is new) each equal the eager route bit for bit."""
+    want = _eager_search(idx, q)
+    for _ in range(calls):
+        got = idx._device_search(q, 10, 8)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [10000, 64])       # grouped, per probe
+def test_graph_replay_equals_the_eager_route(dev, B):
+    from ivfadc_tpu_torch.utils import profiling
+    idx, _, q = _graph_index()
+    q = q[:B]
+    with profiling.counting() as counts:
+        _replays_equal_eager(idx, q, calls=5)
+    assert len(idx.store.graphs) == 1
+    assert counts["graph_captures"] == 1 and counts["graph_replays"] == 3
+
+
+@pytest.mark.cuda
+def test_graph_replay_follows_every_mutation(dev, tmp_path):
+    """Bit-equal to the eager route after a push_batch within room, a grow
+    past room, an incremental and a bulk delete, a fork (both sides) and
+    a save and load, at the grouped (B = 10,000) and per-probe (B = 64)
+    shapes."""
+    from ivfadc_tpu_torch import IVFADCIndex
+    idx, data, q = _graph_index()
+    rng = np.random.RandomState(8)
+    shapes = (q, q[:64])
+
+    def check(x):
+        for qq in shapes:
+            _replays_equal_eager(x, qq)
+
+    check(idx)
+    idx.push_batch(data[:8] + 0.01)                     # within room
+    check(idx)
+    c = int(np.argmin(idx.store.caps))
+    idx.push_batch(idx.coarse.centroids[c].cpu().numpy() + 0.01 * rng.randn(
+        int(idx.store.caps[c]), 128).astype(np.float32))  # past room
+    check(idx)
+    idx.delete(rng.choice(len(idx), 100, replace=False))
+    check(idx)
+    idx.delete(rng.choice(len(idx), 3000, replace=False))  # bulk
+    check(idx)
+    child = idx.fork()
+    check(child)
+    child.push_batch(data[100:140] + 0.02)
+    child.delete([1, 2, 3])
+    check(child)
+    idx.delete([4])
+    check(idx)
+    check(child)
+    path = str(tmp_path / "g.npz")
+    idx.save(path)
+    check(IVFADCIndex.load(path))
+
+
+@pytest.mark.cuda
+def test_graph_results_survive_the_next_call(dev):
+    idx, _, q = _graph_index()
+    a, b = q[:5000], q[5000:]
+    for _ in range(3):
+        idx._device_search(a, 10, 8)
+    first = idx._device_search(a, 10, 8)                # replayed
+    keep = [t.clone() for t in first]
+    second = idx._device_search(b, 10, 8)               # same key
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, keep))
+    assert not torch.equal(first[0], second[0])
+
+
+@pytest.mark.cuda
+def test_graph_batching_searcher_equals_serial_answers(dev):
+    from ivfadc_tpu_torch import BatchingSearcher
+    idx, _, q = _graph_index()
+    qh = q.cpu().numpy()
+    want = [idx.search_padded(qh[b * 500:(b + 1) * 500], 10, w=8)
+            for b in range(8)]
+    with BatchingSearcher(idx, max_batch=500, max_wait_ms=0,
+                          pipeline=2) as s:
+        for _ in range(4):
+            futs = [s.submit(qh[b * 500:(b + 1) * 500], 10, w=8)
+                    for b in range(8)]
+            for f, (wi, wd) in zip(futs, want):
+                ids, dists = f.result(timeout=60)
+                np.testing.assert_array_equal(ids, wi)
+                np.testing.assert_array_equal(dists, wd)
+    assert len(idx.store.graphs) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [10000, 64])
+def test_graph_counts_equal_the_eager_counts(dev, B):
+    """counting() reads the same over replays as over eager calls, with
+    one capture for the key and a replay on every later call; the kernels'
+    launch counts grow by one a call either way."""
+    from ivfadc_tpu_torch.utils import profiling
+    idx, _, q = _graph_index()
+    q = q[:B]
+    kern = dense_scan.KERNEL if B > 64 else dense_scan.PROBE_KERNEL
+    n0 = kern.launches
+    with profiling.counting() as eager:
+        for _ in range(6):
+            idx.store.graphs.clear()
+            idx._device_search(q, 10, 8)
+    assert kern.launches == n0 + 6
+    idx.store.graphs.clear()
+    with profiling.counting() as replayed:
+        for _ in range(6):
+            idx._device_search(q, 10, 8)
+    assert kern.launches == n0 + 12
+    assert replayed["graph_captures"] == 1
+    assert replayed["graph_replays"] == replayed["searches"] - 2 == 4
+    assert eager["graph_captures"] == eager["graph_replays"] == 0
+    for name in profiling.COUNTS[:6]:
+        assert replayed[name] == eager[name], name
+
+
+@pytest.mark.cuda
+def test_graphs_sharing_a_pool_keep_their_results(dev, monkeypatch):
+    """Four shapes, more than the cache holds, share one pool: interleaved
+    from two threads, each result equals the eager route's and stays
+    unchanged while the other shapes replay."""
+    import threading
+    from ivfadc_tpu_torch.models import graphs
+    monkeypatch.setattr(graphs, "CAP", 3)
+    idx, _, q = _graph_index()
+    shapes = [q[:64], q[:1000], q[:5000], q]
+    want = [_eager_search(idx, x) for x in shapes]
+    held, errors = [], []
+
+    def work(order):
+        try:
+            for i in order:
+                got = idx._device_search(shapes[i], 10, 8)
+                held.append((i, got))
+                assert torch.equal(got[0], want[i][0])
+                assert torch.equal(got[1], want[i][1])
+        except Exception as e:                     # noqa: BLE001
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(o,)) for o in
+               ([0, 1, 2, 3] * 6, [3, 2, 1, 0] * 6)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    assert not errors, errors
+    torch.cuda.synchronize()
+    for i, (ids, dists) in held:
+        assert torch.equal(ids, want[i][0]) and torch.equal(dists, want[i][1])
+    pools = {id(g.pool) for g in idx.store.graphs._graphs.values()}
+    assert len(idx.store.graphs) == 3 and len(pools) == 1
+
+
+@pytest.mark.cuda
+def test_search_stream_leaves_no_page_locked_memory(dev):
+    """search_stream copies its stacked results out pageable: torch's host
+    cache holds no more page-locked bytes after a stream of 200,000
+    queries than before it. search_padded stages each call's results
+    page-locked, and its buffers are reused from call to call."""
+    idx, _, q = _graph_index()
+    stats = torch.cuda.host_memory_stats
+    for _ in range(3):
+        idx.search_padded(q, 10, w=8)
+    before = stats()["allocated_bytes.current"]
+    for _ in range(20):
+        idx.search_padded(q, 10, w=8)
+    assert stats()["allocated_bytes.current"] == before
+    qs = np.tile(q.cpu().numpy(), (20, 1))
+    ids, dists = idx.search_stream(qs, 10, w=8, batch=16384)
+    assert ids.shape == (200000, 10) and dists.shape == (200000, 10)
+    assert stats()["allocated_bytes.current"] == before

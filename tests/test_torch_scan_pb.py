@@ -79,7 +79,7 @@ def test_scan_pb_equals_jax(integer_index, tmp_path, monkeypatch, pb):
         t, make_mesh(n_shards=2, devices=[torch.device("cpu")] * 2))
     _assert_same(view.search_padded(q, 10, w=W), grouped)
     monkeypatch.setenv("IVFADC_VBASE", "qc")
-    assert t._qc_ok(torch.as_tensor(q), W, t.store.device_view_dense(
+    assert t._qc_ok(len(q), W, t.store.device_view_dense(
         t.quantizer, t.config.scan_chunk), "fold", False)
     _assert_same(t.search_padded(q, 10, w=W), j.search_padded(q, 10, w=W))
     monkeypatch.delenv("IVFADC_VBASE")

@@ -168,7 +168,8 @@ def test_counting_matches_probe_stats_and_loop_bounds(route, indexes, data,
     assert counts == {
         "searches": 1, "queries": B, "padded_queries": Bp, "probes": B * W,
         "postings_probed": round(st["scanned_postings_per_query"] * B),
-        "scan_pairs": _scan_pairs(route, idx, q)}
+        "scan_pairs": _scan_pairs(route, idx, q),
+        "graph_captures": 0, "graph_replays": 0}
     assert counts["scan_pairs"] >= counts["postings_probed"]
     # outside the block nothing is counted
     before = dict(counts)
