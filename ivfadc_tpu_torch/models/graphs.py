@@ -95,15 +95,17 @@ class _Pool:
 class _Graph:
     """One captured search. `ready` is set once its capture has ended;
     `graph` stays None if the capture failed. `need`: the eager calls its
-    key made before the capture."""
+    key made before the capture; `plans`: the launch plans its capture
+    counted (`profiling.planning`)."""
 
-    __slots__ = ("graph", "q", "outs", "kernels", "rows", "pin", "pool",
-                 "need", "ready")
+    __slots__ = ("graph", "q", "outs", "kernels", "plans", "rows", "pin",
+                 "pool", "need", "ready")
 
     def __init__(self, pin, pool: _Pool, need: int = 1):
         self.graph = None
         self.q = self.outs = None
         self.kernels = []
+        self.plans = []
         self.rows = 0
         self.pin = pin                 # objects whose ids the key holds
         self.pool = pool
@@ -212,8 +214,9 @@ class SearchGraphs:
                                       device=q.device)
                     g.q[:rows].copy_(q)
                     g.rows = rows
-                    g.graph, g.outs, g.kernels, handle = _capture(
-                        body, g.q, g.pool.handle)
+                    with profiling.planning() as g.plans:
+                        g.graph, g.outs, g.kernels, handle = _capture(
+                            body, g.q, g.pool.handle)
                     if g.pool.anchor is None:
                         g.pool.handle, g.pool.anchor = handle, g.graph
                 except BaseException:
@@ -235,7 +238,7 @@ class SearchGraphs:
             _build.credit(g.kernels)
             t = profiling.tally()
             if t is not None:
-                t.graph(fresh)
+                t.graph(fresh, g.plans)
             if after is not None:
                 after(g.outs)
             outs = (g.outs[0][:rows], g.outs[1][:rows])

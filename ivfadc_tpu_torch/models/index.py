@@ -343,8 +343,8 @@ def _dense_finish(cells, v, base, dev, *, k, w, chunk, pb, nf, norm_coef,
     n_lanes = nf if merge == "fold" else 128
     t = tally()
     if t is not None:
-        _count_dense(t, cells, dev["sizes"], w=w, pb=pb,
-                     gather_win=gather_win, gather_all=gather_all, rows=rows)
+        _count_dense(t, cells, dev, w=w, pb=pb, gather_win=gather_win,
+                     gather_all=gather_all, rows=rows)
     if B * w >= 4 * kc_:
         from ivfadc_tpu_torch.ops.dense_scan import grouped_dense_scan
         # id emission needs the fold and 128-row cells; extraction needs id
@@ -409,26 +409,34 @@ def _dense_finish(cells, v, base, dev, *, k, w, chunk, pb, nf, norm_coef,
                          torch.cat([g_res[0], s_res[0]], dim=1), k)
 
 
-def _count_dense(t, cells, sizes, *, w: int, pb: int, gather_win: int = 0,
+def _count_dense(t, cells, view, *, w: int, pb: int, gather_win: int = 0,
                  gather_all: bool = False, rows: int | None = None) -> None:
     """A dense search's device counts (`profiling.counting`) from its probed
-    cells (B, w) and the cells' sizes (kc,): the postings the first `rows`
-    query rows probe, and the pairs its scan scores by the route's loop
-    bounds (grouped or qc: `grouped_pairs`; per probe: the probed cells'
-    sizes, less those the gathered engine takes at `gather_win` pairs a
-    probe)."""
+    cells (B, w) and its dense view: the postings the first `rows` query
+    rows probe, and by the route's loop bounds the pairs its scan scores
+    and the cache rows it streams, at the view's row bytes (grouped or
+    qc: `grouped_rows` rows, tile_height(pb) pairs a row; per probe: the
+    probed cells' sizes, less those the gathered engine takes at
+    `gather_win` rows a probe, one pair a row)."""
+    sizes = view["sizes"]
+    row_bytes = view["decoded"].shape[1] * view["decoded"].element_size()
     t.probed(cells, sizes, rows)
     if cells.shape[0] * w >= 4 * sizes.shape[0]:
-        from ivfadc_tpu_torch.ops.dense_scan import grouped_pairs
-        t.scanned(grouped_pairs(cells, sizes, kc=sizes.shape[0], pb=pb))
+        from ivfadc_tpu_torch.ops.dense_scan import grouped_rows, tile_height
+        n = grouped_rows(cells, sizes, kc=sizes.shape[0], pb=pb)
+        t.scanned(n * tile_height(pb))
+        t.streamed(n * row_bytes)
         return
     sizes_p = sizes[cells.to(torch.int64)]
     if gather_win:
         t.scanned(cells.numel() * gather_win)
+        t.streamed(cells.numel() * gather_win * row_bytes)
         if gather_all:
             return
         sizes_p = torch.where(sizes_p <= gather_win, 0, sizes_p)
-    t.scanned(sizes_p.sum())
+    n = sizes_p.sum()
+    t.scanned(n)
+    t.streamed(n * row_bytes)
 
 
 def _bucket_batch(b: int) -> int:
@@ -827,7 +835,7 @@ class IVFADCIndex:
         after = None
         if t is not None:
             def after(outs):
-                _count_dense(t, outs[2], plan["view"]["sizes"], w=w,
+                _count_dense(t, outs[2], plan["view"], w=w,
                              pb=self.config.scan_pb,
                              gather_win=plan["gather_win"],
                              gather_all=plan["gather_all"], rows=q.shape[0])
@@ -923,7 +931,7 @@ class IVFADCIndex:
                 cells, _ = cq.search(q, w, rank_engine=rank_engine)
         t = tally()
         if t is not None:
-            _count_dense(t, cells, view["sizes"], w=w, pb=self.config.scan_pb,
+            _count_dense(t, cells, view, w=w, pb=self.config.scan_pb,
                          rows=rows)
         out_d, out_p = grouped_dense_scan_qc(
             cells, view["offsets"], view["sizes"], q, cq.centroids,

@@ -24,6 +24,7 @@ import os
 import torch
 
 from ivfadc_tpu_torch import _build
+from ivfadc_tpu_torch.utils.profiling import planned
 
 # Fallback engine when a caller omits `engine`, read once at import as the
 # JAX package reads it; the index's dispatch sites read
@@ -79,7 +80,10 @@ def plan(B: int, d: int, kc: int, w: int, kind: str, device) -> dict:
     thread) where their grid fills every SM once, else of 16 (tq = 1: a
     small batch wastes fewer rows and spreads over more blocks); bc
     centroids a tile; the split of the table over the card's resident
-    blocks (`split_plan`); the kernel's shared memory and blocks per SM."""
+    blocks (`split_plan`); the kernel's shared memory and blocks per SM;
+    `narrow`: 16-query tiles because the 64-query tile's shared memory
+    does not fit (its staged queries alone pass the block's from d = 960
+    on), whatever the batch."""
     device = torch.device(device)
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
@@ -97,7 +101,8 @@ def plan(B: int, d: int, kc: int, w: int, kind: str, device) -> dict:
     if not plans:
         raise ValueError(f"the coarse kernels take no d={d}, w={w}: their "
                          f"shared memory would exceed the card's")
-    return plans[0] if plans[0]["grid"] >= sms else plans[-1]
+    chosen = plans[0] if plans[0]["grid"] >= sms else plans[-1]
+    return dict(chosen, narrow=plans[0]["tq"] == 1)
 
 
 def _launch_args(B: int, d: int, kc: int, w: int, kind: str, dev):
@@ -105,6 +110,8 @@ def _launch_args(B: int, d: int, kc: int, w: int, kind: str, dev):
     split, the per-split lists (B, S, w) of (score, index) and one zeroed
     ticket a query tile."""
     p = plan(B, d, kc, w, kind, dev)
+    if p["narrow"]:
+        planned("probe_narrow_launches")
     if p["splits"] == 1:
         return p["tq"], 1, None, None
     part = torch.empty((B, p["splits"], w, 2), dtype=torch.int32,

@@ -57,7 +57,7 @@ import torch
 from ivfadc_tpu_torch import _build
 from ivfadc_tpu_torch.ops.cell_rank import (MAX_KC, tile_layout,
                                             tile_slots)
-from ivfadc_tpu_torch.utils.profiling import span
+from ivfadc_tpu_torch.utils.profiling import planned, plans_counted, span
 
 _CAND = 128          # lanes per fold bank (rows per group)
 MAX_PB = 64          # the grouped kernels' tallest tile (csrc/dense_scan.cu)
@@ -99,16 +99,26 @@ def scan_fit(entry: str, d: int, pb: int, nf: int, k_out: int = 0,
     GROUPED_KERNELS or QC_KERNELS) at (d, pb, nf, k_out) on a CUDA device:
     resident blocks per SM (the occupancy API), shared bytes a block, bf16
     tiles in turn (int8: 2 converted tiles, or 1 where shared memory holds
-    one; bf16: 3 ring slots, or 2), where the fold buffer lives, registers
-    a thread and local (spilled) bytes a thread."""
+    one; bf16: 3 ring slots, or 2), the bf16 tiles the products read from
+    (`tiles`: 2, or 1), where the fold buffer lives, registers a thread
+    and local (spilled) bytes a thread."""
     out = (ctypes.c_int * 6)()
     fit = _build.HostFn("dense_scan", entry + "_fit",
                         [_build.I] * 4 + [_build.P])
     with torch.cuda.device(device_index):
         fit(d, pb, nf, k_out, ctypes.addressof(out))
     return dict(blocks_per_sm=out[0], smem_bytes=out[1], tile_stages=out[2],
+                tiles=out[2] - entry.endswith("_bf16"),
                 fold="registers" if out[3] else "shared",
                 registers=out[4], local_bytes=out[5])
+
+
+def _count_tiles(kern, d: int, pb: int, nf: int, k_out: int, dev) -> None:
+    """`scan_single_tile_launches` (`profiling.counting`) of one launch of
+    a grouped kernel planned with a single staged bf16 tile."""
+    if plans_counted() and scan_fit(kern.fn, d, pb, nf, k_out,
+                                    dev.index)["tiles"] == 1:
+        planned("scan_single_tile_launches")
 
 
 @functools.lru_cache(maxsize=None)
@@ -344,11 +354,12 @@ def grouped_scan(tile_start, tile_size, v_tiles, base_tiles, decoded, scale,
         out_d = torch.empty((T * pb, width), dtype=torch.float32, device=dev)
         out_p = torch.empty((T * pb, width), dtype=torch.int8
                             if variant == "pos8" else torch.int32, device=dev)
+    kern = GROUPED_KERNELS[variant, elem]
     with span("ivfadc.scan"):
-        GROUPED_KERNELS[variant, elem](
-            *(None if a is None else a.data_ptr() for a in args), T, d, pb,
-            nf, extract_k or k_out, float(norm_coef), out_d.data_ptr(),
-            out_p.data_ptr(), _build.stream_ptr(dev))
+        kern(*(None if a is None else a.data_ptr() for a in args), T, d, pb,
+             nf, extract_k or k_out, float(norm_coef), out_d.data_ptr(),
+             out_p.data_ptr(), _build.stream_ptr(dev))
+    _count_tiles(kern, d, pb, nf, extract_k or k_out, dev)
     return out_d, out_p
 
 
@@ -404,16 +415,17 @@ def grouped_dense_scan(cells, offsets, sizes, v, base, decoded, scale=None,
                 out_p[row].reshape(B, w, width))
 
 
-def grouped_pairs(cells, sizes, *, kc: int, pb: int):
-    """The (probe slot, row) pairs the grouped scan scores for the probes
-    `cells` (B, w) over cells of `sizes` (kc,): cell c's n_c probes fill
-    ceil(n_c / h) tiles of h = tile_height(pb) slots, empty slots
-    included, and each slot meets the cell's sizes[c] rows, so
-    sum_c ceil(n_c / h) * h * sizes[c], the sum over the tiles of
-    tile_size * h. An int64 device scalar (`profiling.counting`)."""
+def grouped_rows(cells, sizes, *, kc: int, pb: int):
+    """The cache rows the grouped scan streams for the probes `cells`
+    (B, w) over cells of `sizes` (kc,): cell c's n_c probes fill
+    ceil(n_c / h) tiles of h = tile_height(pb) slots, and each tile reads
+    the cell's sizes[c] rows once, so sum_c ceil(n_c / h) * sizes[c], the
+    sum over the tiles of tile_size. Each slot, empty ones included, meets
+    every row of its tile: the scan scores h times as many (probe slot,
+    row) pairs. An int64 device scalar (`profiling.counting`)."""
     h = tile_height(pb)
     n = torch.bincount(cells.reshape(-1).to(torch.int64), minlength=kc)
-    return ((n + h - 1) // h * h * sizes.to(torch.int64)).sum()
+    return ((n + h - 1) // h * sizes.to(torch.int64)).sum()
 
 
 def sort_ranks(cells_flat, kc: int):
@@ -678,6 +690,7 @@ def grouped_scan_qc(tile_start, tile_size, c_t, qidx, q_pad, c_pad, rot_pad,
                          T, d, pb, nf, float(norm_coef), float(base_mult),
                          int(apply_rot), out_d.data_ptr(), out_p.data_ptr(),
                          _build.stream_ptr(dev))
+    _count_tiles(QC_KERNELS[elem], d, pb, nf, 0, dev)
     return out_d, out_p
 
 

@@ -97,7 +97,8 @@ _STAGE_SET = frozenset(STAGES)
 _profiler_enabled = torch._C._autograd._profiler_enabled
 _RecordFunctionFast = torch._C._profiler._RecordFunctionFast
 _open = threading.local()        # .stage: the stage this thread is in,
-                                 # .quiet: counting is off (`uncounted`)
+                                 # .quiet: counting is off (`uncounted`),
+                                 # .plans: a capture's plan log (`planning`)
 
 
 class _NoSpan:
@@ -149,8 +150,10 @@ def span(name: str):
 
 
 COUNTS = ("searches", "queries", "padded_queries", "probes",
-          "postings_probed", "scan_pairs", "graph_captures", "graph_replays")
-_DEVICE_COUNTS = ("postings_probed", "scan_pairs")
+          "postings_probed", "scan_pairs", "graph_captures", "graph_replays",
+          "scan_cache_bytes", "probe_narrow_launches",
+          "scan_single_tile_launches")
+_DEVICE_COUNTS = ("postings_probed", "scan_pairs", "scan_cache_bytes")
 
 
 class _Tally:
@@ -194,9 +197,16 @@ class _Tally:
         """scan_pairs += `pairs` (an int or a device scalar)."""
         self._add("scan_pairs", pairs)
 
-    def graph(self, captured: bool) -> None:
-        """One search run from its CUDA graph: captured, or replayed."""
+    def streamed(self, nbytes) -> None:
+        """scan_cache_bytes += `nbytes` (an int or a device scalar)."""
+        self._add("scan_cache_bytes", nbytes)
+
+    def graph(self, captured: bool, plans=()) -> None:
+        """One search run from its CUDA graph: captured, or replayed; each
+        name of `plans` (`planning()`'s log of its capture) counts once."""
         self._add("graph_captures" if captured else "graph_replays", 1)
+        for name in plans:
+            self._add(name, 1)
 
     def read(self) -> Dict[str, int]:
         out = dict(self.host)
@@ -230,6 +240,39 @@ def uncounted():
 
 
 @contextlib.contextmanager
+def planning():
+    """Log, instead of counting, the launch plans this thread's launches
+    count inside the block (a CUDA graph's capture); yields the log, the
+    names each replay of the graph counts (`_Tally.graph`)."""
+    log: list = []
+    _open.plans = log
+    try:
+        yield log
+    finally:
+        _open.plans = None
+
+
+def plans_counted() -> bool:
+    """Whether a launch's plan counts on this thread (`planned`): an open
+    `counting()` block, or a capture's log. Launch sites ask first, so
+    that outside both they look up no plan."""
+    return getattr(_open, "plans", None) is not None or tally() is not None
+
+
+def planned(name: str) -> None:
+    """One kernel launch that ran the plan `name` counts
+    (`probe_narrow_launches`, `scan_single_tile_launches`): logged inside
+    `planning()`, else added to the open `counting()` block, if any."""
+    log = getattr(_open, "plans", None)
+    if log is not None:
+        log.append(name)
+    else:
+        t = tally()
+        if t is not None:
+            t._add(name, 1)
+
+
+@contextlib.contextmanager
 def counting():
     """Count the searches run inside the block; yields a dict that holds,
     once the block ends, Python ints:
@@ -252,12 +295,30 @@ def counting():
       graph_captures, graph_replays
                       dense searches run from a CUDA graph (models/
                       graphs.py): captured (a key's second call), replayed
-                      (every later call); the counts above read the same
+                      (every later call); the other counts read the same
                       as on the eager path
+      scan_cache_bytes
+                      decoded-cache bytes the dense routes' scans stream:
+                      the rows each tile (grouped, qc), probe (per probe)
+                      or gathered window reads, times the cache's row
+                      bytes (d_pad x 1 for int8, x 2 for bf16); grouped
+                      and qc scans sum_c ceil(n_c / h) * size_c rows
+      probe_narrow_launches
+                      coarse-kernel launches (kernels 1, 7, 10) that ran
+                      16-query tiles because the 64-query tile's shared
+                      memory does not fit the card (d = 960 and up), not
+                      because the batch is small (coarse_scan.plan)
+      scan_single_tile_launches
+                      grouped-scan launches (kernel 3 and its variants,
+                      the qc kernel) planned with one staged bf16 tile
+                      because two do not fit the card's shared memory
+                      (int8 cache at d_pad = 1024, pb = 64)
 
     Inside, each search adds device-side sums into one small tensor per
-    device, read once (one sync) when the block ends. Outside any block
-    the counters launch nothing and allocate nothing. Searches on any
+    device, read once (one sync) when the block ends; the two launch
+    counts are host ints, and read 0 where no kernel launches (the plain
+    versions on the CPU). Outside any block the counters launch nothing
+    and allocate nothing. Searches on any
     thread count; blocks do not nest. The sharded views count their
     scans' postings and pairs, padding rows included, not their
     searches."""

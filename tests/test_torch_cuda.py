@@ -1867,8 +1867,9 @@ def test_graph_counts_equal_the_eager_counts(dev, B):
     assert replayed["graph_captures"] == 1
     assert replayed["graph_replays"] == replayed["searches"] - 2 == 4
     assert eager["graph_captures"] == eager["graph_replays"] == 0
-    for name in profiling.COUNTS[:6]:
-        assert replayed[name] == eager[name], name
+    for name in profiling.COUNTS:
+        if not name.startswith("graph_"):
+            assert replayed[name] == eager[name], name
 
 
 @pytest.mark.cuda
@@ -1927,3 +1928,116 @@ def test_search_stream_leaves_no_page_locked_memory(dev):
     ids, dists = idx.search_stream(qs, 10, w=8, batch=16384)
     assert ids.shape == (200000, 10) and dists.shape == (200000, 10)
     assert stats()["allocated_bytes.current"] == before
+
+
+# ----------------------------------------- GIST1M's shape: d = 960, m = 16
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [16, 10240])
+def test_coarse_probe_kernel_at_gist_width(dev, B):
+    """Kernel 1 at d = 960, kc = 1024, w = 8: the 64-query tile's staged
+    queries pass the block's shared memory, so the plan takes 16-query
+    tiles whatever the batch (`narrow`), and on integer-tie tables the
+    cells, v and base equal the plain version bit for bit; `counting()`
+    reads one narrow launch."""
+    from ivfadc_tpu_torch.utils import profiling
+    d, kc, w = 960, 1024, 8
+    p = coarse_scan.plan(B, d, kc, w, "vbase", dev)
+    assert p["tq"] == 1 and p["bq"] == 16 and p["narrow"]
+    rng = np.random.RandomState(B)
+    q, c = (t.to(dev) for t in _tie_table(rng, B, kc, d, dev, w))
+    cn = torch.sum(c * c, dim=1)
+    eye = torch.eye(d, device=dev)
+    n0 = coarse_scan.KERNEL.launches
+    with profiling.counting() as counts:
+        got = coarse_scan.coarse_vbase(q, c, cn, eye, w, False)
+    assert coarse_scan.KERNEL.launches == n0 + 1
+    assert counts["probe_narrow_launches"] == 1
+    want = coarse_scan.coarse_vbase_plain(q, c, cn, eye, w, False)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["ids", "knorm"])
+@pytest.mark.parametrize("elem", ["int8", "bf16"])
+@pytest.mark.parametrize("integer", [True, False])
+def test_grouped_scan_one_tile_at_gist_width(dev, variant, elem, integer):
+    """Kernel 3 at the GIST cache's d_pad = 1024, pb = 64: two staged bf16
+    tiles pass the block's shared memory, so the plan stages one
+    (`scan_fit`), and the scores match the plain version as kernel 3's
+    other shapes do, over cells of 1 to 1,000 rows, dead probes and an
+    empty tile; `counting()` reads one single-tile launch."""
+    from ivfadc_tpu_torch.utils import profiling
+    pb, d, nf = 64, 1024, 128
+    kern = dense_scan.GROUPED_KERNELS[variant, elem]
+    assert dense_scan.scan_fit(kern.fn, d, pb, nf, 10)["tiles"] == 1
+    args = _edge_tiles(np.random.RandomState(d + len(variant)), integer,
+                       elem, pb, d)
+    if variant == "knorm":
+        args[7] = None
+    call = dict(pb=pb, nf=nf, norm_coef=1.0)
+    n0 = kern.launches
+    with profiling.counting() as counts:
+        kd, kp = dense_scan.grouped_scan(
+            *[None if a is None else a.to(dev) for a in args], **call)
+    assert kern.launches == n0 + 1
+    assert counts["scan_single_tile_launches"] == 1
+    pd, pp = dense_scan.grouped_scan(*args, **call)
+    kd, kp = kd.cpu(), kp.cpu()
+    if integer:             # every f32 sum exact: bit for bit
+        assert torch.equal(kd, pd) and torch.equal(kp, pp)
+        return
+    # f32 sums in another order, over 1,024 features: the partial sums of
+    # v . r reach about 100 here, so the orders drift apart by a random
+    # walk of sqrt(1024) steps of ulp(100) = 7.6e-6, about 2.4e-4 (at d =
+    # 128 kernel 3's cases above keep 1e-4 for a tenth of that)
+    fin = torch.isfinite(pd)
+    assert torch.equal(torch.isfinite(kd), fin)
+    torch.testing.assert_close(kd[fin], pd[fin], rtol=1e-5, atol=5e-4)
+    assert (kp == pp).float().mean() >= 0.99
+
+
+@pytest.mark.cuda
+def test_gist_shape_search_on_the_card_equals_the_cpu_route(dev, tmp_path):
+    """An index at GIST's widths (d = 960, m = 16, kc = 16, n = 4,000),
+    built on the CPU and loaded onto the card, answers a 64-query batch
+    (w = 4: the grouped route) as the CPU dense route does: ids equal but
+    at near-ties, distances within f32 sums in another order. Each call
+    runs one narrow probe and one single-tile scan, on the eager path and
+    on replay, and the counts equal between the two."""
+    from ivfadc_tpu_torch import IVFADCIndex
+    from ivfadc_tpu_torch.utils import profiling
+    rng = np.random.RandomState(0)
+    centers = rng.randn(64, 960).astype(np.float32)
+    data = centers[rng.randint(0, 64, 4000)] \
+        + 0.15 * rng.randn(4000, 960).astype(np.float32)
+    q = data[rng.randint(0, 4000, 64)] \
+        + 0.05 * rng.randn(64, 960).astype(np.float32)
+    cpu = IVFADCIndex.build(data, device="cpu", kc=16, m=16, k=256, seed=3,
+                            scan_mode="dense", coarse_maxiter=10,
+                            quantization_maxiter=10)
+    cpu.save(str(tmp_path / "gist.npz"))
+    card = IVFADCIndex.load(str(tmp_path / "gist.npz"), device="cuda")
+    want = cpu.search_padded(q, 10, w=4)
+    with profiling.counting() as eager:
+        for _ in range(3):
+            card.store.graphs.clear()
+            got = card.search_padded(q, 10, w=4)
+    assert (got[0] == want[0]).mean() >= 0.99
+    # f32 sums in another order (kernel 1's sequential FMAs against the
+    # CPU's blocked matmul, kernel 3's wgmma sums): the coarse term expands
+    # ||q||^2 - 2 q.c + ||c||^2 with ||q||^2 near 1,000, and sums of 960
+    # features drift by about sqrt(960) ulp(1000) = 1.9e-3 whatever the
+    # distance
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=6e-3)
+    card.store.graphs.clear()
+    with profiling.counting() as replayed:
+        for _ in range(3):
+            again = card.search_padded(q, 10, w=4)
+    np.testing.assert_array_equal(again[0], got[0])
+    np.testing.assert_array_equal(again[1], got[1])
+    assert replayed["graph_captures"] == 1 and replayed["graph_replays"] == 1
+    assert eager["probe_narrow_launches"] == 3
+    assert eager["scan_single_tile_launches"] == 3
+    for name in profiling.COUNTS:
+        if not name.startswith("graph_"):
+            assert replayed[name] == eager[name], name

@@ -332,8 +332,9 @@ def test_counting_equals_the_eager_path(data, on_cpu, monkeypatch, opts,
     assert eager["graph_captures"] == eager["graph_replays"] == 0
     assert replayed["graph_captures"] == 1
     assert replayed["graph_replays"] == 5 - 2
-    for name in profiling.COUNTS[:6]:
-        assert replayed[name] == eager[name], name
+    for name in profiling.COUNTS:
+        if not name.startswith("graph_"):
+            assert replayed[name] == eager[name], name
 
 
 def test_batching_searcher_answers_equal_serial_answers(index, data,

@@ -153,6 +153,21 @@ def _scan_pairs(route, idx, q):
     return Bp * W * idx.store.window
 
 
+def _cache_bytes(route, idx, q):
+    """Each route's streamed decoded-cache bytes, by hand: the rows its
+    tiles, probes or gathered windows read times the int8 cache's 128
+    lanes (d = 16 padded); the LUT route reads codes, not the cache."""
+    if route == "lut":
+        return 0
+    if route in ("grouped", "qc"):
+        cells, _ = _padded_cells(idx, q)
+        h = tile_height(idx.config.scan_pb)
+        n = np.bincount(cells.reshape(-1), minlength=KC)
+        sizes = np.asarray(idx.store.sizes, np.int64)
+        return int(((n + h - 1) // h * sizes).sum()) * 128
+    return _scan_pairs(route, idx, q) * 128
+
+
 @pytest.mark.parametrize("route", list(ROUTES))
 def test_counting_matches_probe_stats_and_loop_bounds(route, indexes, data,
                                                       monkeypatch):
@@ -169,7 +184,10 @@ def test_counting_matches_probe_stats_and_loop_bounds(route, indexes, data,
         "searches": 1, "queries": B, "padded_queries": Bp, "probes": B * W,
         "postings_probed": round(st["scanned_postings_per_query"] * B),
         "scan_pairs": _scan_pairs(route, idx, q),
-        "graph_captures": 0, "graph_replays": 0}
+        "graph_captures": 0, "graph_replays": 0,
+        "scan_cache_bytes": _cache_bytes(route, idx, q),
+        # the plain versions launch no kernel
+        "probe_narrow_launches": 0, "scan_single_tile_launches": 0}
     assert counts["scan_pairs"] >= counts["postings_probed"]
     # outside the block nothing is counted
     before = dict(counts)
