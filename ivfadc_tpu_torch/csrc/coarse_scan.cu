@@ -15,41 +15,58 @@
 // derives the base from the scores, valid for an orthogonal R). All three
 // share coarse_select below, so they pick the same cells bit for bit.
 //
-// Bound: the score matmul, B*kc*d FMAs (2.1 G at B=16384, kc=1024, d=128;
-// 103 G at B=4096, kc=2^18, d=96), in exact f32 on the CUDA cores: the
-// naive coarse quantizer is contractually the exact brute-force scan, and
-// Hopper's tensor cores have no f32 product (TF32 keeps about three
-// digits). A split-TF32 prefilter with exact f32 rescoring would move the
-// bulk to the tensor cores; it is not built yet.
+// Bound: the score product, B*kc*d FMAs in exact f32 on the CUDA cores
+// (1.0e10 at B=10240, kc=1024, d=960; 1.3e9 at d=128; 1.0e11 at B=4096,
+// kc=2^18, d=96), 33.5e12 FMA/s on an H100: the naive coarse quantizer is
+// contractually the exact brute-force scan, and Hopper's tensor cores have
+// no f32 product (TF32 keeps about three digits). On the card the score
+// loop runs near half that rate; the selection's offers (one a 128-centroid
+// tile) and the epilogue's v rows take much of the rest at d = 128 (PERF.md).
+// A split-TF32 prefilter with an exact f32 rescore would move the bulk to
+// the tensor cores; it is not built.
 //
-// What bound the first design (one thread scoring one centroid against
-// two queries, 16 queries a block, a w-pass argmin merge after every
-// 1024-centroid chunk) and what this one does about it:
-// 1. Shared-memory bound inner loop (three loads fed two FMAs). Now a
-//    block scores BQ = 16*TQ queries against tiles of BC = 128 centroids
-//    and each thread keeps a TQ x 8 register tile of sums: per 4 features
-//    it reads TQ + 8 float4 (queries broadcast to 8 lanes, 8 centroid rows
-//    on distinct banks through an odd float4 row stride) for 32*TQ FMAs.
-//    Each sum is still acc = fmaf(q[k], c[k], acc) for k = 0..d-1 in
-//    order, then __fsub_rn(cn, 2 acc): the first design's scores bit for
-//    bit.
-// 2. Too few blocks, each streaming the whole table. Now the grid is
-//    query tiles x S splits of the table (the wrapper picks S from B, kc
-//    and the card's resident blocks; query tile fastest, so blocks that
-//    run together share one split's L2-resident slice), and centroid
-//    slabs of 32 features arrive by cp.async into a two-stage ring while
-//    the previous slab is scored.
-// 3. A full merge after every chunk. Now each query keeps a sorted top-w
-//    list whose last entry is a threshold: a score enters a per-query
-//    candidate buffer (atomic slot, so in arbitrary order) only if it
-//    precedes the threshold in the total order (score, index), and the
-//    buffer is merged into the list by rank only when it would overflow
-//    and at the end of a split. The last block of a query tile to finish
-//    (an atomic ticket) merges the other splits' lists the same way. Every
-//    merge ranks by (score, index), never by position, so the result does
-//    not depend on the order in which atomics land.
-// The winning centroid row is a plain global read (L2-resident), not the
-// TPU kernel's one-hot matmul.
+// The design, a register-tiled f32 product whose operands both stream:
+// 1. Register tile. A block's 256 threads stand as 16 x 16; each keeps a
+//    TQ x 8 tile of sums, query rows ty + 16 i by centroids tx + 16 j of a
+//    block tile of BQ = 16*TQ queries (TQ = 4 or 1) by BC = 128 centroids.
+//    Per 4 features it reads TQ + 8 float4 (a query row broadcast to the 8
+//    lanes that share it; 8 centroid rows on distinct banks through an odd
+//    float4 row stride) for 32*TQ FMAs. Each sum is acc = fmaf(q[k], c[k],
+//    acc) for k = 0..d-1 in order, then __fsub_rn(cn, 2 acc): the same bits
+//    at every TQ and every plan.
+// 2. Both operands in feature slabs. A slab is BK = 32 features of the
+//    block's current BC centroid rows and, unless the query tile is held
+//    whole, of its BQ query rows; slabs come in feature order, tile after
+//    tile, through a ring of NSTAGE = 2 stages that cp.async fills one slab
+//    ahead (a third stage measured 4-7 % slower on an H100, PERF.md). The
+//    query tile is held whole where two blocks still fit a SM with it
+//    (d = 128; 16-query tiles at d = 960), else it streams, so shared
+//    memory does not grow with d (a whole 64-query tile at d = 960 needs
+//    246,784 B, more than a block has).
+// 3. The plan (ops/coarse_scan.py `choose`) picks TQ and S splits of the
+//    table from B, kc, d, w, the SM count and each tile's fit (coarse_fit)
+//    by a cost model fitted to the card: the grid is ceil(B / BQ) query
+//    tiles x S, split fastest, so the blocks of one query tile run
+//    together and share its rows in L2.
+// 4. Selection without full merges. Each query keeps a sorted top-w list
+//    whose last entry is a threshold: a score enters a per-query candidate
+//    buffer (atomic slot, so in arbitrary order) only if it precedes the
+//    threshold in the total order (score, index), and the buffer is merged
+//    into the list by rank only when it would overflow and at the end of a
+//    split. The last block of a query tile to finish (an atomic ticket)
+//    merges the other splits' lists the same way. Every merge ranks by
+//    (score, index), never by position, so the result does not depend on
+//    the order in which atomics land, nor on the plan.
+// 5. The epilogues read each query row from the resident tile, else from
+//    device memory, and the winning centroid rows from device memory
+//    (L2-resident; not the TPU kernel's one-hot matmul). v/base without a
+//    rotation keeps EU features a lane in flight before the first store
+//    (one dependent round trip a feature costs as much as the score loop
+//    at d = 960). Under a rotation, and in v2, each warp stages a row in
+//    shared memory (q - c, or rotq) and walks it a feature a lane: batched
+//    loads measured 7-11 % slower in v2 and the rotation's loop 2.5x
+//    slower with its loads hoisted (PERF.md). Each lane sums its features
+//    l + 32 m in order.
 
 #include "common.cuh"
 
@@ -60,8 +77,9 @@ constexpr int TC = 8;          // centroids per thread (register tile width)
 constexpr int BC = 16 * TC;    // centroids per tile
 constexpr int BK = 32;         // features per slab
 constexpr int CSTR = BK + 4;   // slab row stride: 9 float4, odd
-constexpr int NSTAGE = 2;      // slabs in flight
+constexpr int NSTAGE = 2;      // ring stages; cp.async fills NSTAGE - 1 ahead
 constexpr int CAP = 32;        // candidate buffer places per query: a warp
+constexpr int EU = 16;         // epilogue features a lane loads ahead
 constexpr int SENT = 0x7fffffff;  // index of an empty list place
 constexpr size_t SMEM_MAX = 232448;
 
@@ -75,27 +93,48 @@ __device__ __forceinline__ bool ent_less(float as, int ai, float bs,
   return as < bs || (as == bs && ai < bi);
 }
 
-// Row stride of the staged queries, in floats: d rounded up to 4, then an
-// odd number of float4 so that consecutive rows start on distinct banks.
+// Row stride of a query tile held whole, in floats: d rounded up to a
+// slab, zero-filled past d, so that the last slab of a ragged d reads
+// zeros and never the next row (whose inf would make NaN of 0 * inf), then
+// 4 more: an odd number of float4, so that consecutive rows start on
+// distinct banks.
+static_assert(BK % 8 == 0, "a slab holds an even number of float4");
 __host__ __device__ inline int qstride(int d) {
-  int r = (d + 3) & ~3;
-  if (((r >> 2) & 1) == 0) r += 4;
-  return r;
+  return (d + BK - 1) / BK * BK + 4;
 }
 
-// The slab ring, reused by the v/base epilogues as per-warp rows.
-__host__ __device__ inline size_t ring_floats(int d, bool scratch) {
-  const size_t ring = static_cast<size_t>(NSTAGE) * BC * CSTR;
-  const size_t rows = scratch ? static_cast<size_t>(NT / 32) * 2 * d : 0;
+// The query tile held whole (qres), or nothing.
+__host__ __device__ inline size_t qs_floats(int bq, int d, bool qres) {
+  return qres ? static_cast<size_t>(bq) * qstride(d) : 0;
+}
+
+// One ring stage: a slab of the BQ query rows (unless the tile is held
+// whole), then of the BC centroid rows.
+__host__ __device__ inline size_t stage_floats(int bq, bool qres) {
+  return static_cast<size_t>(qres ? BC : bq + BC) * CSTR;
+}
+
+// The ring, reused by the v/base epilogues as one row of d floats a warp.
+__host__ __device__ inline size_t ring_floats(int bq, int d, bool scratch,
+                                              bool qres) {
+  const size_t ring = NSTAGE * stage_floats(bq, qres);
+  const size_t rows = scratch ? static_cast<size_t>(NT / 32) * d : 0;
   return ring > rows ? ring : rows;
 }
 
 __host__ __device__ inline size_t sel_bytes(int bq, int d, int w,
-                                            bool scratch) {
-  return 4 * (static_cast<size_t>(bq) * qstride(d) + ring_floats(d, scratch)) +
+                                            bool scratch, bool qres) {
+  return 4 * (qs_floats(bq, d, qres) + ring_floats(bq, d, scratch, qres)) +
          8 * (2 * static_cast<size_t>(bq) * w +
               static_cast<size_t>(bq) * (CAP + 1)) +
          4 * (static_cast<size_t>(bq) + 1);
+}
+
+// Whether the query tile is held whole: where two blocks still fit a SM
+// with it (at d = 128; at d = 960 for 16-query tiles), else it streams in
+// slabs beside the centroids and shared memory does not grow with d.
+__host__ __device__ inline bool resident(int bq, int d, int w, bool scratch) {
+  return sel_bytes(bq, d, w, scratch, true) <= SMEM_MAX / 2;
 }
 
 struct SelArgs {
@@ -104,6 +143,7 @@ struct SelArgs {
   const float* cn;     // (kc,) ||c||^2
   int B, d, kc, w;
   int splits, tps;     // table splits, tiles per split
+  int qres;            // the query tile held whole (resident)
   Ent* part;           // (B, splits, w) per-split lists (splits > 1)
   int* tickets;        // one per query tile, zero on entry (splits > 1)
 };
@@ -112,8 +152,8 @@ struct SelArgs {
 // The current list is list(cur): a select by arithmetic, since an array
 // of pointers indexed at run time would live in local memory.
 struct Sel {
-  float* qs;     // BQ x qstride(d)   the block's queries, zero-padded
-  float* ring;   // NSTAGE x BC x CSTR centroid slabs / epilogue rows
+  float* qs;     // BQ x qstride(d)   the block's queries, when resident
+  float* ring;   // NSTAGE x stage_floats slabs / epilogue rows
   Ent* lists;    // 2 x BQ x w        sorted top-w, and the merge target
   int lstride;   // BQ x w
   Ent* buf;      // BQ x (CAP + 1)    candidates, unordered (+1: the
@@ -130,8 +170,9 @@ __device__ __forceinline__ Sel sel_carve(float* sm, int bq, const SelArgs& a,
                                          bool scratch) {
   Sel s;
   s.qs = sm;
-  s.ring = s.qs + static_cast<size_t>(bq) * qstride(a.d);
-  s.lists = reinterpret_cast<Ent*>(s.ring + ring_floats(a.d, scratch));
+  s.ring = s.qs + qs_floats(bq, a.d, a.qres);
+  s.lists = reinterpret_cast<Ent*>(s.ring +
+                                   ring_floats(bq, a.d, scratch, a.qres));
   s.lstride = bq * a.w;
   s.buf = s.lists + 2 * static_cast<size_t>(s.lstride);
   s.cnt = reinterpret_cast<int*>(s.buf + static_cast<size_t>(bq) *
@@ -158,63 +199,69 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Features [k0, k0 + BK) of centroids [c0, c0 + BC) into one ring stage;
-// places past the split's end or past d are zero-filled (a zero product
-// leaves a sum unchanged).
-__device__ __forceinline__ void load_slab(float* dst, const float* cents,
-                                          int c0, int cend, int k0, int d,
-                                          bool vec4, int tid) {
+// Features [k0, k0 + BK) of rows [r0, r0 + n) of a (rows, d) matrix into
+// a slab (rows of CSTR floats); places of rows from rend on, or past d, are
+// zero-filled (a zero product leaves a sum unchanged).
+__device__ __forceinline__ void load_slab(float* dst, const float* src,
+                                          int r0, int rend, int n, int k0,
+                                          int d, bool vec4, int tid) {
   if (vec4) {
-    for (int ch = tid; ch < BC * (BK / 4); ch += NT) {
-      const int c = ch / (BK / 4), s4 = ch % (BK / 4);
+    for (int ch = tid; ch < n * (BK / 4); ch += NT) {
+      const int r = ch / (BK / 4), s4 = ch % (BK / 4);
       const int k = k0 + 4 * s4;
-      const bool ok = c0 + c < cend && k < d;
-      cp_async16(dst + c * CSTR + 4 * s4,
-                 ok ? cents + static_cast<size_t>(c0 + c) * d + k : cents,
+      const bool ok = r0 + r < rend && k < d;
+      cp_async16(dst + r * CSTR + 4 * s4,
+                 ok ? src + static_cast<size_t>(r0 + r) * d + k : src,
                  ok ? 16 : 0);
     }
   } else {
-    for (int e = tid; e < BC * BK; e += NT) {
-      const int c = e / BK, kk = e % BK;
-      const bool ok = c0 + c < cend && k0 + kk < d;
-      cp_async4(dst + c * CSTR + kk,
-                ok ? cents + static_cast<size_t>(c0 + c) * d + k0 + kk
-                   : cents,
+    for (int e = tid; e < n * BK; e += NT) {
+      const int r = e / BK, kk = e % BK;
+      const bool ok = r0 + r < rend && k0 + kk < d;
+      cp_async4(dst + r * CSTR + kk,
+                ok ? src + static_cast<size_t>(r0 + r) * d + k0 + kk : src,
                 ok ? 4 : 0);
     }
   }
 }
 
-// One slab of the register tile: nk4 steps of 4 features (all BK / 4 of
-// them when FULL: no per-step branch), each sum in ascending feature order.
-template <int TQ, bool FULL>
+// The register tile's places: thread (tx, ty) holds query rows ty + 16 i
+// and centroids tx + 16 j of the block tile.
+__device__ __forceinline__ int qrow(int ty, int i) { return ty + 16 * i; }
+
+__device__ __forceinline__ int ccol(int tx, int j) { return tx + 16 * j; }
+
+// One slab of the register tile, 4 features a step, each sum in ascending
+// feature order: per step a thread reads TQ + 8 float4 (its query rows,
+// each broadcast to the 8 lanes that share it; its 8 centroid rows, on
+// distinct banks through the odd float4 row stride) for 32 TQ FMAs.
+template <int TQ>
 __device__ __forceinline__ void fma_slab(float (&acc)[TQ][TC],
                                          const float* qs, int qstr,
-                                         const float* cs, int k0, int nk4,
-                                         int tx, int ty) {
+                                         const float* cs, int tx, int ty) {
 #pragma unroll
   for (int kq = 0; kq < BK / 4; ++kq) {
-    if (FULL || kq < nk4) {
-      float4 a[TQ];
+    float4 a[TQ];
 #pragma unroll
-      for (int i = 0; i < TQ; ++i)
-        a[i] = *reinterpret_cast<const float4*>(
-            qs + (ty + 16 * i) * qstr + k0 + 4 * kq);
+    for (int i = 0; i < TQ; ++i)
+      a[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * qstr +
+                                              4 * kq);
 #pragma unroll
-      for (int j = 0; j < TC; ++j) {
-        const float4 b = *reinterpret_cast<const float4*>(
-            cs + (tx + 16 * j) * CSTR + 4 * kq);
+    for (int j = 0; j < TC; ++j) {
+      const float4 b = *reinterpret_cast<const float4*>(
+          cs + (tx + 16 * j) * CSTR + 4 * kq);
 #pragma unroll
-        for (int i = 0; i < TQ; ++i) {
-          acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
-          acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
-          acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
-          acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
-        }
+      for (int i = 0; i < TQ; ++i) {
+        acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
+        acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
+        acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
+        acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
       }
     }
   }
@@ -292,15 +339,19 @@ __device__ __forceinline__ void merge(const Sel& s, int w, int nq,
   __syncthreads();
 }
 
+__device__ __forceinline__ uint32_t bit(int i, int j) {
+  return 1u << (i * TC + j);
+}
+
 // Offer each thread's TQ x TC candidates (scores sc, indices id(i, j); bit
-// i*TC + j of `pend` set: a live candidate for query row ty + 16 i) to
+// i*TC + j of `pend` set: a live candidate for query row qrow(ty, i)) to
 // their queries. Those that
 // precede the query's threshold take a buffer place; when a buffer is
 // full the block merges and the rest are filtered again against the new
 // thresholds. The 8 lanes sharing a query row reserve their places with
 // one atomic. Block-wide: every thread calls it.
 template <int TQ, class Id>
-__device__ __forceinline__ void offer(const float (&sc)[TQ][TC], Id id,
+__device__ __forceinline__ void offer_body(const float (&sc)[TQ][TC], Id id,
                                       uint32_t pend,
                                       const Sel& s, int w, int nq, int& cur,
                                       int ty, int lane) {
@@ -308,11 +359,11 @@ __device__ __forceinline__ void offer(const float (&sc)[TQ][TC], Id id,
   for (bool first = true;; first = false) {
 #pragma unroll
     for (int i = 0; i < TQ; ++i) {
-      const Ent t = s.list(cur)[static_cast<size_t>(ty + 16 * i) * w + w - 1];
+      const Ent t =
+          s.list(cur)[static_cast<size_t>(qrow(ty, i)) * w + w - 1];
 #pragma unroll
       for (int j = 0; j < TC; ++j)
-        if (!ent_less(sc[i][j], id(i, j), t.s, t.i))
-          pend &= ~(1u << (i * TC + j));
+        if (!ent_less(sc[i][j], id(i, j), t.s, t.i)) pend &= ~bit(i, j);
     }
     // In each 8-lane group sharing a query row, let every lane take the j-th
     // of its own candidates, j = ceil(w / 8), and the group the last of those
@@ -350,8 +401,7 @@ __device__ __forceinline__ void offer(const float (&sc)[TQ][TC], Id id,
         }
 #pragma unroll
         for (int a = 0; a < TC; ++a)
-          if (ent_less(gs, gi, sc[i][a], id(i, a)))
-            pend &= ~(1u << (i * TC + a));
+          if (ent_less(gs, gi, sc[i][a], id(i, a))) pend &= ~bit(i, a);
       }
     }
 #pragma unroll
@@ -367,16 +417,16 @@ __device__ __forceinline__ void offer(const float (&sc)[TQ][TC], Id id,
       const int total = __shfl_sync(IVF_FULL_MASK, incl, 7, 8);
       int base = 0;
       if ((lane & 7) == 0 && total > 0)
-        base = atomicAdd(s.cnt + ty + 16 * i, total);
+        base = atomicAdd(s.cnt + qrow(ty, i), total);
       base = __shfl_sync(IVF_FULL_MASK, base, 0, 8);
       int pos = base + incl - n;
-      Ent* row = s.buf + static_cast<size_t>(ty + 16 * i) * (CAP + 1);
+      Ent* row = s.buf + static_cast<size_t>(qrow(ty, i)) * (CAP + 1);
 #pragma unroll
       for (int j = 0; j < TC; ++j)
         if ((bits >> j) & 1) {
           if (pos < CAP) {
             row[pos] = Ent{sc[i][j], id(i, j)};
-            pend &= ~(1u << (i * TC + j));
+            pend &= ~bit(i, j);
           }
           ++pos;
         }
@@ -386,6 +436,26 @@ __device__ __forceinline__ void offer(const float (&sc)[TQ][TC], Id id,
   }
 }
 
+template <int TQ, class Id>
+__device__ __noinline__ void offer_far(const float (&sc)[TQ][TC], Id id,
+                                       uint32_t pend, const Sel& s, int w,
+                                       int nq, int& cur, int ty, int lane) {
+  offer_body<TQ>(sc, id, pend, s, w, nq, cur, ty, lane);
+}
+
+// The offer: inline where the query tile is resident; out of line where it
+// streams, so that the score loop's registers are not shaped by it (each
+// way measured faster in its own place on an H100).
+template <int TQ, bool QRES, class Id>
+__device__ __forceinline__ void offer(const float (&sc)[TQ][TC], Id id,
+                                      uint32_t pend, const Sel& s, int w,
+                                      int nq, int& cur, int ty, int lane) {
+  if constexpr (QRES)
+    offer_body<TQ>(sc, id, pend, s, w, nq, cur, ty, lane);
+  else
+    offer_far<TQ>(sc, id, pend, s, w, nq, cur, ty, lane);
+}
+
 struct Pos {
   int q0, nq, split, qtile;
 };
@@ -393,53 +463,33 @@ struct Pos {
 template <int TQ>
 __device__ __forceinline__ Pos block_pos(const SelArgs& a) {
   constexpr int BQ = 16 * TQ;
-  const int qtiles = (a.B + BQ - 1) / BQ;
   Pos p;
-  p.qtile = blockIdx.x % qtiles;  // query tile fastest: blocks resident
-  p.split = blockIdx.x / qtiles;  // together share one split's slice
+  p.split = blockIdx.x % a.splits;  // split fastest: the blocks of a query
+  p.qtile = blockIdx.x / a.splits;  // tile run together, its rows in L2
   p.q0 = p.qtile * BQ;
   p.nq = min(BQ, a.B - p.q0);
   return p;
 }
 
-// Stage the block's queries and select, for each, the w smallest of
+// Select, for each of the block's queries, the w smallest of
 // ||c||^2 - 2 q.c over its split of the table; with more than one split,
 // the last block of the query tile to finish merges the others' lists.
 // Returns true in the block that holds the final lists (list(cur), each
 // ascending by (score, index)); the others return false and exit. Ends at
 // a block barrier.
-template <int TQ>
+template <int TQ, bool QRES>
 __device__ __forceinline__ bool coarse_select(const SelArgs& a, const Sel& s,
                                               const Pos& p, int& cur) {
   constexpr int BQ = 16 * TQ;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tx = ((warp & 1) << 3) | (lane & 7);
   const int ty = ((warp >> 1) << 2) | (lane >> 3);
-  const int d = a.d, w = a.w, qstr = qstride(d);
-  const int r4 = (d + 3) & ~3;
-  const bool vec4 =
+  const int d = a.d, w = a.w;
+  const bool qv4 =
+      (d & 3) == 0 && (reinterpret_cast<uintptr_t>(a.q) & 15) == 0;
+  const bool cv4 =
       (d & 3) == 0 && (reinterpret_cast<uintptr_t>(a.cents) & 15) == 0;
 
-  // the queries arrive by cp.async with the first slab (zero-filled past
-  // d and past the batch): no load-to-store round trip per element
-  if ((d & 3) == 0 && (reinterpret_cast<uintptr_t>(a.q) & 15) == 0) {
-    const int c4 = qstr >> 2;
-    for (int i = tid; i < BQ * c4; i += NT) {
-      const int r = i / c4, k = 4 * (i - r * c4);
-      const bool ok = r < p.nq && k < d;
-      cp_async16(s.qs + r * qstr + k,
-                 ok ? a.q + static_cast<size_t>(p.q0 + r) * d + k : a.q,
-                 ok ? 16 : 0);
-    }
-  } else {
-    for (int i = tid; i < BQ * qstr; i += NT) {
-      const int r = i / qstr, k = i - r * qstr;
-      const bool ok = r < p.nq && k < d;
-      cp_async4(s.qs + i,
-                ok ? a.q + static_cast<size_t>(p.q0 + r) * d + k : a.q,
-                ok ? 4 : 0);
-    }
-  }
   for (int i = tid; i < BQ * w; i += NT) s.lists[i] = Ent{IVF_INF, SENT};
   for (int i = tid; i < BQ; i += NT) s.cnt[i] = 0;
   cur = 0;
@@ -450,53 +500,84 @@ __device__ __forceinline__ bool coarse_select(const SelArgs& a, const Sel& s,
   const int cend = min(a.kc, (t0 + nt) * BC);
   const int nsl = (d + BK - 1) / BK;
   const int total = nt * nsl;
+  // slab `it`: features (it % nsl) * BK on of the queries and of centroid
+  // tile t0 + it / nsl, into ring stage it % NSTAGE
+  constexpr int cofs = QRES ? 0 : BQ * CSTR;  // centroid rows in a stage
+  const size_t stage = stage_floats(BQ, QRES);
+  const auto load = [&](int it) {
+    float* st = s.ring + (it % NSTAGE) * stage;
+    const int tl = it / nsl, k0 = (it - tl * nsl) * BK;
+    if (!QRES) load_slab(st, a.q, p.q0, p.q0 + p.nq, BQ, k0, d, qv4, tid);
+    load_slab(st + cofs, a.cents, (t0 + tl) * BC, cend, BC, k0, d, cv4, tid);
+  };
+  // a resident query tile arrives with the first slab (zero-filled past d
+  // and past the batch)
+  const int qstr = QRES ? qstride(d) : CSTR;
+  if (QRES) {
+    if (qv4) {
+      const int c4 = qstr >> 2;
+      for (int i = tid; i < BQ * c4; i += NT) {
+        const int r = i / c4, k = 4 * (i - r * c4);
+        const bool ok = r < p.nq && k < d;
+        cp_async16(s.qs + r * qstr + k,
+                   ok ? a.q + static_cast<size_t>(p.q0 + r) * d + k : a.q,
+                   ok ? 16 : 0);
+      }
+    } else {
+      for (int i = tid; i < BQ * qstr; i += NT) {
+        const int r = i / qstr, k = i - r * qstr;
+        const bool ok = r < p.nq && k < d;
+        cp_async4(s.qs + i,
+                  ok ? a.q + static_cast<size_t>(p.q0 + r) * d + k : a.q,
+                  ok ? 4 : 0);
+      }
+    }
+  }
   float acc[TQ][TC];
 #pragma unroll
   for (int i = 0; i < TQ; ++i)
 #pragma unroll
     for (int j = 0; j < TC; ++j) acc[i][j] = 0.f;
 
-  if (total > 0) load_slab(s.ring, a.cents, t0 * BC, cend, 0, d, vec4, tid);
-  cp_async_commit();
+#pragma unroll
+  for (int it = 0; it < NSTAGE - 1; ++it) {
+    if (it < total) load(it);
+    cp_async_commit();
+  }
   for (int it = 0; it < total; ++it) {
-    cp_async_wait_all();
+    cp_async_wait<NSTAGE - 2>();
     __syncthreads();  // slab `it` landed; slab it - 1's stage is free
-    if (it + 1 < total) {
-      const int tn = (it + 1) / nsl, kn = (it + 1) - tn * nsl;
-      load_slab(s.ring + ((it + 1) % NSTAGE) * BC * CSTR, a.cents,
-                (t0 + tn) * BC, cend, kn * BK, d, vec4, tid);
-    }
+    if (it + NSTAGE - 1 < total) load(it + NSTAGE - 1);
     cp_async_commit();
     const int tl = it / nsl, ks = it - tl * nsl;
-    const int k0 = ks * BK;
-    const int nk4 = min(BK, r4 - k0) >> 2;
-    const float* cs = s.ring + (it % NSTAGE) * BC * CSTR;
-    if (nk4 == BK / 4)
-      fma_slab<TQ, true>(acc, s.qs, qstr, cs, k0, nk4, tx, ty);
-    else
-      fma_slab<TQ, false>(acc, s.qs, qstr, cs, k0, nk4, tx, ty);
+    const float* st = s.ring + (it % NSTAGE) * stage;
+    fma_slab<TQ>(acc, QRES ? s.qs + ks * BK : st, qstr, st + cofs, tx, ty);
     if (ks == nsl - 1) {
       const int c0 = (t0 + tl) * BC;
       uint32_t pend = 0;
 #pragma unroll
       for (int j = 0; j < TC; ++j) {
-        const int c = c0 + tx + 16 * j;
+        const int c = c0 + ccol(tx, j);
         const float cnv = c < cend ? __ldg(a.cn + c) : 0.f;
 #pragma unroll
         for (int i = 0; i < TQ; ++i) {
           acc[i][j] = __fsub_rn(cnv, 2.0f * acc[i][j]);
-          if (c < cend && ty + 16 * i < p.nq) pend |= 1u << (i * TC + j);
+          if (c < cend && qrow(ty, i) < p.nq) pend |= bit(i, j);
         }
       }
-      offer<TQ>(acc, [=](int, int j) { return c0 + tx + 16 * j; }, pend, s,
-                w, p.nq, cur, ty, lane);
+      float sc[TQ][TC];
 #pragma unroll
       for (int i = 0; i < TQ; ++i)
 #pragma unroll
-        for (int j = 0; j < TC; ++j) acc[i][j] = 0.f;
+        for (int j = 0; j < TC; ++j) {
+          sc[i][j] = acc[i][j];
+          acc[i][j] = 0.f;
+        }
+      offer<TQ, QRES>(sc, [=](int, int j) { return c0 + ccol(tx, j); },
+                      pend, s, w, p.nq, cur, ty, lane);
     }
   }
-  cp_async_wait_all();
+  cp_async_wait<0>();
   __syncthreads();
   merge<TQ>(s, w, p.nq, cur);
   if (a.splits == 1) return true;
@@ -522,7 +603,7 @@ __device__ __forceinline__ bool coarse_select(const SelArgs& a, const Sel& s,
     uint32_t pend = 0;
 #pragma unroll
     for (int i = 0; i < TQ; ++i) {
-      const int r = ty + 16 * i;
+      const int r = qrow(ty, i);
 #pragma unroll
       for (int j = 0; j < TC; ++j) {
         // every load issued (a dead one from the tile's first entry), so
@@ -534,11 +615,11 @@ __device__ __forceinline__ bool coarse_select(const SelArgs& a, const Sel& s,
             (ok ? static_cast<size_t>(r) * E + e : 0)));
         sc[i][j] = ok ? __int_as_float(v.x) : IVF_INF;
         id[i][j] = ok ? v.y : SENT;
-        if (ok) pend |= 1u << (i * TC + j);
+        if (ok) pend |= bit(i, j);
       }
     }
-    offer<TQ>(sc, [&](int i, int j) { return id[i][j]; }, pend, s, w, p.nq,
-              cur, ty, lane);
+    offer<TQ, QRES>(sc, [&](int i, int j) { return id[i][j]; }, pend, s, w,
+                    p.nq, cur, ty, lane);
   }
   merge<TQ>(s, w, p.nq, cur);
   return true;
@@ -548,7 +629,7 @@ __device__ __forceinline__ int cell_of(const Ent& e) {
   return e.i == SENT ? 0 : e.i;  // only for a table of +inf / NaN scores
 }
 
-template <int TQ>
+template <int TQ, bool QRES>
 __global__ void __launch_bounds__(NT, 2)
     coarse_topw_kernel(SelArgs a, float* __restrict__ vals,
                        int* __restrict__ cells) {
@@ -556,7 +637,7 @@ __global__ void __launch_bounds__(NT, 2)
   const Sel s = sel_carve(sm, 16 * TQ, a, false);
   const Pos p = block_pos<TQ>(a);
   int cur;
-  if (!coarse_select<TQ>(a, s, p, cur)) return;
+  if (!coarse_select<TQ, QRES>(a, s, p, cur)) return;
   const Ent* L = s.list(cur);
   for (int i = threadIdx.x; i < p.nq * a.w; i += NT) {
     const size_t o = static_cast<size_t>(p.q0) * a.w + i;
@@ -565,7 +646,7 @@ __global__ void __launch_bounds__(NT, 2)
   }
 }
 
-template <int TQ>
+template <int TQ, bool QRES>
 __global__ void __launch_bounds__(NT, 2)
     coarse_vbase_kernel(SelArgs a, const float* __restrict__ rot,
                         int apply_rot, float* __restrict__ vals,
@@ -576,39 +657,50 @@ __global__ void __launch_bounds__(NT, 2)
   const Sel s = sel_carve(sm, 16 * TQ, a, true);
   const Pos p = block_pos<TQ>(a);
   int cur;
-  if (!coarse_select<TQ>(a, s, p, cur)) return;
-  const int d = a.d, w = a.w, qstr = qstride(d);
+  if (!coarse_select<TQ, QRES>(a, s, p, cur)) return;
+  const int d = a.d, w = a.w;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31, warps = NT >> 5;
-  float* rr = s.ring + static_cast<size_t>(warp) * 2 * d;  // q - c
-  float* ro = rr + d;                                       // rot(q - c)
+  float* rr = s.ring + static_cast<size_t>(warp) * d;  // q - c, to rotate
   for (int r = warp; r < p.nq; r += warps) {
     const Ent* L = s.list(cur) + static_cast<size_t>(r) * w;
-    const float* qr = s.qs + static_cast<size_t>(r) * qstr;
     const size_t qi = static_cast<size_t>(p.q0 + r);
+    const float* qr = QRES ? s.qs + static_cast<size_t>(r) * qstride(d)
+                           : a.q + qi * d;
     for (int j = 0; j < w; ++j) {
       const float m = L[j].s;
       const int a_ = cell_of(L[j]);
       const float* cr = a.cents + static_cast<size_t>(a_) * d;
-      for (int k = lane; k < d; k += 32) rr[k] = __fsub_rn(qr[k], cr[k]);
-      __syncwarp();
-      const float* res = rr;
-      if (apply_rot) {
-        for (int col = lane; col < d; col += 32) {
-          float acc = 0.f;
-          for (int k = 0; k < d; ++k)
-            acc = fmaf(rr[k], rot[static_cast<size_t>(k) * d + col], acc);
-          ro[col] = acc;
-        }
-        __syncwarp();
-        res = ro;
-      }
       __nv_bfloat16* vo = v + (qi * w + j) * d;
       float part = 0.f;
-      for (int k = lane; k < d; k += 32) {
-        const float x = res[k];
-        vo[k] = __float2bfloat16_rn(-2.0f * x);
-        part = __fadd_rn(part, __fmul_rn(x, x));
+      if (apply_rot) {
+        for (int k = lane; k < d; k += 32) rr[k] = __fsub_rn(qr[k], cr[k]);
+        __syncwarp();
+        for (int col = lane; col < d; col += 32) {
+          float x = 0.f;
+          for (int k = 0; k < d; ++k)
+            x = fmaf(rr[k], rot[static_cast<size_t>(k) * d + col], x);
+          vo[col] = __float2bfloat16_rn(-2.0f * x);
+          part = __fadd_rn(part, __fmul_rn(x, x));
+        }
+      } else {
+        // EU loads a lane in flight before the first store
+        for (int k0 = lane; k0 < d; k0 += 32 * EU) {
+          float x[EU];
+#pragma unroll
+          for (int u = 0; u < EU; ++u) {
+            const int k = k0 + 32 * u;
+            x[u] = k < d ? __fsub_rn(QRES ? qr[k] : __ldg(qr + k),
+                                     __ldg(cr + k))
+                         : 0.f;
+          }
+#pragma unroll
+          for (int u = 0; u < EU; ++u)
+            if (k0 + 32 * u < d) {
+              vo[k0 + 32 * u] = __float2bfloat16_rn(-2.0f * x[u]);
+              part = __fadd_rn(part, __fmul_rn(x[u], x[u]));
+            }
+        }
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
@@ -623,7 +715,7 @@ __global__ void __launch_bounds__(NT, 2)
   }
 }
 
-template <int TQ>
+template <int TQ, bool QRES>
 __global__ void __launch_bounds__(NT, 2)
     coarse_vbase_v2_kernel(SelArgs a, const float* __restrict__ rot,
                            const __nv_bfloat16* __restrict__ hi,
@@ -635,15 +727,16 @@ __global__ void __launch_bounds__(NT, 2)
   const Sel s = sel_carve(sm, 16 * TQ, a, true);
   const Pos p = block_pos<TQ>(a);
   int cur;
-  if (!coarse_select<TQ>(a, s, p, cur)) return;
-  const int d = a.d, w = a.w, qstr = qstride(d);
+  if (!coarse_select<TQ, QRES>(a, s, p, cur)) return;
+  const int d = a.d, w = a.w;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31, warps = NT >> 5;
-  float* rq = s.ring + static_cast<size_t>(warp) * 2 * d;  // rotq
+  float* rq = s.ring + static_cast<size_t>(warp) * d;  // rotq, or q
   for (int r = warp; r < p.nq; r += warps) {
     const Ent* L = s.list(cur) + static_cast<size_t>(r) * w;
-    const float* qr = s.qs + static_cast<size_t>(r) * qstr;
     const size_t qi = static_cast<size_t>(p.q0 + r);
+    const float* qr = QRES ? s.qs + static_cast<size_t>(r) * qstride(d)
+                           : a.q + qi * d;
     if (apply_rot) {
       for (int col = lane; col < d; col += 32) {
         float acc = 0.f;
@@ -676,63 +769,89 @@ __global__ void __launch_bounds__(NT, 2)
 
 enum Kind { TOPW = 0, VBASE = 1, VBASE_V2 = 2 };
 
-const void* kernel_of(int kind, int tq) {
-  switch (kind * 2 + (tq == 4 ? 1 : 0)) {
-    case 0: return reinterpret_cast<const void*>(coarse_topw_kernel<1>);
-    case 1: return reinterpret_cast<const void*>(coarse_topw_kernel<4>);
-    case 2: return reinterpret_cast<const void*>(coarse_vbase_kernel<1>);
-    case 3: return reinterpret_cast<const void*>(coarse_vbase_kernel<4>);
-    case 4: return reinterpret_cast<const void*>(coarse_vbase_v2_kernel<1>);
-    case 5: return reinterpret_cast<const void*>(coarse_vbase_v2_kernel<4>);
+bool valid_tq(int tq) { return tq == 1 || tq == 4; }
+
+template <int TQ, bool QRES>
+const void* kernel_of(int kind) {
+  switch (kind) {
+    case TOPW:
+      return reinterpret_cast<const void*>(coarse_topw_kernel<TQ, QRES>);
+    case VBASE:
+      return reinterpret_cast<const void*>(coarse_vbase_kernel<TQ, QRES>);
+    default:
+      return reinterpret_cast<const void*>(coarse_vbase_v2_kernel<TQ, QRES>);
   }
-  return nullptr;
 }
 
-// Validate a launch plan and fill the kernel arguments; 0 or an error.
-int sel_args(const void* q, const void* cents, const void* cn, int B, int d,
-             int kc, int w, int tq, int splits, void* part, void* tickets,
-             bool scratch, SelArgs* a, size_t* smem) {
+const void* kernel_of(int kind, int tq, bool qres) {
+  if (tq == 4)
+    return qres ? kernel_of<4, true>(kind) : kernel_of<4, false>(kind);
+  return qres ? kernel_of<1, true>(kind) : kernel_of<1, false>(kind);
+}
+
+// Validate a launch plan, fill the kernel arguments and launch the kind's
+// kernel at query tiles of 16 * tq rows; 0 or an error. `rest` points at
+// the arguments after the SelArgs, in the kernel's order.
+int launch(int kind, const void* q, const void* cents, const void* cn,
+           int B, int d, int kc, int w, int tq, int splits, void* part,
+           void* tickets, void** rest, int nrest, void* stream) {
   const int ntiles = (kc + BC - 1) / BC;
-  if ((tq != 1 && tq != 4) || d < 1 || w < 1 || w > kc || splits < 1 ||
+  if (!valid_tq(tq) || d < 1 || w < 1 || w > kc || splits < 1 ||
       splits > ntiles || (splits > 1 && (!part || !tickets)))
     return cudaErrorInvalidValue;
-  *smem = sel_bytes(16 * tq, d, w, scratch);
-  if (*smem > SMEM_MAX) return cudaErrorInvalidValue;
-  a->q = static_cast<const float*>(q);
-  a->cents = static_cast<const float*>(cents);
-  a->cn = static_cast<const float*>(cn);
-  a->B = B;
-  a->d = d;
-  a->kc = kc;
-  a->w = w;
-  a->splits = splits;
-  a->tps = (ntiles + splits - 1) / splits;
-  a->part = static_cast<Ent*>(part);
-  a->tickets = static_cast<int*>(tickets);
-  return 0;
-}
-
-int grid_of(int B, int tq, int splits) {
-  return (B + 16 * tq - 1) / (16 * tq) * splits;
+  const bool qres = resident(16 * tq, d, w, kind != TOPW);
+  const size_t smem = sel_bytes(16 * tq, d, w, kind != TOPW, qres);
+  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
+  SelArgs a;
+  a.q = static_cast<const float*>(q);
+  a.cents = static_cast<const float*>(cents);
+  a.cn = static_cast<const float*>(cn);
+  a.B = B;
+  a.d = d;
+  a.kc = kc;
+  a.w = w;
+  a.splits = splits;
+  a.tps = (ntiles + splits - 1) / splits;
+  a.qres = qres;
+  a.part = static_cast<Ent*>(part);
+  a.tickets = static_cast<int*>(tickets);
+  const void* k = kernel_of(kind, tq, qres);
+  int err = ivf_set_smem(k, smem);
+  if (err) return err;
+  const int grid = (B + 16 * tq - 1) / (16 * tq) * splits;
+  if (grid > 0) {
+    void* args[8] = {&a};
+    for (int i = 0; i < nrest; ++i) args[1 + i] = rest[i];
+    cudaLaunchKernel(k, dim3(grid), dim3(NT), args, smem,
+                     static_cast<cudaStream_t>(stream));
+  }
+  return ivf_launch_status();
 }
 
 }  // namespace
 
 // A block shape's fit for (d, w) and a kernel kind (0 top-w, 1 v/base,
 // 2 v2), with query tiles of 16 * tq rows (tq 4 or 1): out = {bq, bc,
-// shared bytes, resident blocks per SM}, the last two 0 where the shared
-// memory would exceed a block's.
+// shared bytes, resident blocks per SM, registers a thread, local (spilled)
+// bytes a thread, 1 where the query tile is held whole}, shared bytes and
+// blocks 0 where the shared memory would exceed a block's.
 extern "C" int coarse_fit(int d, int w, int kind, int tq, int* out) {
-  if (d < 1 || w < 1 || kind < TOPW || kind > VBASE_V2 ||
-      (tq != 1 && tq != 4))
+  if (d < 1 || w < 1 || kind < TOPW || kind > VBASE_V2 || !valid_tq(tq))
     return cudaErrorInvalidValue;
-  const size_t smem = sel_bytes(16 * tq, d, w, kind != TOPW);
+  const bool qres = resident(16 * tq, d, w, kind != TOPW);
+  const size_t smem = sel_bytes(16 * tq, d, w, kind != TOPW, qres);
+  const void* k = kernel_of(kind, tq, qres);
+  cudaFuncAttributes fa;
+  int err = static_cast<int>(cudaFuncGetAttributes(&fa, k));
+  if (err) return err;
   out[0] = 16 * tq;
   out[1] = BC;
   out[2] = out[3] = 0;
+  out[4] = fa.numRegs;
+  out[5] = static_cast<int>(fa.localSizeBytes);
+  out[6] = qres;
   if (smem > SMEM_MAX) return 0;
-  const void* k = kernel_of(kind, tq);
-  int err = ivf_set_smem(k, smem);
+  err = ivf_set_smem(k, smem);
   if (err) return err;
   int blocks = 0;
   err = static_cast<int>(
@@ -748,29 +867,9 @@ extern "C" int coarse_vbase(const void* q, const void* cents, const void* cn,
                             int apply_rot, int tq, int splits,
                             void* part, void* tickets, void* vals,
                             void* cells, void* v, void* rn, void* stream) {
-  SelArgs a;
-  size_t smem;
-  int err = sel_args(q, cents, cn, B, d, kc, w, tq, splits, part, tickets,
-                     true, &a, &smem);
-  if (err) return err;
-  err = ivf_set_smem(kernel_of(VBASE, tq), smem);
-  if (err) return err;
-  const int grid = grid_of(B, tq, splits);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto* rt = static_cast<const float*>(rot);
-  auto* fv = static_cast<float*>(vals);
-  auto* ic = static_cast<int*>(cells);
-  auto* bv = static_cast<__nv_bfloat16*>(v);
-  auto* fr = static_cast<float*>(rn);
-  if (grid > 0) {
-    if (tq == 4)
-      coarse_vbase_kernel<4><<<grid, NT, smem, st>>>(a, rt, apply_rot, fv,
-                                                     ic, bv, fr);
-    else
-      coarse_vbase_kernel<1><<<grid, NT, smem, st>>>(a, rt, apply_rot, fv,
-                                                     ic, bv, fr);
-  }
-  return ivf_launch_status();
+  void* rest[] = {&rot, &apply_rot, &vals, &cells, &v, &rn};
+  return launch(VBASE, q, cents, cn, B, d, kc, w, tq, splits, part, tickets,
+                rest, 6, stream);
 }
 
 extern "C" int coarse_vbase_v2(const void* q, const void* cents,
@@ -780,54 +879,16 @@ extern "C" int coarse_vbase_v2(const void* q, const void* cents,
                                int splits, void* part, void* tickets,
                                void* vals, void* cells, void* v,
                                void* stream) {
-  SelArgs a;
-  size_t smem;
-  int err = sel_args(q, cents, cn, B, d, kc, w, tq, splits, part, tickets,
-                     true, &a, &smem);
-  if (err) return err;
-  err = ivf_set_smem(kernel_of(VBASE_V2, tq), smem);
-  if (err) return err;
-  const int grid = grid_of(B, tq, splits);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto* rt = static_cast<const float*>(rot);
-  auto* h = static_cast<const __nv_bfloat16*>(hi);
-  auto* l = static_cast<const __nv_bfloat16*>(lo);
-  auto* fv = static_cast<float*>(vals);
-  auto* ic = static_cast<int*>(cells);
-  auto* bv = static_cast<__nv_bfloat16*>(v);
-  if (grid > 0) {
-    if (tq == 4)
-      coarse_vbase_v2_kernel<4><<<grid, NT, smem, st>>>(a, rt, h, l,
-                                                        apply_rot, fv, ic,
-                                                        bv);
-    else
-      coarse_vbase_v2_kernel<1><<<grid, NT, smem, st>>>(a, rt, h, l,
-                                                        apply_rot, fv, ic,
-                                                        bv);
-  }
-  return ivf_launch_status();
+  void* rest[] = {&rot, &hi, &lo, &apply_rot, &vals, &cells, &v};
+  return launch(VBASE_V2, q, cents, cn, B, d, kc, w, tq, splits, part,
+                tickets, rest, 7, stream);
 }
 
 extern "C" int coarse_topw(const void* q, const void* cents, const void* cn,
                            int B, int d, int kc, int w, int tq, int splits,
                            void* part, void* tickets, void* vals,
                            void* cells, void* stream) {
-  SelArgs a;
-  size_t smem;
-  int err = sel_args(q, cents, cn, B, d, kc, w, tq, splits, part, tickets,
-                     false, &a, &smem);
-  if (err) return err;
-  err = ivf_set_smem(kernel_of(TOPW, tq), smem);
-  if (err) return err;
-  const int grid = grid_of(B, tq, splits);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto* fv = static_cast<float*>(vals);
-  auto* ic = static_cast<int*>(cells);
-  if (grid > 0) {
-    if (tq == 4)
-      coarse_topw_kernel<4><<<grid, NT, smem, st>>>(a, fv, ic);
-    else
-      coarse_topw_kernel<1><<<grid, NT, smem, st>>>(a, fv, ic);
-  }
-  return ivf_launch_status();
+  void* rest[] = {&vals, &cells};
+  return launch(TOPW, q, cents, cn, B, d, kc, w, tq, splits, part, tickets,
+                rest, 2, stream);
 }

@@ -40,32 +40,97 @@ TOPW_KERNEL = _build.Kernel("coarse_scan", "coarse_topw",
                             [_P] * 3 + [_I] * 6 + [_P] * 5)
 _FIT = _build.HostFn("coarse_scan", "coarse_fit", [_I, _I, _I, _I, _P])
 _KINDS = {"topw": 0, "vbase": 1, "vbase_v2": 2}
+TQS = (4, 1)        # register tiles: tq x 8 sums a thread, 16 * tq queries
+
+# The plan's cost model, in query rows x features at the 64-query tile's
+# FMA rate. Its four constants picked the fastest plan (within 0.4 %) at
+# each of 17 shapes of an H100 sweep over every (tq, S) (PERF.md), where the
+# rule before it (the most splits whose blocks all fit the resident slots
+# at once) lost 24-66 % at three of them, GIST's among them. RATE: each
+# tile's FMA rate. Beside its d features, each 128-centroid tile costs
+# TILE_COST (the scores' offer to the lists); a split SPLIT_COST (its
+# lists published, the ticket, the last block's merge). LONE: the rate of
+# a SM that runs fewer blocks than it holds (`coarse_fit`'s blocks a SM).
+RATE = {4: 1.0, 1: 0.55}
+TILE_COST = 64
+SPLIT_COST = 625
+LONE = 0.6
 
 
-def split_plan(B: int, kc: int, bq: int, bc: int, slots: int):
+def plan_cost(B: int, bq: int, sms: int, d: int, tq: int, splits: int,
+              tps: int, per_sm: int = 2) -> float:
+    """The model's time of a plan: the rounds of blocks each of `sms` SMs
+    runs (ceil(blocks / sms): a last round that fills few SMs costs a
+    whole one) times a block's work, bq rows by its tps tiles of
+    d + TILE_COST features and the split's cost, at the tile's RATE, and
+    LONE of it where a SM runs fewer blocks than `per_sm`."""
+    blocks = -(-B // bq) * splits
+    n = max(1, -(-blocks // sms))
+    work = tps * (d + TILE_COST) + (SPLIT_COST if splits > 1 else 0)
+    return n * bq * work / RATE[tq] / (LONE if n < per_sm else 1.0)
+
+
+def split_plan(B: int, kc: int, bq: int, bc: int, sms: int, d: int = 128,
+               tq: int = 4, per_sm: int = 2):
     """(S, tiles per split): the kernels' grid is ceil(B / bq) query tiles
-    times S splits of the ceil(kc / bc) centroid tiles. S is the largest
-    count whose blocks all fit the card's `slots` resident blocks at once
-    (one wave; a partial second wave would idle most SMs), at least 1 and
-    at most one tile a split; tiles are then spread evenly, so no split is
-    empty."""
+    times S splits of the ceil(kc / bc) centroid tiles, S from 1 to one
+    tile a split, tiles spread evenly so no split is empty; the least
+    `plan_cost` wins, fewer splits on a tie."""
     tiles = -(-kc // bc)
-    qtiles = -(-B // bq)
-    if qtiles == 0:
-        return 1, tiles
-    s = min(tiles, max(1, slots // qtiles))
-    tps = -(-tiles // s)
-    return -(-tiles // tps), tps
+    best = None
+    for s in range(1, tiles + 1):
+        tps = -(-tiles // s)            # as the kernel spreads the tiles
+        if -(-tiles // tps) != s:       # an empty split: the same as fewer
+            continue
+        cost = plan_cost(B, bq, sms, d, tq, s, tps, per_sm)
+        if best is None or cost < best[2]:
+            best = (s, tps, cost)
+    return best[:2]
+
+
+def choose(B: int, d: int, kc: int, w: int, sms: int, fits: dict) -> dict:
+    """The launch plan from what the card reports: `fits` maps each query
+    tile tq in TQS whose block fits (for this d, w and kernel kind) to its
+    `coarse_fit` dict (bq, bc, smem_bytes, blocks_per_sm, ...). Each tile
+    takes its `split_plan` on `sms` SMs and the cheapest plan wins, the
+    wider tile on a tie: 64-query tiles where the batch gives them work
+    enough to fill the card, 16-query tiles below that (on an H100 up to
+    about 4096 queries at d = 128 and 1024 at d = 960: a smaller batch
+    spreads over more blocks and wastes fewer rows). `narrow`: the plan
+    runs 16-query tiles."""
+    plans = []
+    for tq in TQS:
+        fit = fits.get(tq)
+        if fit is None:
+            continue
+        bq, bc, per_sm = fit["bq"], fit["bc"], fit["blocks_per_sm"]
+        s, tps = split_plan(B, kc, bq, bc, sms, d, tq, per_sm)
+        cost = plan_cost(B, bq, sms, d, tq, s, tps, per_sm)
+        plans.append((cost, -tq, dict(fit, tq=tq, splits=s,
+                                      tiles_per_split=tps,
+                                      grid=-(-B // bq) * s, sms=sms,
+                                      narrow=tq == 1)))
+    if not plans:
+        raise ValueError(f"the coarse kernels take no d={d}, w={w} here: "
+                         f"their shared memory would exceed the card's")
+    return min(plans, key=lambda p: p[:2])[2]
 
 
 @functools.lru_cache(maxsize=None)
 def _fit(d: int, w: int, kind: int, tq: int, device_index: int):
-    """(bq, bc, shared bytes, resident blocks per SM) of query tiles of
-    16 * tq rows for (d, w), or None where they do not fit."""
-    out = (ctypes.c_int * 4)()
+    """The fit of query tiles of 16 * tq rows for (d, w) and a kernel kind
+    (`coarse_fit`): bq, bc, shared bytes, resident blocks per SM,
+    registers and spilled bytes a thread, `resident` (the query tile held
+    whole in shared memory, else streamed in slabs); None where they do not
+    fit."""
+    out = (ctypes.c_int * 7)()
     with torch.cuda.device(device_index):
         _FIT(d, w, kind, tq, ctypes.addressof(out))
-    return tuple(out) if out[3] > 0 else None
+    if out[3] == 0:
+        return None
+    return dict(bq=out[0], bc=out[1], smem_bytes=out[2],
+                blocks_per_sm=out[3], registers=out[4], local_bytes=out[5],
+                resident=bool(out[6]))
 
 
 @functools.lru_cache(maxsize=None)
@@ -76,33 +141,23 @@ def _sms(device_index: int) -> int:
 
 def plan(B: int, d: int, kc: int, w: int, kind: str, device) -> dict:
     """The launch plan of a coarse kernel (`kind` "topw", "vbase" or
-    "vbase_v2") on a CUDA device: query tiles of bq = 64 rows (tq = 4 a
-    thread) where their grid fills every SM once, else of 16 (tq = 1: a
-    small batch wastes fewer rows and spreads over more blocks); bc
-    centroids a tile; the split of the table over the card's resident
-    blocks (`split_plan`); the kernel's shared memory and blocks per SM;
-    `narrow`: 16-query tiles because the 64-query tile's shared memory
-    does not fit (its staged queries alone pass the block's from d = 960
-    on), whatever the batch."""
+    "vbase_v2") on a CUDA device: `choose` over the query tiles that fit
+    (d, w) on this card, at its SM count. Fields: tq, bq (16 * tq query
+    rows a block), bc (centroids a tile), splits and tiles_per_split of the
+    table, grid, smem_bytes, blocks_per_sm, registers, local_bytes,
+    `resident` (the query tile held whole), sms, `narrow` (16-query
+    tiles)."""
     device = torch.device(device)
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
-    sms = _sms(index)
-    plans = []
-    for tq in (4, 1):
-        fit = _fit(d, w, _KINDS[kind], tq, index)
-        if fit is None:
-            continue
-        bq, bc, smem, per_sm = fit
-        splits, tps = split_plan(B, kc, bq, bc, sms * per_sm)
-        plans.append(dict(tq=tq, bq=bq, bc=bc, splits=splits,
-                          tiles_per_split=tps, grid=-(-B // bq) * splits,
-                          smem_bytes=smem, blocks_per_sm=per_sm, sms=sms))
-    if not plans:
-        raise ValueError(f"the coarse kernels take no d={d}, w={w}: their "
-                         f"shared memory would exceed the card's")
-    chosen = plans[0] if plans[0]["grid"] >= sms else plans[-1]
-    return dict(chosen, narrow=plans[0]["tq"] == 1)
+    return dict(_plan(B, d, kc, w, kind, index))
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(B: int, d: int, kc: int, w: int, kind: str, index: int) -> dict:
+    fits = {tq: _fit(d, w, _KINDS[kind], tq, index) for tq in TQS}
+    return choose(B, d, kc, w, _sms(index),
+                  {tq: f for tq, f in fits.items() if f is not None})
 
 
 def _launch_args(B: int, d: int, kc: int, w: int, kind: str, dev):

@@ -2,18 +2,23 @@
 bit and in time, on one card.
 
     git show <commit>:ivfadc_tpu_torch/csrc/coarse_scan.cu > _archive/old.cu
-    python -m ivfadc_tpu_torch.utils.coarse_ab --old-src _archive/old.cu
+    python -m ivfadc_tpu_torch.utils.coarse_ab --old-src _archive/old.cu \
+        [--shapes vbase_gist,...]
 
 The earlier source is compiled by nvcc into a temporary directory (beside
-this tree's `csrc/common.cuh`) and bound with the earlier C signatures,
-which take no launch plan. At each shape the three kernels (top-w, v/base,
-v2) run on the same inputs through both builds: random-float queries near
-random centroids from a seed, and integer-valued ones (entries in -2..2,
-so most scores tie exactly). Prints one JSON line: the card's name and
-power limit, and per shape whether every output (vals, cells, v, rn) is
-bit-equal, the median milliseconds of each build's call (CUDA events,
-wrapper included), taken in turns (old, new, new, old) in this one
-process, and each build's kernel device time per call (torch.profiler).
+this tree's `csrc/common.cuh`) and bound with the C signatures that take
+a launch plan (query tile tq, table splits, the splits' lists and
+tickets), those of this tree and of every source since the plan was added.
+The earlier build runs the plan of the rule those sources had, from their
+4-int `coarse_fit` (tq = 4 where the 64-query grid fills every SM, else 1;
+the most splits whose blocks all fit the resident slots at once). At each
+shape the kernel (top-w, v/base or v2) runs on the same inputs through both builds: random-float queries near random centroids
+from a seed, and integer-valued ones (entries in -2..2, so most scores tie
+exactly). Prints one JSON line: the card's name and power limit, and per
+shape whether every output (vals, cells, v, rn) is bit-equal, the median
+milliseconds of each build's call (CUDA events, wrapper included), taken
+in turns (old, new, new, old) in this one process, each build's kernel
+device time per call (torch.profiler), the old plan and this tree's.
 """
 
 from __future__ import annotations
@@ -31,19 +36,23 @@ import torch
 from ivfadc_tpu_torch import _build
 from ivfadc_tpu_torch.ops import coarse_scan as cs
 
-# (name, kernel, B, kc, d, w, rotation): the shapes chip_smoke.py times
+# (name, kernel, B, kc, d, w, rotation): the shapes chip_smoke.py times,
+# then the benchmark cells' (gist1m.batch, sift1m.batch, sift1m.batch64k)
 SHAPES = [("topw_b256", "topw", 256, 1024, 128, 8, False),
           ("vbase_b16384", "vbase", 16384, 1024, 128, 8, False),
           ("vbase_b16384_rot", "vbase", 16384, 1024, 128, 8, True),
           ("v2_b16384", "vbase_v2", 16384, 1024, 128, 8, False),
           ("v2_b16384_rot", "vbase_v2", 16384, 1024, 128, 8, True),
           ("topw_large_kc", "topw", 4096, 1 << 18, 96, 32, False),
-          ("vbase_large_kc", "vbase", 4096, 1 << 18, 96, 32, False)]
+          ("vbase_large_kc", "vbase", 4096, 1 << 18, 96, 32, False),
+          ("vbase_gist", "vbase", 10240, 1024, 960, 8, False),
+          ("vbase_sift", "vbase", 10240, 1024, 128, 8, False),
+          ("vbase_b65536", "vbase", 65536, 1024, 128, 8, False)]
 
 P, I = ctypes.c_void_p, ctypes.c_int
-OLD_ARGS = {"vbase": [P] * 4 + [I] * 5 + [P] * 5,      # the stream last
-            "vbase_v2": [P] * 6 + [I] * 5 + [P] * 4,
-            "topw": [P] * 3 + [I] * 4 + [P] * 3}
+OLD_ARGS = {"vbase": [P] * 4 + [I] * 7 + [P] * 7,      # the stream last
+            "vbase_v2": [P] * 6 + [I] * 7 + [P] * 6,
+            "topw": [P] * 3 + [I] * 6 + [P] * 5}
 OLD_FN = {"vbase": "coarse_vbase", "vbase_v2": "coarse_vbase_v2",
           "topw": "coarse_topw"}
 
@@ -55,6 +64,30 @@ def build_old(src: str, out_dir: str, name: str = "coarse_old") -> str:
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC,
                     "-o", lib, src], check=True)
     return lib
+
+
+def old_plan(lib, B, d, kc, w, kind):
+    """(tq, splits) of an earlier source by its own rule:
+    64-query tiles where their grid fills every SM, else 16; the most
+    splits whose blocks all fit the card's resident slots at once."""
+    fit = lib.coarse_fit
+    fit.argtypes = [I, I, I, I, P]
+    fit.restype = I
+    sms = cs._sms(torch.cuda.current_device())
+    plans = []
+    for tq in (4, 1):
+        out = (ctypes.c_int * 4)()
+        if fit(d, w, cs._KINDS[kind], tq, ctypes.addressof(out)):
+            raise RuntimeError("old coarse_fit failed")
+        bq, bc, _, per_sm = out
+        if per_sm == 0:
+            continue
+        tiles, qtiles = -(-kc // bc), -(-B // bq)
+        s = min(tiles, max(1, sms * per_sm // max(qtiles, 1)))
+        s = -(-tiles // -(-tiles // s))
+        plans.append((tq, s, qtiles * s))
+    tq, s, _ = plans[0] if plans[0][2] >= sms else plans[-1]
+    return tq, s
 
 
 def inputs(B, kc, d, rotation, integer, seed):
@@ -72,13 +105,20 @@ def inputs(B, kc, d, rotation, integer, seed):
 
 
 def runners(lib, kind, q, c, cn, rot, w, rotation):
-    """(old, new): each a no-argument call returning the kernel's outputs."""
+    """(old, new, old plan): each runner a no-argument call returning the
+    kernel's outputs."""
     B, d = q.shape
     kc = c.shape[0]
     fn = getattr(lib, OLD_FN[kind])
     fn.argtypes = OLD_ARGS[kind]
     fn.restype = ctypes.c_int
     hi, lo = cs.hi_lo_split(c, rot, rotation)
+    tq, splits = old_plan(lib, B, d, kc, w, kind)
+    part = torch.empty((B, splits, w, 2), dtype=torch.int32,
+                       device="cuda") if splits > 1 else None
+    tickets = torch.zeros(-(-B // (16 * tq)), dtype=torch.int32,
+                          device="cuda") if splits > 1 else None
+    plan = [tq, splits, cs._ptr(part), cs._ptr(tickets)]
 
     def outs():
         o = [torch.empty((B, w), device="cuda"),
@@ -92,19 +132,21 @@ def runners(lib, kind, q, c, cn, rot, w, rotation):
 
     def old():
         o = outs()
+        if tickets is not None:
+            tickets.zero_()
         stream = _build.stream_ptr(q.device)
         ptrs = [t.data_ptr() for t in o]
         if kind == "topw":
             err = fn(q.data_ptr(), c.data_ptr(), cn.data_ptr(), B, d, kc, w,
-                     *ptrs, stream)
+                     *plan, *ptrs, stream)
         elif kind == "vbase":
             err = fn(q.data_ptr(), c.data_ptr(), cn.data_ptr(),
-                     rot.data_ptr(), B, d, kc, w, int(rotation), *ptrs,
-                     stream)
+                     rot.data_ptr(), B, d, kc, w, int(rotation), *plan,
+                     *ptrs, stream)
         else:
             err = fn(q.data_ptr(), c.data_ptr(), cn.data_ptr(),
                      rot.data_ptr(), hi.data_ptr(), lo.data_ptr(), B, d, kc,
-                     w, int(rotation), *ptrs, stream)
+                     w, int(rotation), *plan, *ptrs, stream)
         if err:
             raise RuntimeError(f"old {OLD_FN[kind]} failed: error {err}")
         return o
@@ -125,7 +167,7 @@ def runners(lib, kind, q, c, cn, rot, w, rotation):
             return list(cs.coarse_vbase(q, c, cn, rot, w, rotation))
         return list(cs.coarse_vbase_v2(q, c, cn, rot, hi, lo, w, rotation))
 
-    return old, new
+    return old, new, plan[:2]
 
 
 def cuda_ms(fn, reps: int) -> list:
@@ -186,7 +228,8 @@ def main() -> None:
             for integer in (True, False):      # time on the random floats
                 q, c, cn, rot = inputs(B, kc, d, rotation, integer,
                                        seed=B + kc + d)
-                old, new = runners(lib, kind, q, c, cn, rot, w, rotation)
+                old, new, oplan = runners(lib, kind, q, c, cn, rot, w,
+                                          rotation)
                 a, b = old(), new()
                 row["integer_equal" if integer else "equal"] = all(
                     torch.equal(x, y) for x, y in zip(a, b))
@@ -200,7 +243,7 @@ def main() -> None:
                        new_ms=statistics.median(t_new),
                        old_kernel_ms=kernel_ms(old),
                        new_kernel_ms=kernel_ms(new), B=B, kc=kc, d=d,
-                       w=w, rotation=rotation,
+                       w=w, rotation=rotation, old_plan=oplan,
                        plan=cs.plan(B, d, kc, w, kind, q.device))
             res[name] = row
             del q, c, cn, rot

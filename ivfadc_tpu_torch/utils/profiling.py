@@ -305,9 +305,9 @@ def counting():
                       and qc scans sum_c ceil(n_c / h) * size_c rows
       probe_narrow_launches
                       coarse-kernel launches (kernels 1, 7, 10) that ran
-                      16-query tiles because the 64-query tile's shared
-                      memory does not fit the card (d = 960 and up), not
-                      because the batch is small (coarse_scan.plan)
+                      16-query tiles (coarse_scan.plan's `narrow`), for
+                      whatever reason: the wider tiles fit every d, so
+                      only a batch too small to fill them leads there
       scan_single_tile_launches
                       grouped-scan launches (kernel 3 and its variants,
                       the qc kernel) planned with one staged bf16 tile

@@ -1934,15 +1934,19 @@ def test_search_stream_leaves_no_page_locked_memory(dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [16, 10240])
 def test_coarse_probe_kernel_at_gist_width(dev, B):
-    """Kernel 1 at d = 960, kc = 1024, w = 8: the 64-query tile's staged
-    queries pass the block's shared memory, so the plan takes 16-query
-    tiles whatever the batch (`narrow`), and on integer-tie tables the
-    cells, v and base equal the plain version bit for bit; `counting()`
-    reads one narrow launch."""
+    """Kernel 1 at d = 960, kc = 1024, w = 8: a 64-query tile streams in
+    feature slabs beside the centroids (whole, it would pass the block's
+    shared memory), so the plan takes wide tiles for a batch that fills
+    them (at least 64 queries at B = 10,240) and 16-query tiles for a small
+    one (`narrow`). On integer-tie tables the cells, v and base equal the
+    plain version bit for bit; `counting()` reads one narrow launch at
+    B = 16, none at 10,240."""
     from ivfadc_tpu_torch.utils import profiling
     d, kc, w = 960, 1024, 8
     p = coarse_scan.plan(B, d, kc, w, "vbase", dev)
-    assert p["tq"] == 1 and p["bq"] == 16 and p["narrow"]
+    narrow = B == 16
+    assert p["narrow"] == narrow and (p["bq"] == 16) == narrow
+    assert narrow or p["bq"] >= 64
     rng = np.random.RandomState(B)
     q, c = (t.to(dev) for t in _tie_table(rng, B, kc, d, dev, w))
     cn = torch.sum(c * c, dim=1)
@@ -1951,9 +1955,104 @@ def test_coarse_probe_kernel_at_gist_width(dev, B):
     with profiling.counting() as counts:
         got = coarse_scan.coarse_vbase(q, c, cn, eye, w, False)
     assert coarse_scan.KERNEL.launches == n0 + 1
-    assert counts["probe_narrow_launches"] == 1
+    assert counts["probe_narrow_launches"] == int(narrow)
     want = coarse_scan.coarse_vbase_plain(q, c, cn, eye, w, False)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _forced(kind, q, c, cn, w, tq, splits):
+    """One coarse kernel launch at a given query tile (16 * tq rows) and
+    split of the table, past the plan: (vals, cells[, v[, rn]])."""
+    B, d = q.shape
+    kc = c.shape[0]
+    eye = torch.eye(d, device=q.device)
+    hi, lo = coarse_scan.hi_lo_split(c, eye, False)
+    part = torch.empty((B, splits, w, 2), dtype=torch.int32,
+                       device=q.device) if splits > 1 else None
+    tickets = torch.zeros(-(-B // (16 * tq)), dtype=torch.int32,
+                          device=q.device) if splits > 1 else None
+    plan = (tq, splits, coarse_scan._ptr(part), coarse_scan._ptr(tickets))
+    outs = [torch.empty((B, w), device=q.device),
+            torch.empty((B, w), dtype=torch.int32, device=q.device)]
+    if kind != "topw":
+        outs.append(torch.empty((B, w, d), dtype=torch.bfloat16,
+                                device=q.device))
+    if kind == "vbase":
+        outs.append(torch.empty((B, w), device=q.device))
+    ptrs = [t.data_ptr() for t in outs]
+    stream = coarse_scan._build.stream_ptr(q.device)
+    if kind == "topw":
+        coarse_scan.TOPW_KERNEL(q.data_ptr(), c.data_ptr(), cn.data_ptr(), B,
+                                d, kc, w, *plan, *ptrs, stream)
+    elif kind == "vbase":
+        coarse_scan.KERNEL(q.data_ptr(), c.data_ptr(), cn.data_ptr(),
+                           eye.data_ptr(), B, d, kc, w, 0, *plan, *ptrs,
+                           stream)
+    else:
+        coarse_scan.V2_KERNEL(q.data_ptr(), c.data_ptr(), cn.data_ptr(),
+                              eye.data_ptr(), hi.data_ptr(), lo.data_ptr(),
+                              B, d, kc, w, 0, *plan, *ptrs, stream)
+    return outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("d,kc", [(960, 1024), (97, 1024), (961, 1000),
+                                  (128, 1000)])
+def test_coarse_query_tiles_agree_bit_for_bit(dev, d, kc, integer):
+    """Kernels 7, 1 and 10 on 16- and 64-query tiles, on one split, three
+    and one tile a split, give the same bits: the sums run in feature
+    order whatever the tile and wherever the query tile lives (streamed for
+    64 queries at d = 960 and 961, held whole otherwise), and the selection
+    ranks by (score, index). At d = 960, at ragged d (97 and 961: the
+    4-byte copies, a partial last slab) and at a kc that is not a multiple
+    of 128 (a ragged last tile), on random floats and on `_tie_table`'s
+    integer ties, which also equal the plain versions."""
+    B, w = 333, 8
+    rng = np.random.RandomState(d + kc)
+    if integer:
+        q, c = (t.to(dev) for t in _tie_table(rng, B, kc, d, dev, w))
+    else:
+        q = torch.from_numpy(rng.randn(B, d).astype(np.float32)).to(dev)
+        c = torch.from_numpy(rng.randn(kc, d).astype(np.float32)).to(dev)
+    cn = torch.sum(c * c, dim=1)
+    tiles = -(-kc // 128)
+    for kind in ("topw", "vbase", "vbase_v2"):
+        want = _forced(kind, q, c, cn, w, 1, 1)
+        for tq in (1, 4):
+            for splits in (1, 3, tiles):
+                got = _forced(kind, q, c, cn, w, tq, splits)
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+                    (kind, tq, splits)
+        if integer and kind == "vbase":
+            eye = torch.eye(d, device=dev)
+            plain = coarse_scan.coarse_vbase_plain(q, c, cn, eye, w, False)
+            assert all(torch.equal(a, b) for a, b in zip(want, plain))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [97, 961])
+def test_coarse_inf_query_leaves_its_neighbours_alone(dev, d):
+    """A query holding inf makes only its own scores non-finite: at a
+    ragged d the last slab of a query row held whole reads the zeros that
+    pad it to a whole slab, never the next row's features (inf * 0 would
+    be NaN there). On integer ties every other row's vals, cells, v and
+    rn equal the plain version's bit for bit, on 16- and 64-query tiles
+    and on one and three splits."""
+    B, kc, w = 70, 1000, 8
+    rng = np.random.RandomState(d)
+    q, c = (t.to(dev) for t in _tie_table(rng, B, kc, d, dev, w))
+    bad = 6                     # row 5 ends where row 6 starts
+    q[bad, :] = float("inf")
+    cn = torch.sum(c * c, dim=1)
+    keep = torch.arange(B, device=dev) != bad
+    eye = torch.eye(d, device=dev)
+    plain = coarse_scan.coarse_vbase_plain(q[keep], c, cn, eye, w, False)
+    for tq in (1, 4):
+        for splits in (1, 3):
+            got = _forced("vbase", q, c, cn, w, tq, splits)
+            assert all(torch.equal(a[keep], b) for a, b in zip(got, plain)), \
+                (tq, splits)
 
 
 @pytest.mark.cuda
@@ -2002,8 +2101,9 @@ def test_gist_shape_search_on_the_card_equals_the_cpu_route(dev, tmp_path):
     built on the CPU and loaded onto the card, answers a 64-query batch
     (w = 4: the grouped route) as the CPU dense route does: ids equal but
     at near-ties, distances within f32 sums in another order. Each call
-    runs one narrow probe and one single-tile scan, on the eager path and
-    on replay, and the counts equal between the two."""
+    runs one narrow probe (64 queries fill no wider tile) and one
+    single-tile scan, on the eager path and on replay, and the counts equal
+    between the two."""
     from ivfadc_tpu_torch import IVFADCIndex
     from ivfadc_tpu_torch.utils import profiling
     rng = np.random.RandomState(0)
@@ -2036,6 +2136,8 @@ def test_gist_shape_search_on_the_card_equals_the_cpu_route(dev, tmp_path):
     np.testing.assert_array_equal(again[0], got[0])
     np.testing.assert_array_equal(again[1], got[1])
     assert replayed["graph_captures"] == 1 and replayed["graph_replays"] == 1
+    # 64 queries fill no wide tile: the plan keeps 16-query tiles
+    assert coarse_scan.plan(64, 960, 16, 4, "vbase", dev)["narrow"]
     assert eager["probe_narrow_launches"] == 3
     assert eager["scan_single_tile_launches"] == 3
     for name in profiling.COUNTS:

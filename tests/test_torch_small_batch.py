@@ -257,19 +257,65 @@ def test_coarse_probes_break_integer_ties_as_jax(B, d, kc, w):
 @pytest.mark.parametrize("B,kc,splits,tps", [
     (1, 1024, 8, 1),              # one query tile: a split per tile
     (256, 1024, 8, 1),            # 4 query tiles x 8 splits
-    (4096, 1 << 18, 4, 512),      # 64 query tiles x 4: one wave
+    (4096, 1 << 18, 4, 512),      # 64 query tiles x 4: two blocks a SM
     (16384, 1024, 1, 8),          # 256 query tiles fill the card alone
     (1, 1 << 18, 256, 8),         # tiles spread evenly over the splits
-    (100000, 1024, 1, 8),         # more query tiles than resident blocks
-    (0, 1024, 1, 8),
+    (100000, 1024, 1, 8),         # more query tiles than SMs
+    (0, 1024, 8, 1),              # no query tile: no block either way
 ])
 def test_coarse_split_plan_fills_one_wave(B, kc, splits, tps):
-    # 132 SMs x 2 resident blocks, query tiles of 64, centroid tiles of 128
-    slots, bq, bc = 264, 64, 128
-    assert t_coarse.split_plan(B, kc, bq, bc, slots) == (splits, tps)
+    # 132 SMs holding 2 blocks each, query tiles of 64, centroid tiles of
+    # 128, d = 128: the cost model's cheapest split, with no empty split,
+    # fills at most one wave of the card's 264 resident blocks (one split
+    # where the query tiles alone pass them)
+    sms, bq, bc = 132, 64, 128
+    assert t_coarse.split_plan(B, kc, bq, bc, sms) == (splits, tps)
     tiles, qtiles = -(-kc // bc), -(-B // bq)
     assert (splits - 1) * tps < tiles <= splits * tps   # no empty split
-    assert qtiles * splits <= max(slots, qtiles)        # one wave
+    assert qtiles * splits <= max(2 * sms, qtiles)      # one wave
+
+
+# What `coarse_fit` reported on an H100 (132 SMs) for the v/base kernel at
+# w = 8: (shared bytes, resident blocks a SM) of each query tile tq
+FITS_D128 = {1: (51652, 2), 4: (96004, 2)}
+FITS_D960 = {1: (104900, 2), 4: (80644, 2)}
+H100_FITS = {d: {tq: dict(bq=16 * tq, bc=128, smem_bytes=smem,
+                          blocks_per_sm=per_sm)
+                 for tq, (smem, per_sm) in fits.items()}
+             for d, fits in {128: FITS_D128, 960: FITS_D960}.items()}
+
+
+@pytest.mark.parametrize("B,d,tq,splits", [
+    (10240, 960, 4, 4),           # gist1m.batch: 640 blocks, 4 or 5 a SM
+    (10240, 128, 4, 1),           # sift1m.batch
+    (65536, 128, 4, 1),           # sift1m.batch64k
+    (4096, 128, 1, 1), (2048, 960, 4, 8), (1024, 960, 1, 4),
+    (16, 960, 1, 8), (256, 960, 1, 8), (256, 128, 1, 8), (1, 128, 1, 8),
+])
+def test_coarse_tile_choice_at_the_cells_shapes(B, d, tq, splits):
+    """`choose` at the benchmark cells' shapes and beside them (kc = 1024,
+    w = 8) on the fits an H100 reported picks the plan that ran fastest of
+    every (tq, S) in an H100 sweep of this kernel (PERF.md; B = 1 as
+    B = 16). The cells' batches take query tiles of at least 64 rows over
+    a grid that gives every SM a block; batches of 256 and fewer keep
+    16-query tiles (`narrow`). At d = 960 the blocks spread evenly over
+    the SMs, none more than 5 % above the mean; at d = 128 one split of
+    64-query tiles ran faster than two or four, though 28 SMs run two of
+    its 160 blocks."""
+    sms, kc = 132, 1024
+    p = t_coarse.choose(B, d, kc, 8, sms, H100_FITS[d])
+    assert (p["tq"], p["splits"]) == (tq, splits)
+    assert p["narrow"] == (tq == 1) and p["bq"] == 16 * tq
+    assert p["grid"] == -(-B // p["bq"]) * p["splits"]
+    tiles = -(-kc // p["bc"])
+    assert (p["splits"] - 1) * p["tiles_per_split"] < tiles \
+        <= p["splits"] * p["tiles_per_split"]
+    if B >= 10240:
+        assert p["bq"] >= 64 and p["grid"] >= sms
+    if B <= 256:
+        assert p["narrow"]
+    if d == 960 and not p["narrow"]:
+        assert -(-p["grid"] // sms) * sms <= 1.05 * p["grid"]
 
 
 def test_coarse_topw_equals_fused_probe_cells():
