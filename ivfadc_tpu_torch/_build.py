@@ -24,8 +24,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
-import time
-from typing import Dict, List, Optional
+from typing import Dict, List
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -36,7 +35,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-build_seconds: Optional[float] = None    # wall time of this process's build
 
 
 def _sources() -> List[str]:
@@ -70,11 +68,9 @@ def _nvcc() -> str:
 def build_dir() -> str:
     """Directory holding the compiled libraries, building them if needed.
     All `.cu` files compile concurrently, one nvcc process each."""
-    global build_seconds
     out = os.path.join(BUILD_ROOT, _source_hash())
     if os.path.isdir(out):
         return out
-    t0 = time.perf_counter()
     os.makedirs(BUILD_ROOT, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="tmp-", dir=BUILD_ROOT)
     nvcc = _nvcc()
@@ -112,7 +108,6 @@ def build_dir() -> str:
                 proc.wait()
             log.close()
         shutil.rmtree(tmp, ignore_errors=True)
-    build_seconds = time.perf_counter() - t0
     return out
 
 

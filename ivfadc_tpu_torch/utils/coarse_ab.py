@@ -36,8 +36,10 @@ import torch
 from ivfadc_tpu_torch import _build
 from ivfadc_tpu_torch.ops import coarse_scan as cs
 
-# (name, kernel, B, kc, d, w, rotation): the shapes chip_smoke.py times,
-# then the benchmark cells' (gist1m.batch, sift1m.batch, sift1m.batch64k)
+# (name, kernel, B, kc, d, w, rotation): the SIFT1M shape's small batch
+# (B = 256) and grouped batch (B = 16384), the Deep1B-shard shape's naive
+# probe over kc = 2^18 (B = 4096, d = 96, w = 32), then the benchmark
+# cells' (gist1m.batch, sift1m.batch, sift1m.batch64k)
 SHAPES = [("topw_b256", "topw", 256, 1024, 128, 8, False),
           ("vbase_b16384", "vbase", 16384, 1024, 128, 8, False),
           ("vbase_b16384_rot", "vbase", 16384, 1024, 128, 8, True),

@@ -15,8 +15,8 @@ choice flipped, to measure it). Both builds run the four entry points
 (fold / exact merge x int8 / bf16 cache) on the same inputs at three
 shapes:
 
-  b256     chip_smoke.py's B=256, w=8 probes (2,048) on its SIFT1M-shape
-           index (n = 1M, d = 128, kc = 1024; cells of ~1000 rows)
+  b256     B=256, w=8 probes (2,048) on a SIFT1M-shape index (n = 1M,
+           d = 128, kc = 1024; cells of ~1000 rows)
   posting  the large-kc posting shape: 131,072 probes (4,096 queries x
            w = 32) over 2^18 8-row-aligned cells of 1-55 rows, v at
            d = 96 over a 128-wide cache

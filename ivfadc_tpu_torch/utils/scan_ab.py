@@ -7,12 +7,12 @@ in results and in time, on one card.
 The earlier source is compiled by nvcc into a temporary directory (beside
 this tree's `csrc/common.cuh`) and bound under the same C entry points,
 which the wrappers then call in place of this tree's build, so both builds
-see the same inputs through the same wrapper. Inputs: the SIFT1M-shape
-index of `chip_smoke.py` (n = 1M, d = 128, kc = 1024, int8 and bf16
-caches) and its tiles at B = 16384, w = 8 (kernel 3, 8a-8e) and B = 8192
-(kernel 9, the qc route), real and integer-valued (every f32 sum exact, so
-both builds must agree bit for bit), and one synthetic large-kc batch of
-pos8 tiles (kc = 2^18 cells of ~8 rows, 2^20 probes: 8b's shape). Prints
+see the same inputs through the same wrapper. Inputs: a SIFT1M-shape
+index (n = 1M, d = 128, kc = 1024, int8 and bf16 caches) and its tiles at
+B = 16384, w = 8 (kernel 3, 8a-8e) and B = 8192 (kernel 9, the qc route),
+real and integer-valued (every f32 sum exact, so both builds must agree
+bit for bit), and one synthetic large-kc batch of pos8 tiles (kc = 2^18
+cells of ~8 rows, 2^20 probes: 8b's shape). Prints
 one JSON line: the card's name and power limit; the count of tensor-core
 (HMMA / HGMMA) and CUDA-core FMA (FFMA) instructions in each build's SASS;
 and per shape the max abs difference of the finite scores, the share of
@@ -46,7 +46,7 @@ N, D, KC, M, KQ, W = 1_000_000, 128, 1024, 8, 256, 8
 BATCH, BATCH_QC, TOPK = 16384, 8192, 10
 KC_BIG, P_BIG, LIVE_BIG = 1 << 18, 1 << 20, 107_600
 
-# name -> (variant, cache, tiles): the records chip_smoke.py keeps
+# name -> (variant, cache, tiles): kernel 3 and its variants, 9 and 8b
 SHAPES = {"k3": ("ids", "int8", "b16384"),
           "8a": ("knorm", "int8", "b16384"),
           "8b": ("pos8", "int8", "b16384"),
@@ -102,8 +102,8 @@ def build(old: dict | None):
 
 
 def sift_inputs():
-    """chip_smoke.py's SIFT1M-shape index and its tiles: (views, B=16384
-    placement args, B=8192 qc args per cache)."""
+    """The SIFT1M-shape index (seed 0) and its tiles for queries near its
+    points: (views, B=16384 placement args, B=8192 qc args per cache)."""
     from ivfadc_tpu_torch import IVFADCIndex
     from ivfadc_tpu_torch.utils.datasets import synthetic_clustered
     dev = torch.device("cuda")
@@ -136,10 +136,10 @@ def sift_inputs():
 
 
 def large_kc_inputs(pb: int, nf: int):
-    """A synthetic batch at 8b's shape (chip_smoke.py's B=32768 batch at
-    the Deep1B-shard shape): 2^18 cells of ~8 rows (8-row aligned), 2^20
-    probes spread over LIVE_BIG of them (that batch's count of live
-    tiles), random int8 rows."""
+    """A synthetic batch at 8b's shape (a B=32768, w=32 batch at the
+    Deep1B-shard shape, n = 2M, d = 96): 2^18 cells of ~8 rows (8-row
+    aligned), 2^20 probes spread over LIVE_BIG of them (that batch's count
+    of live tiles), random int8 rows."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(3)
     sizes = torch.randint(1, 16, (KC_BIG,), generator=g, device=dev) \

@@ -352,12 +352,15 @@ def _tie_table(rng, B, kc, d, dev, w):
     sum is exact in any order, and most scores tie), with copies of one
     centroid row on both sides of every 128-centroid tile boundary, the
     1024-centroid boundaries and the boundaries of the kernels' kc splits
-    at this batch."""
+    at this batch (the top-w kernel's and the fused probe's)."""
     q = rng.randint(-2, 3, (B, d)).astype(np.float32)
     c = rng.randint(-2, 3, (kc, d)).astype(np.float32)
     tps = coarse_scan.plan(B, d, kc, w, "topw", dev)["tiles_per_split"]
+    vb = coarse_scan.plan(B, d, kc, w, "vbase", dev)
+    span = vb["bc"] * vb["tiles_per_split"]
     for edge in list(range(128, kc, 128)) + list(range(1024, kc, 1024)) \
-            + list(range(128 * tps, kc, 128 * tps)):
+            + list(range(128 * tps, kc, 128 * tps)) \
+            + list(range(span, kc, span)):
         c[edge - 1] = c[edge] = c[0]
     c[kc - 1] = c[0]
     return torch.from_numpy(q), torch.from_numpy(c)
@@ -396,7 +399,8 @@ def test_coarse_kernels_break_ties_by_index_across_chunks(dev, kc, w):
     (1, 8, 96, 8), (1, 128, 128, 128), (7, 1000, 100, 8),
     (7, 1000, 96, 128), (256, 1024, 128, 8), (256, 1024, 128, 128),
     (256, 4097, 100, 32), (4096, 1024, 100, 1), (4096, 4097, 96, 32),
-    (7, 65536, 128, 1), (1, 65536, 96, 128), (4096, 65536, 96, 32)])
+    (7, 65536, 128, 1), (1, 65536, 96, 128), (4096, 65536, 96, 32),
+    (1024, 32768, 96, 32)])
 def test_coarse_kernels_integer_ties_bit_equal(dev, B, kc, d, w):
     # kernels 7, 1 and 10 on integer-tie tables at every batch shape the
     # split plan distinguishes (one query tile, a few, many), held to the

@@ -6,8 +6,9 @@ scan deriving v and base in its kernel) and IVFADC_MERGE_TOPK=approx, each
 at its module and through the index routes, alone and all together. The
 same numpy inputs (from a seed) go through both packages; the JAX package
 runs its Pallas kernels in interpret mode, the port its kernels' plain
-versions. The CUDA kernels are held to those plain versions on the card
-(tests/test_torch_cuda.py and chip_smoke.py).
+versions. The CUDA kernels are held to those plain versions, and each
+engine's route to the default route, on the card (tests/test_torch_cuda.py
+and tests/test_torch_cuda_routes.py).
 """
 
 import dataclasses

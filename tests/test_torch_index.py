@@ -272,16 +272,6 @@ def test_import_loads_no_jax():
     env["PYTHONPATH"] = REPO
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
                    env=env, timeout=120)
-    # the smoke script stands beside the package and imports neither
-    import ast
-    with open(os.path.join(REPO, "chip_smoke.py")) as f:
-        tree = ast.parse(f.read())
-    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
-             for a in n.names]
-    names += [n.module or "" for n in ast.walk(tree)
-              if isinstance(n, ast.ImportFrom)]
-    assert not [n for n in names
-                if n.split(".")[0] in ("jax", "jaxlib", "ivfadc_tpu")], names
 
 
 @pytest.mark.parametrize("variant", [

@@ -5,7 +5,7 @@ wrapper, which runs its Pallas kernel in interpret mode, and to the
 matching `ivfadc_tpu_torch` wrapper, which on CPU tensors runs the
 kernel's plain PyTorch version. The CUDA kernels themselves are checked
 against those plain versions on the card (tests/test_torch_cuda.py and
-chip_smoke.py).
+tests/test_torch_cuda_routes.py).
 """
 
 import numpy as np

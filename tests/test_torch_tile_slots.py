@@ -7,7 +7,7 @@ kernel, here in interpret mode, both engines), `_tile_map`, and the `row` /
 `inv_row` lines. The port fuses them into one kernel launch on the card;
 its plain version, which the CPU runs, must give the same bits. The CUDA
 kernel is held to that plain version on the card (tests/test_torch_cuda.py
-and chip_smoke.py).
+and tests/test_torch_cuda_routes.py).
 """
 
 import dataclasses
