@@ -54,12 +54,18 @@
 // +inf / -1. Walking 128-row groups instead of the TPU's DMA chunks
 // changes nothing for the fold: chunk % nf == 0, so a row's bank and block
 // index are the same either way. Rows at or past the cell size are never
-// read; cell starts need only 8-row (16-byte) alignment. Tiles of size 0
-// write +inf / -1.
+// read; cell starts need only 8-row (16-byte) alignment.
+// Output rows: slot p of tile t writes its buffer (or its extracted row) to
+// row slot_row[t * pb + p] of an (n_rows, width) output, and nothing where
+// that is n_rows or more (an empty slot). The tile prep's map (`inv_row`)
+// puts each probe's row at the probe's own index, so the output is in
+// probe order and needs no gather; the identity map keeps tile order.
+// Tiles of size 0 write +inf / -1 to their live slots' rows; tiles past the
+// last one a batch needs hold no live slot and return at once.
 //
 // Bound and design. Per tile the kernel reads its cell's rows once (int8:
-// 1 B a feature, bf16: 2) and writes pb x nf x 8 B of buffers (at huge kc,
-// where most tiles are empty or hold a few probes, those writes and the
+// 1 B a feature, bf16: 2) and writes nf x 8 B of buffers a live slot (at
+// huge kc, where most tiles hold a few probes, those writes and the
 // per-tile start bind). The products, pb x 128 x d MACs a group, are a
 // bf16 matrix product with f32 sums, as on the TPU's matrix unit; on CUDA
 // cores (67 TFLOP/s f32) they alone would take 4x the byte bound. They run
@@ -93,8 +99,9 @@
 //   is multiplied (wgmma's M is 64) but not scored (warp-uniform), and a
 //   tile without a live probe skips its products.
 // - The buffers leave through shared memory: whole output rows, 16 bytes a
-//   thread, all 512 threads (or the extraction passes, one warp a probe).
-//   Empty tiles write +inf / -1 at once.
+//   thread, all 512 threads (or the extraction passes, one warp a probe),
+//   each live slot's to its row of the slot map. An empty cell's tile
+//   writes +inf / -1 to its live slots' rows at once.
 // On an H100 (80GB HBM3, 700 W; `utils/scan_ab.py`, one process, device
 // time) kernel 3 at the SIFT1M shape's B = 16384 tiles takes 0.388 ms
 // against the CUDA-core version's 1.717 (its byte bound: 0.11 ms); the
@@ -371,9 +378,9 @@ __global__ void __launch_bounds__(NTH, 1) grouped_scan_kernel(
     const __nv_bfloat16* __restrict__ v_tiles,
     const float* __restrict__ base_tiles, const ELEM* __restrict__ decoded,
     const float* __restrict__ scale, const int* __restrict__ ids,
-    const float* __restrict__ norms, int d, int pb, int nf, int k_out,
-    float norm_coef, int ntile, float* __restrict__ out_d,
-    PT* __restrict__ out_p, QcArgs qa) {
+    const float* __restrict__ norms, const int64_t* __restrict__ slot_row,
+    int d, int pb, int nf, int k_out, int n_rows, float norm_coef, int ntile,
+    float* __restrict__ out_d, PT* __restrict__ out_p, QcArgs qa) {
   extern __shared__ __align__(128) unsigned char smraw[];
   constexpr int RAWB = raw_bytes<ELEM>();
   constexpr int ROWS = slot_rows_bytes<ELEM>();
@@ -395,16 +402,20 @@ __global__ void __launch_bounds__(NTH, 1) grouped_scan_kernel(
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t t = blockIdx.x;
   const int start = tstart[t], size = tsize[t];
+  const int64_t* tile_rows = slot_row + t * pb;   // the slots' output rows
   if (size == 0) {
-    // an empty tile (most of them at huge kc): its buffers as they start,
-    // +inf / -1, 16 bytes a thread
-    const int n16 = pb * (EXTRACT ? k_out : nf) / 4;
-    float4* od = reinterpret_cast<float4*>(out_d) + t * n16;
-    for (int i = tid; i < n16; i += NTH)
-      od[i] = make_float4(IVF_INF, IVF_INF, IVF_INF, IVF_INF);
-    int4* op = reinterpret_cast<int4*>(out_p) + t * n16 * sizeof(PT) / 4;
-    for (int i = tid; i < n16 * static_cast<int>(sizeof(PT)) / 4; i += NTH)
-      op[i] = make_int4(-1, -1, -1, -1);
+    // an empty cell's tile: its live slots' rows as the buffers start,
+    // +inf / -1; a tile without a live slot (past the last one the batch
+    // needs) writes nothing
+    if (!__syncthreads_or(tid < pb && tile_rows[tid] < n_rows)) return;
+    const int width = EXTRACT ? k_out : nf;
+    for (int i = tid; i < pb * width; i += NTH) {
+      const int p = i / width;
+      const int64_t r = tile_rows[p];
+      if (r >= n_rows) continue;
+      out_d[r * width + i - p * width] = IVF_INF;
+      out_p[r * width + i - p * width] = static_cast<PT>(-1);
+    }
     return;
   }
   const int mt = m_tiles(pb), mrows = 16 * mt;
@@ -484,15 +495,17 @@ __global__ void __launch_bounds__(NTH, 1) grouped_scan_kernel(
 
   // the buffers, in shared memory (xd, xp, row stride FS), leave the block
   // through all NTH threads: extraction passes, or whole rows, 16 bytes a
-  // thread
+  // thread; each live slot's to its output row, empty slots' nowhere
   float* xd = regfold ? reinterpret_cast<float*>(stage) : bufd;
   int* xp = regfold ? reinterpret_cast<int*>(xd + static_cast<size_t>(pb) * FS)
                     : bufp;
   auto finish = [&]() {
     if (EXTRACT) {
-      float* od = out_d + t * pb * k_out;
-      PT* op = out_p + t * pb * k_out;
       for (int p = warp; p < pb; p += NWARP) {
+        const int64_t r = tile_rows[p];
+        if (r >= n_rows) continue;                          // warp-uniform
+        float* od = out_d + r * k_out;
+        PT* op = out_p + r * k_out;
         float* row = xd + static_cast<size_t>(p) * FS;
         for (int e = 0; e < k_out; ++e) {
           float m;
@@ -500,9 +513,8 @@ __global__ void __launch_bounds__(NTH, 1) grouped_scan_kernel(
           ivf_lane_argmin(row, nf, lane, m, x);
           ivf_warp_argmin(m, x);
           if (lane == 0) {
-            od[p * k_out + e] = m;
-            op[p * k_out + e] =
-                static_cast<PT>(m == IVF_INF ? -1 : xp[p * FS + x]);
+            od[e] = m;
+            op[e] = static_cast<PT>(m == IVF_INF ? -1 : xp[p * FS + x]);
             row[x] = IVF_INF;
           }
           __syncwarp();
@@ -510,21 +522,23 @@ __global__ void __launch_bounds__(NTH, 1) grouped_scan_kernel(
       }
       return;
     }
-    float* od = out_d + t * pb * nf;
-    PT* op = out_p + t * pb * nf;
     const int f4 = nf / 4;
     for (int i = tid; i < pb * f4; i += NTH) {
       const int p = i / f4, u = i - p * f4;
-      reinterpret_cast<float4*>(od + static_cast<size_t>(p) * nf)[u] =
+      const int64_t r = tile_rows[p];
+      if (r >= n_rows) continue;
+      reinterpret_cast<float4*>(out_d + r * nf)[u] =
           reinterpret_cast<const float4*>(xd + p * FS)[u];
       if (sizeof(PT) == 4)
-        reinterpret_cast<int4*>(op + static_cast<size_t>(p) * nf)[u] =
+        reinterpret_cast<int4*>(out_p + r * nf)[u] =
             reinterpret_cast<const int4*>(xp + p * FS)[u];
     }
     if (sizeof(PT) == 1) {
       const int b16 = nf / 16;
       for (int i = tid; i < pb * b16; i += NTH) {
         const int p = i / b16, u = i - p * b16;
+        const int64_t r = tile_rows[p];
+        if (r >= n_rows) continue;
         const int* src = xp + p * FS + 16 * u;
         uint32_t w[4];
 #pragma unroll
@@ -532,7 +546,7 @@ __global__ void __launch_bounds__(NTH, 1) grouped_scan_kernel(
           w[k] = (src[4 * k] & 0xff) | ((src[4 * k + 1] & 0xff) << 8) |
                  ((src[4 * k + 2] & 0xff) << 16) |
                  (static_cast<uint32_t>(src[4 * k + 3] & 0xff) << 24);
-        reinterpret_cast<uint4*>(op + static_cast<size_t>(p) * nf)[u] =
+        reinterpret_cast<uint4*>(out_p + r * nf)[u] =
             make_uint4(w[0], w[1], w[2], w[3]);
       }
     }
@@ -872,10 +886,10 @@ template <typename ELEM, bool KNORM, int PAY, typename PT, bool EXACT,
 int launch_grouped_scan(const void* tstart, const void* tsize,
                         const void* v_tiles, const void* base_tiles,
                         const void* decoded, const void* scale,
-                        const void* ids, const void* norms, int T, int d,
-                        int pb, int nf, int k_out, float norm_coef,
-                        void* out_d, void* out_p, void* stream,
-                        QcArgs qa = QcArgs{}) {
+                        const void* ids, const void* norms,
+                        const void* slot_row, int T, int d, int pb, int nf,
+                        int k_out, int n_rows, float norm_coef, void* out_d,
+                        void* out_p, void* stream, QcArgs qa = QcArgs{}) {
   int ntile;
   size_t smem;
   int err = plan_scan<ELEM, EXACT, EXTRACT, QC>(d, pb, nf, k_out, ntile, smem);
@@ -889,9 +903,10 @@ int launch_grouped_scan(const void* tstart, const void* tsize,
         static_cast<const __nv_bfloat16*>(v_tiles),
         static_cast<const float*>(base_tiles),
         static_cast<const ELEM*>(decoded), static_cast<const float*>(scale),
-        static_cast<const int*>(ids), static_cast<const float*>(norms), d, pb,
-        nf, k_out, norm_coef, ntile, static_cast<float*>(out_d),
-        static_cast<PT*>(out_p), qa);
+        static_cast<const int*>(ids), static_cast<const float*>(norms),
+        static_cast<const int64_t*>(slot_row), d, pb, nf, k_out, n_rows,
+        norm_coef, ntile, static_cast<float*>(out_d), static_cast<PT*>(out_p),
+        qa);
   return ivf_launch_status();
 }
 
@@ -930,17 +945,21 @@ int fit_grouped_scan(int d, int pb, int nf, int k_out, int* out) {
 // One C entry point per variant the JAX package reaches, all with one
 // signature: the streams a variant does not read (scale for bf16 rows, ids
 // without PAY_IDS, norms with KNORM) may be null; k_out is read by the
-// exact merge and by extraction. NAME_fit reports the launch shape.
+// exact merge and by extraction; slot_row (T * pb,) int64 maps each slot
+// to its row of the (n_rows, width) outputs, n_rows or more: none. NAME_fit
+// reports the launch shape.
 #define GROUPED_ENTRY(NAME, ...)                                              \
   extern "C" int NAME(const void* tstart, const void* tsize,                 \
                       const void* v_tiles, const void* base_tiles,           \
                       const void* decoded, const void* scale,                \
-                      const void* ids, const void* norms, int T, int d,      \
-                      int pb, int nf, int k_out, float norm_coef,            \
-                      void* out_d, void* out_p, void* stream) {              \
+                      const void* ids, const void* norms,                    \
+                      const void* slot_row, int T, int d, int pb, int nf,    \
+                      int k_out, int n_rows, float norm_coef, void* out_d,   \
+                      void* out_p, void* stream) {                           \
     return launch_grouped_scan<__VA_ARGS__>(                                 \
-        tstart, tsize, v_tiles, base_tiles, decoded, scale, ids, norms, T,   \
-        d, pb, nf, k_out, norm_coef, out_d, out_p, stream);                  \
+        tstart, tsize, v_tiles, base_tiles, decoded, scale, ids, norms,      \
+        slot_row, T, d, pb, nf, k_out, n_rows, norm_coef, out_d, out_p,      \
+        stream);                                                             \
   }                                                                          \
   extern "C" int NAME##_fit(int d, int pb, int nf, int k_out, int* out) {    \
     return fit_grouped_scan<__VA_ARGS__>(d, pb, nf, k_out, out);             \
@@ -965,21 +984,23 @@ GROUPED_ENTRIES(_bf16, __nv_bfloat16)
 
 // The QC variant (in-kernel norms, id payloads, fold) with its own
 // signature: the tile cells, slot queries, queries, centroids and bf16
-// rotation replace the placed v/base tiles.
+// rotation replace the placed v/base tiles; the slot map as above.
 #define GROUPED_QC_ENTRY(NAME, ELEM)                                         \
   extern "C" int NAME(const void* tstart, const void* tsize,                 \
                       const void* ctile, const void* qidx, const void* q,    \
                       const void* c, const void* rot, const void* decoded,   \
-                      const void* scale, const void* ids, int T, int d,      \
-                      int pb, int nf, float norm_coef, float base_mult,      \
+                      const void* scale, const void* ids,                    \
+                      const void* slot_row, int T, int d, int pb, int nf,    \
+                      int n_rows, float norm_coef, float base_mult,          \
                       int apply_rot, void* out_d, void* out_p,               \
                       void* stream) {                                        \
     QcArgs qa{static_cast<const int*>(ctile), static_cast<const int*>(qidx), \
               static_cast<const float*>(q), static_cast<const float*>(c),    \
               static_cast<const __nv_bfloat16*>(rot), base_mult, apply_rot}; \
     return launch_grouped_scan<ELEM, true, PAY_IDS, int, false, false, true>( \
-        tstart, tsize, nullptr, nullptr, decoded, scale, ids, nullptr, T, d, \
-        pb, nf, 0, norm_coef, out_d, out_p, stream, qa);                     \
+        tstart, tsize, nullptr, nullptr, decoded, scale, ids, nullptr,       \
+        slot_row, T, d, pb, nf, 0, n_rows, norm_coef, out_d, out_p, stream,  \
+        qa);                                                                 \
   }                                                                          \
   extern "C" int NAME##_fit(int d, int pb, int nf, int k_out, int* out) {    \
     return fit_grouped_scan<ELEM, true, PAY_IDS, int, false, false, true>(   \

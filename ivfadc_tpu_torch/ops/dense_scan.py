@@ -29,8 +29,10 @@ read as they are). The tile prep (`_tile_slots`) lays out the tiles in
 one launch of the counting kernel (`cell_rank.tile_slots`, kc <= MAX_KC,
 engine v1 or v2: ranks, counts, tile map, `row`, `inv_row`) or by one
 sort and `cell_rank.tile_layout` (kc > MAX_KC); `place_tiles` adds the
-`inv_row` placement with its zero v-row and +inf base-row, and the output
-row gather.
+`inv_row` placement with its zero v-row and +inf base-row. The kernels
+write each live slot's row to its probe's index by the same `inv_row`
+(the slot map), so the output is in probe order and needs no gather;
+`tile_order` is the identity map, which keeps the tile order.
 
 `grouped_dense_scan_qc` (IVFADC_VBASE=qc) is the "knorm" variant without
 the placement: each slot carries only its query's index, and the kernel
@@ -63,7 +65,7 @@ _CAND = 128          # lanes per fold bank (rows per group)
 MAX_PB = 64          # the grouped kernels' tallest tile (csrc/dense_scan.cu)
 _ELEMS = {torch.int8: "int8", torch.bfloat16: "bf16"}
 
-_GROUPED_ARGS = [_build.P] * 8 + [_build.I] * 5 + [_build.F] + [_build.P] * 3
+_GROUPED_ARGS = [_build.P] * 9 + [_build.I] * 6 + [_build.F] + [_build.P] * 3
 _PROBE_ARGS = [_build.P] * 6 + [_build.I] * 5 + [_build.F] + [_build.P] * 3
 
 
@@ -84,7 +86,7 @@ PROBE_KERNELS = {
     for merge in ("fold", "exact") for elem in ("int8", "bf16")}
 QC_KERNELS = {
     elem: _build.Kernel("dense_scan", _entry("grouped_scan", "qc", elem),
-                        [_build.P] * 10 + [_build.I] * 4 + [_build.F] * 2
+                        [_build.P] * 11 + [_build.I] * 5 + [_build.F] * 2
                         + [_build.I] + [_build.P] * 3)
     for elem in ("int8", "bf16")}
 KERNEL = GROUPED_KERNELS["ids", "int8"]
@@ -113,12 +115,18 @@ def scan_fit(entry: str, d: int, pb: int, nf: int, k_out: int = 0,
                 registers=out[4], local_bytes=out[5])
 
 
-def _count_tiles(kern, d: int, pb: int, nf: int, k_out: int, dev) -> None:
-    """`scan_single_tile_launches` (`profiling.counting`) of one launch of
-    a grouped kernel planned with a single staged bf16 tile."""
-    if plans_counted() and scan_fit(kern.fn, d, pb, nf, k_out,
-                                    dev.index)["tiles"] == 1:
+def _count_plans(kern, d: int, pb: int, nf: int, k_out: int, dev,
+                 probe_order: bool) -> None:
+    """The launch plans (`profiling.counting`) of one launch of a grouped
+    kernel: `scan_single_tile_launches` where it is planned with a single
+    staged bf16 tile, `scan_probe_order_launches` where its slot map
+    writes probe-order rows."""
+    if not plans_counted():
+        return
+    if scan_fit(kern.fn, d, pb, nf, k_out, dev.index)["tiles"] == 1:
         planned("scan_single_tile_launches")
+    if probe_order:
+        planned("scan_probe_order_launches")
 
 
 @functools.lru_cache(maxsize=None)
@@ -214,17 +222,35 @@ def _grouped_variant(ids2d, norms2d, merge: str, nf: int, pos8: bool,
     return "pos8" if pos8 else "pos"
 
 
+def tile_order(T: int, pb: int, device) -> dict:
+    """The identity slot map as `grouped_scan` / `grouped_scan_qc` keyword
+    arguments: every slot writes its own row, so the output holds all
+    T*pb slots in tile order (tests and the A/B tool)."""
+    return dict(slot_row=torch.arange(T * pb, device=device), n_rows=T * pb)
+
+
+def _place_rows(out, slot_row, n_rows: int):
+    """Slot s's row of `out` (T*pb, width) at row slot_row[s] of an
+    (n_rows, width) output; slots mapped to n_rows or past it are dropped.
+    Rows no slot maps to are left as allocated, as the kernels leave them."""
+    live = slot_row < n_rows
+    placed = out.new_empty((n_rows, out.shape[1]))
+    placed[slot_row[live]] = out[live]
+    return placed
+
+
 def grouped_scan_plain(tile_start, tile_size, v_tiles, base_tiles, decoded,
-                       scale, ids2d, norms2d, *, pb: int, nf: int,
-                       norm_coef: float, merge: str = "fold",
-                       pos8: bool = False, extract_k: int = 0,
-                       k_out: int = 0):
-    """Plain version of the scan kernels -> (out_d (T*pb, nf) f32, out_p
-    (T*pb, nf) payloads; extraction: (T*pb, extract_k) each). Walks every
-    tile's cell in 128-row groups with the kernels' arithmetic order (see
-    csrc/dense_scan.cu): cached norms join after the size mask; with
-    `norms2d=None` the norms are f32 sums of the rows' bf16-rounded squares
-    and join before the base."""
+                       scale, ids2d, norms2d, *, slot_row, n_rows: int,
+                       pb: int, nf: int, norm_coef: float,
+                       merge: str = "fold", pos8: bool = False,
+                       extract_k: int = 0, k_out: int = 0):
+    """Plain version of the scan kernels -> (out_d (n_rows, nf) f32, out_p
+    (n_rows, nf) payloads; extraction: (n_rows, extract_k) each), slot s's
+    row at row slot_row[s] (T*pb,) and none where that is n_rows or more.
+    Walks every tile's cell in 128-row groups with the kernels' arithmetic
+    order (see csrc/dense_scan.cu): cached norms join after the size mask;
+    with `norms2d=None` the norms are f32 sums of the rows' bf16-rounded
+    squares and join before the base."""
     variant = _grouped_variant(ids2d, norms2d, merge, nf, pos8, extract_k)
     dev = v_tiles.device
     T = tile_start.shape[0]
@@ -280,10 +306,12 @@ def grouped_scan_plain(tile_start, tile_size, v_tiles, base_tiles, decoded,
                                        cur_p)
     out_d, out_p = out_d.reshape(T * pb, nf), out_p.reshape(T * pb, nf)
     if variant == "extract":
-        return _extract_plain(out_d, out_p, extract_k)
+        out_d, out_p = _extract_plain(out_d, out_p, extract_k)
     if variant == "pos8":
         out_p = out_p.to(torch.int8)
-    return out_d, out_p
+    slot_row = slot_row.to(torch.int64)
+    return (_place_rows(out_d, slot_row, n_rows),
+            _place_rows(out_p, slot_row, n_rows))
 
 
 def tile_height(pb: int) -> int:
@@ -298,18 +326,28 @@ def tile_height(pb: int) -> int:
     return min(-(-pb // 8) * 8, MAX_PB)
 
 
+def _check_slot_map(slot_row, n_rows: int, T: int, pb: int) -> None:
+    if tuple(slot_row.shape) != (T * pb,) or not 0 <= n_rows < 2 ** 31:
+        raise ValueError(f"the slot map must hold one row per slot, "
+                         f"({T * pb},), and n_rows fit int32, got "
+                         f"{tuple(slot_row.shape)}, {n_rows}")
+
+
 def grouped_scan(tile_start, tile_size, v_tiles, base_tiles, decoded, scale,
-                 ids2d, norms2d, *, pb: int, nf: int, norm_coef: float,
-                 merge: str = "fold", pos8: bool = False, extract_k: int = 0,
-                 k_out: int = 0):
+                 ids2d, norms2d, *, slot_row, n_rows: int, pb: int, nf: int,
+                 norm_coef: float, merge: str = "fold", pos8: bool = False,
+                 extract_k: int = 0, k_out: int = 0):
     """The scan kernels' wrapper. tile_start/tile_size (T,) i32 (cell row
     range per tile, 8-row aligned starts; 128-row with ids2d / norms2d),
     v_tiles (T*pb, d) bf16, base_tiles (T*pb, 1) f32, decoded (rows, d)
     int8 with scale (d,) f32, or bf16 with scale None; ids2d / norms2d
     (rows/128, 128) i32 / f32 or None. The arguments select the variant
-    (module docstring); `k_out` is the exact merge's pass count. Returns
-    (out_d (T*pb, nf) f32, out_p (T*pb, nf) i32 or int8 for pos8), or with
-    extract_k (dists (T*pb, extract_k) f32, ids i32). CPU tensors run the
+    (module docstring); `k_out` is the exact merge's pass count. slot_row
+    (T*pb,) int64 maps each slot to its output row, n_rows or more for none
+    (the tile prep's `inv_row` with n_rows = P: probe order; `tile_order`:
+    tile order). Returns (out_d (n_rows, nf) f32, out_p (n_rows, nf) i32 or
+    int8 for pos8), or with extract_k (dists (n_rows, extract_k) f32, ids
+    i32); a row no slot maps to is left unwritten. CPU tensors run the
     plain version; CUDA tensors launch the kernel."""
     variant = _grouped_variant(ids2d, norms2d, merge, nf, pos8, extract_k)
     elem = _elem(decoded, scale)
@@ -319,14 +357,16 @@ def grouped_scan(tile_start, tile_size, v_tiles, base_tiles, decoded, scale,
     if variant == "exact" and not 1 <= k_out <= _CAND:
         raise ValueError(f"the exact merge needs 1 <= k_out <= 128, got "
                          f"{k_out}")
-    kw = dict(pb=pb, nf=nf, norm_coef=norm_coef, merge=merge, pos8=pos8,
+    T = tile_start.shape[0]
+    _check_slot_map(slot_row, n_rows, T, pb)
+    kw = dict(slot_row=slot_row, n_rows=n_rows, pb=pb, nf=nf,
+              norm_coef=norm_coef, merge=merge, pos8=pos8,
               extract_k=extract_k, k_out=k_out)
     if v_tiles.device.type == "cpu":
         with span("ivfadc.scan"):
             return grouped_scan_plain(tile_start, tile_size, v_tiles,
                                       base_tiles, decoded, scale, ids2d,
                                       norms2d, **kw)
-    T = tile_start.shape[0]
     d = v_tiles.shape[1]
     dev = v_tiles.device
     if d % 128 or decoded.shape[1] != d:
@@ -340,7 +380,8 @@ def grouped_scan(tile_start, tile_size, v_tiles, base_tiles, decoded, scale,
                 None if elem == "bf16"
                 else scale.to(torch.bfloat16).to(torch.float32),
                 None if ids2d is None else ids2d.to(torch.int32),
-                None if norms2d is None else norms2d.to(torch.float32)]
+                None if norms2d is None else norms2d.to(torch.float32),
+                slot_row.to(torch.int64)]
         args = [None if a is None else a.contiguous() for a in args]
         for a in args:
             if a is None:
@@ -351,15 +392,16 @@ def grouped_scan(tile_start, tile_size, v_tiles, base_tiles, decoded, scale,
                 raise ValueError(
                     "grouped scan inputs must be 16-byte aligned")
         width = extract_k or nf
-        out_d = torch.empty((T * pb, width), dtype=torch.float32, device=dev)
-        out_p = torch.empty((T * pb, width), dtype=torch.int8
+        out_d = torch.empty((n_rows, width), dtype=torch.float32, device=dev)
+        out_p = torch.empty((n_rows, width), dtype=torch.int8
                             if variant == "pos8" else torch.int32, device=dev)
     kern = GROUPED_KERNELS[variant, elem]
     with span("ivfadc.scan"):
         kern(*(None if a is None else a.data_ptr() for a in args), T, d, pb,
-             nf, extract_k or k_out, float(norm_coef), out_d.data_ptr(),
-             out_p.data_ptr(), _build.stream_ptr(dev))
-    _count_tiles(kern, d, pb, nf, extract_k or k_out, dev)
+             nf, extract_k or k_out, n_rows, float(norm_coef),
+             out_d.data_ptr(), out_p.data_ptr(), _build.stream_ptr(dev))
+    _count_plans(kern, d, pb, nf, extract_k or k_out, dev,
+                 n_rows < T * pb)
     return out_d, out_p
 
 
@@ -402,17 +444,16 @@ def grouped_dense_scan(cells, offsets, sizes, v, base, decoded, scale=None,
         if v.shape[-1] != d_dec:
             v = torch.nn.functional.pad(v, (0, d_dec - v.shape[-1]))
         B, w, _ = v.shape
-        tile_start, tile_size, v_tiles, base_tiles, row = place_tiles(
+        tile_start, tile_size, v_tiles, base_tiles, inv_row = place_tiles(
             cells, offsets, sizes, v, base, kc=kc, pb=pb,
             rank_engine=rank_engine)
     out_d, out_p = grouped_scan(tile_start, tile_size, v_tiles, base_tiles,
-                                decoded, scale, ids2d, norms2d, pb=pb, nf=nf,
+                                decoded, scale, ids2d, norms2d,
+                                slot_row=inv_row, n_rows=B * w, pb=pb, nf=nf,
                                 norm_coef=norm_coef, merge=merge, pos8=pos8,
                                 extract_k=extract_k, k_out=k_out)
-    with span("ivfadc.merge"):
-        width = out_d.shape[1]
-        return (out_d[row].reshape(B, w, width),
-                out_p[row].reshape(B, w, width))
+    width = out_d.shape[1]
+    return out_d.reshape(B, w, width), out_p.reshape(B, w, width)
 
 
 def grouped_rows(cells, sizes, *, kc: int, pb: int):
@@ -474,12 +515,12 @@ def place_tiles(cells, offsets, sizes, v, base, *, kc: int, pb: int,
     of one cell, probes of a cell in probe order (`_tile_slots`), and place
     their v and base rows by a gather. Returns the scan kernel's tile
     inputs (tile_start, tile_size (T_max,) i32, v_tiles (T_max*pb, d) bf16,
-    base_tiles (T_max*pb, 1) f32) and `row` (P,), each probe's row in the
-    tile output."""
+    base_tiles (T_max*pb, 1) f32) and `inv_row` (T_max*pb,) int64, each
+    slot's probe (P for an empty slot): the scan's slot map."""
     B, w, d = v.shape
     P = B * w
     dev = v.device
-    _, tile_start, tile_size, row, inv_row = _tile_slots(
+    _, tile_start, tile_size, _, inv_row = _tile_slots(
         cells, offsets, sizes, kc=kc, pb=pb, rank_engine=rank_engine)
     # empty slots point at the padding row P, whose v is zero and whose
     # base is +inf, so they never score
@@ -487,7 +528,7 @@ def place_tiles(cells, offsets, sizes, v, base, *, kc: int, pb: int,
                        torch.zeros((1, d), dtype=torch.bfloat16, device=dev)])
     base_pad = torch.cat([base.reshape(P, 1).to(torch.float32),
                           torch.full((1, 1), float("inf"), device=dev)])
-    return tile_start, tile_size, v_pad[inv_row], base_pad[inv_row], row
+    return tile_start, tile_size, v_pad[inv_row], base_pad[inv_row], inv_row
 
 
 def probe_scan_plain(starts, sizes, base, v, decoded, scale, *, nf: int,
@@ -625,39 +666,43 @@ def _qc_tiles(c_t, qidx, q_pad, c_pad, rot_pad, *, pb: int, apply_rot: bool,
 
 
 def grouped_scan_qc_plain(tile_start, tile_size, c_t, qidx, q_pad, c_pad,
-                          rot_pad, decoded, scale, ids2d, *, pb: int,
-                          nf: int, norm_coef: float, base_mult: float,
-                          apply_rot: bool):
+                          rot_pad, decoded, scale, ids2d, *, slot_row,
+                          n_rows: int, pb: int, nf: int, norm_coef: float,
+                          base_mult: float, apply_rot: bool):
     """Plain version of the qc kernel: the prologue in tensor code
     (`_qc_tiles`), then the in-kernel-norms scan's plain version."""
     v_tiles, base_tiles = _qc_tiles(c_t, qidx, q_pad, c_pad, rot_pad, pb=pb,
                                     apply_rot=apply_rot, base_mult=base_mult)
     return grouped_scan_plain(tile_start, tile_size, v_tiles, base_tiles,
-                              decoded, scale, ids2d, None, pb=pb, nf=nf,
+                              decoded, scale, ids2d, None, slot_row=slot_row,
+                              n_rows=n_rows, pb=pb, nf=nf,
                               norm_coef=norm_coef)
 
 
 def grouped_scan_qc(tile_start, tile_size, c_t, qidx, q_pad, c_pad, rot_pad,
-                    decoded, scale, ids2d, *, pb: int, nf: int,
-                    norm_coef: float, base_mult: float, apply_rot: bool):
+                    decoded, scale, ids2d, *, slot_row, n_rows: int, pb: int,
+                    nf: int, norm_coef: float, base_mult: float,
+                    apply_rot: bool):
     """The qc kernel's wrapper. tile_start / tile_size / c_t (T,) i32, qidx
     (T*pb,) i32 (-1: empty slot), q_pad (B', d) and c_pad (kc', d) f32,
     rot_pad (d, d) bf16, decoded (rows, d) int8 with scale (d,) f32 or bf16
-    with scale None, ids2d (rows/128, 128) i32; d a 128-multiple. Returns
-    (out_d (T*pb, nf) f32, out_p (T*pb, nf) i32 external ids). CPU tensors
-    run the plain version; CUDA tensors launch the kernel."""
+    with scale None, ids2d (rows/128, 128) i32; d a 128-multiple; the slot
+    map as `grouped_scan`'s. Returns (out_d (n_rows, nf) f32, out_p
+    (n_rows, nf) i32 external ids). CPU tensors run the plain version; CUDA
+    tensors launch the kernel."""
     elem = _elem(decoded, scale)
     if nf % _CAND or pb % 8 or not 8 <= pb <= MAX_PB:
         raise ValueError(f"grouped scan needs nf % 128 == 0 and pb in "
                          f"{{8, 16, ..., 64}}, got nf={nf}, pb={pb}")
-    kw = dict(pb=pb, nf=nf, norm_coef=norm_coef, base_mult=base_mult,
-              apply_rot=apply_rot)
+    T = tile_start.shape[0]
+    _check_slot_map(slot_row, n_rows, T, pb)
+    kw = dict(slot_row=slot_row, n_rows=n_rows, pb=pb, nf=nf,
+              norm_coef=norm_coef, base_mult=base_mult, apply_rot=apply_rot)
     if q_pad.device.type == "cpu":
         with span("ivfadc.scan"):
             return grouped_scan_qc_plain(tile_start, tile_size, c_t, qidx,
                                          q_pad, c_pad, rot_pad, decoded,
                                          scale, ids2d, **kw)
-    T = tile_start.shape[0]
     d = q_pad.shape[1]
     dev = q_pad.device
     if d % 128 or decoded.shape[1] != d or c_pad.shape[1] != d \
@@ -673,7 +718,7 @@ def grouped_scan_qc(tile_start, tile_size, c_t, qidx, q_pad, c_pad, rot_pad,
                 rot_pad.to(torch.bfloat16), decoded,
                 None if elem == "bf16"
                 else scale.to(torch.bfloat16).to(torch.float32),
-                ids2d.to(torch.int32)]
+                ids2d.to(torch.int32), slot_row.to(torch.int64)]
         args = [None if a is None else a.contiguous() for a in args]
         for a in args:
             if a is None:
@@ -682,15 +727,15 @@ def grouped_scan_qc(tile_start, tile_size, c_t, qidx, q_pad, c_pad, rot_pad,
                 raise ValueError("qc scan inputs must be on one device")
             if a.data_ptr() % 16:
                 raise ValueError("qc scan inputs must be 16-byte aligned")
-        out_d = torch.empty((T * pb, nf), dtype=torch.float32, device=dev)
-        out_p = torch.empty((T * pb, nf), dtype=torch.int32, device=dev)
+        out_d = torch.empty((n_rows, nf), dtype=torch.float32, device=dev)
+        out_p = torch.empty((n_rows, nf), dtype=torch.int32, device=dev)
     with span("ivfadc.scan"):
         QC_KERNELS[elem](*(None if a is None else a.data_ptr()
                            for a in args),
-                         T, d, pb, nf, float(norm_coef), float(base_mult),
-                         int(apply_rot), out_d.data_ptr(), out_p.data_ptr(),
-                         _build.stream_ptr(dev))
-    _count_tiles(QC_KERNELS[elem], d, pb, nf, 0, dev)
+                         T, d, pb, nf, n_rows, float(norm_coef),
+                         float(base_mult), int(apply_rot), out_d.data_ptr(),
+                         out_p.data_ptr(), _build.stream_ptr(dev))
+    _count_plans(QC_KERNELS[elem], d, pb, nf, 0, dev, n_rows < T * pb)
     return out_d, out_p
 
 
@@ -699,13 +744,13 @@ def qc_tile_inputs(cells, offsets, sizes, queries, cents, rot, d_dec: int, *,
     """The qc route's prep (JAX `grouped_dense_scan_qc`, up to its
     pallas_call): the counting-rank tile placement, and per slot only the
     index of its query. Returns (tile_start, tile_size, c_t, qidx, q_pad,
-    c_pad, rot_pad, row): queries and centroids zero-padded to d_dec
+    c_pad, rot_pad, inv_row): queries and centroids zero-padded to d_dec
     features in f32, the rotation (identity when `rot` is None) embedded
-    in a (d_dec, d_dec) identity, as bf16."""
+    in a (d_dec, d_dec) identity, as bf16; the slot map as `place_tiles`'."""
     B, w = cells.shape
     P = B * w
     dev = queries.device
-    c_t, tile_start, tile_size, row, inv_row = _tile_slots(
+    c_t, tile_start, tile_size, _, inv_row = _tile_slots(
         cells, offsets, sizes, kc=kc, pb=pb, rank_engine=rank_engine)
     qidx = torch.where(inv_row < P, inv_row // w, -1).to(torch.int32)
     dq = queries.shape[-1]
@@ -717,7 +762,7 @@ def qc_tile_inputs(cells, offsets, sizes, queries, cents, rot, d_dec: int, *,
         dr = rot.shape[0]
         rot_pad[:dr, :dr] = rot.to(torch.float32)
     return (tile_start, tile_size, c_t, qidx, q_pad, c_pad,
-            rot_pad.to(torch.bfloat16), row)
+            rot_pad.to(torch.bfloat16), inv_row)
 
 
 def grouped_dense_scan_qc(cells, offsets, sizes, queries, cents, rot,
@@ -743,13 +788,12 @@ def grouped_dense_scan_qc(cells, offsets, sizes, queries, cents, rot,
     B, w = cells.shape
     pb = tile_height(pb)
     with span("ivfadc.tileprep"):
-        tile_start, tile_size, c_t, qidx, q_pad, c_pad, rot_pad, row = \
+        tile_start, tile_size, c_t, qidx, q_pad, c_pad, rot_pad, inv_row = \
             qc_tile_inputs(cells, offsets, sizes, queries, cents, rot,
                            decoded.shape[-1], kc=kc, pb=pb,
                            rank_engine=rank_engine)
     out_d, out_p = grouped_scan_qc(
         tile_start, tile_size, c_t, qidx, q_pad, c_pad, rot_pad, decoded,
-        scale, ids2d, pb=pb, nf=nf, norm_coef=norm_coef, base_mult=base_mult,
-        apply_rot=apply_rot)
-    with span("ivfadc.merge"):
-        return out_d[row].reshape(B, w, nf), out_p[row].reshape(B, w, nf)
+        scale, ids2d, slot_row=inv_row, n_rows=B * w, pb=pb, nf=nf,
+        norm_coef=norm_coef, base_mult=base_mult, apply_rot=apply_rot)
+    return out_d.reshape(B, w, nf), out_p.reshape(B, w, nf)

@@ -152,7 +152,7 @@ def span(name: str):
 COUNTS = ("searches", "queries", "padded_queries", "probes",
           "postings_probed", "scan_pairs", "graph_captures", "graph_replays",
           "scan_cache_bytes", "probe_narrow_launches",
-          "scan_single_tile_launches")
+          "scan_single_tile_launches", "scan_probe_order_launches")
 _DEVICE_COUNTS = ("postings_probed", "scan_pairs", "scan_cache_bytes")
 
 
@@ -261,7 +261,8 @@ def plans_counted() -> bool:
 
 def planned(name: str) -> None:
     """One kernel launch that ran the plan `name` counts
-    (`probe_narrow_launches`, `scan_single_tile_launches`): logged inside
+    (`probe_narrow_launches`, `scan_single_tile_launches`,
+    `scan_probe_order_launches`): logged inside
     `planning()`, else added to the open `counting()` block, if any."""
     log = getattr(_open, "plans", None)
     if log is not None:
@@ -313,9 +314,16 @@ def counting():
                       the qc kernel) planned with one staged bf16 tile
                       because two do not fit the card's shared memory
                       (int8 cache at d_pad = 1024, pb = 64)
+      scan_probe_order_launches
+                      grouped-scan launches (kernel 3 and its variants,
+                      the qc kernel) whose slot map writes each probe's
+                      row at the probe's index (the tile prep's inv_row:
+                      fewer output rows than slots), so no gather follows;
+                      0 where a caller asks for tile order (`dense_scan.
+                      tile_order`)
 
     Inside, each search adds device-side sums into one small tensor per
-    device, read once (one sync) when the block ends; the two launch
+    device, read once (one sync) when the block ends; the three launch
     counts are host ints, and read 0 where no kernel launches (the plain
     versions on the CPU). Outside any block the counters launch nothing
     and allocate nothing. Searches on any

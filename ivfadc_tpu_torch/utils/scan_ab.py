@@ -2,26 +2,35 @@
 in results and in time, on one card.
 
     git show <commit>:ivfadc_tpu_torch/csrc/dense_scan.cu > _archive/old.cu
-    python -m ivfadc_tpu_torch.utils.scan_ab --old-src _archive/old.cu
+    python -m ivfadc_tpu_torch.utils.scan_ab --old-src _archive/old.cu \
+        [--old-abi same|tile-order] [--shapes k3,k3_sift64k,...]
 
 The earlier source is compiled by nvcc into a temporary directory (beside
 this tree's `csrc/common.cuh`) and bound under the same C entry points,
 which the wrappers then call in place of this tree's build, so both builds
-see the same inputs through the same wrapper. Inputs: a SIFT1M-shape
-index (n = 1M, d = 128, kc = 1024, int8 and bf16 caches) and its tiles at
-B = 16384, w = 8 (kernel 3, 8a-8e) and B = 8192 (kernel 9, the qc route),
-real and integer-valued (every f32 sum exact, so both builds must agree
-bit for bit), and one synthetic large-kc batch of pos8 tiles (kc = 2^18
-cells of ~8 rows, 2^20 probes: 8b's shape). Prints
-one JSON line: the card's name and power limit; the count of tensor-core
-(HMMA / HGMMA) and CUDA-core FMA (FFMA) instructions in each build's SASS;
-and per shape the max abs difference of the finite scores, the share of
-agreeing payloads (exact merge: of each probe's sorted top-k), whether
-the integer case is bit-equal, both builds' median milliseconds per
-wrapper call (CUDA events) taken in turns (old, new, new, old), their
-kernel device time per call (torch.profiler) and the new build's launch
-shape (blocks per SM from the occupancy API, shared bytes, staged tiles,
-fold buffer, registers, spills).
+see the same inputs through the same wrapper. Both write each probe's rows
+in probe order, through the tile prep's slot map; `--old-abi tile-order`
+takes a source from before the slot map (its entry points take none and
+write every slot in tile order): it runs through the identity map and is
+timed with the two row gathers that put its rows in probe order, as its
+search did. Inputs: a SIFT1M-shape index (n = 1M, d = 128, kc = 1024,
+int8 and bf16 caches) and its tiles at B = 16384, w = 8 (kernel 3,
+8a-8e), B = 8192 (kernel 9, the qc route) and the benchmark cells' B =
+10240 and 65536; a GIST1M-shape index (n = 1M, d = 960 on a 1,024-lane
+cache, kc = 1024, m = 16; built only for its shape) at B = 10240; real
+and integer-valued (every f32 sum exact, so both builds must agree bit
+for bit), and one synthetic large-kc batch of pos8 tiles (kc = 2^18
+cells of ~8 rows, 2^20 probes: 8b's shape). Prints one JSON line: the
+card's name and power limit; the count of tensor-core (HMMA / HGMMA) and
+CUDA-core FMA (FFMA) instructions in each build's SASS; and per shape the
+max abs difference of the finite scores, the share of agreeing payloads
+(exact merge: of each probe's sorted top-k), whether the integer case is
+bit-equal, both builds' median milliseconds per call (CUDA events) taken
+in turns (old, new, new, old), their scan kernel's device time per call
+and all their device operations' (torch.profiler: the tile-order build's
+gathers included), and the new build's launch shape (blocks per SM from
+the occupancy API, shared bytes, staged tiles, fold buffer, registers,
+spills).
 """
 
 from __future__ import annotations
@@ -43,20 +52,30 @@ from ivfadc_tpu_torch.ops import coarse_scan, dense_scan
 from ivfadc_tpu_torch.utils.coarse_ab import build_old, cuda_ms, kernel_ms
 
 N, D, KC, M, KQ, W = 1_000_000, 128, 1024, 8, 256, 8
+D_GIST, M_GIST = 960, 16
 BATCH, BATCH_QC, TOPK = 16384, 8192, 10
 KC_BIG, P_BIG, LIVE_BIG = 1 << 18, 1 << 20, 107_600
 
-# name -> (variant, cache, tiles): kernel 3 and its variants, 9 and 8b
-SHAPES = {"k3": ("ids", "int8", "b16384"),
-          "8a": ("knorm", "int8", "b16384"),
-          "8b": ("pos8", "int8", "b16384"),
-          "8c": ("ids", "bf16", "b16384"),
-          "8c_knorm": ("knorm", "bf16", "b16384"),
-          "8d": ("exact", "int8", "b16384"),
-          "8e": ("extract", "int8", "b16384"),
-          "9": ("qc", "int8", "b8192"),
-          "9_bf16": ("qc", "bf16", "b8192"),
-          "8b_large_kc": ("pos8", "int8", "large_kc")}
+# name -> (variant, cache, index, batch): kernel 3 and its variants, 9 and
+# 8b; kernel 3 at the benchmark cells' shapes
+SHAPES = {"k3": ("ids", "int8", "sift", BATCH),
+          "8a": ("knorm", "int8", "sift", BATCH),
+          "8b": ("pos8", "int8", "sift", BATCH),
+          "8c": ("ids", "bf16", "sift", BATCH),
+          "8c_knorm": ("knorm", "bf16", "sift", BATCH),
+          "8d": ("exact", "int8", "sift", BATCH),
+          "8e": ("extract", "int8", "sift", BATCH),
+          "9": ("qc", "int8", "sift", BATCH_QC),
+          "9_bf16": ("qc", "bf16", "sift", BATCH_QC),
+          "8b_large_kc": ("pos8", "int8", "large_kc", P_BIG // 32),
+          "k3_sift10k": ("ids", "int8", "sift", 10240),
+          "k3_sift64k": ("ids", "int8", "sift", 65536),
+          "k3_gist10k": ("ids", "int8", "gist", 10240)}
+
+# the positions of slot_row and n_rows in this tree's entry points'
+# arguments (GROUPED_KERNELS, QC_KERNELS), which a build from before the
+# slot map does not take
+_MAP_ARGS = {"grouped": (8, 14), "qc": (10, 15)}
 
 
 def sass_counts(lib: str, ops=("HMMA", "HGMMA", "FFMA")) -> dict:
@@ -68,17 +87,35 @@ def sass_counts(lib: str, ops=("HMMA", "HGMMA", "FFMA")) -> dict:
     return {op.lower(): len(re.findall(rf"\b{op}\b", sass)) for op in ops}
 
 
-def old_kernels(lib_path: str) -> dict:
-    """Kernel objects bound to the earlier build's entry points."""
+class _NoMap(_build.Kernel):
+    """An entry point of a build from before the slot map, called with this
+    tree's arguments: it drops slot_row and n_rows (the caller passes the
+    identity map, so the rows it writes are the ones that build writes)."""
+
+    def __init__(self, k, drop):
+        super().__init__("dense_scan", k.fn,
+                         [a for i, a in enumerate(k.argtypes) if i not in drop])
+        self.drop = drop
+
+    def __call__(self, *args) -> None:
+        super().__call__(*(a for i, a in enumerate(args)
+                           if i not in self.drop))
+
+
+def old_kernels(lib_path: str, tile_order: bool) -> dict:
+    """Kernel objects bound to the earlier build's entry points (of the
+    ABI before the slot map where `tile_order`)."""
     lib = ctypes.CDLL(lib_path)
     lib.ivfadc_error_string.argtypes = [ctypes.c_int]
     lib.ivfadc_error_string.restype = ctypes.c_char_p
     out = {}
-    for table in (dense_scan.GROUPED_KERNELS, dense_scan.QC_KERNELS):
+    for table, kind in ((dense_scan.GROUPED_KERNELS, "grouped"),
+                        (dense_scan.QC_KERNELS, "qc")):
         for key, k in table.items():
-            o = _build.Kernel("dense_scan", k.fn, k.argtypes)
+            o = (_NoMap(k, _MAP_ARGS[kind]) if tile_order
+                 else _build.Kernel("dense_scan", k.fn, k.argtypes))
             cfn = getattr(lib, k.fn)
-            cfn.argtypes = k.argtypes
+            cfn.argtypes = o.argtypes
             cfn.restype = ctypes.c_int
             o._cfn = (lib, cfn)
             out[id(table), key] = o
@@ -101,41 +138,59 @@ def build(old: dict | None):
             t.update(s)
 
 
-def sift_inputs():
-    """The SIFT1M-shape index (seed 0) and its tiles for queries near its
-    points: (views, B=16384 placement args, B=8192 qc args per cache)."""
-    from ivfadc_tpu_torch import IVFADCIndex
-    from ivfadc_tpu_torch.utils.datasets import synthetic_clustered
-    dev = torch.device("cuda")
-    base = torch.as_tensor(synthetic_clustered(N, D, seed=0), device=dev)
-    index = IVFADCIndex.build(base, kc=KC, k=KQ, m=M, seed=0,
-                              kmeanspp_sample=65536)
-    g = torch.Generator(device=dev).manual_seed(1)
-    qidx = torch.randint(0, N, (4 * BATCH,), generator=g, device=dev)
-    queries = base[qidx] + 0.05 * torch.randn((4 * BATCH, D), generator=g,
-                                              device=dev)
-    del base
-    views = {"int8": index.store.device_view_dense(
-        index.quantizer, index.config.scan_chunk)}
-    views["bf16"] = index.store.device_view_dense(
-        index.quantizer, index.config.scan_chunk, cache="bf16")
-    c32 = index.coarse.centroids
-    eye = torch.eye(D, device=dev)
-    pb, nf = index.config.scan_pb, index.config.scan_fold_lanes
-    cells, _, v, bq = coarse_scan.coarse_probe_vbase(queries[:BATCH], c32, W,
-                                                     eye, False, True)
-    tiles = dense_scan.place_tiles(cells, views["int8"]["offsets"],
-                                   views["int8"]["sizes"], v, bq, kc=KC,
-                                   pb=pb)[:4]
-    cells8 = coarse_scan.coarse_probe_vbase(queries[:BATCH_QC], c32, W, eye,
-                                            False, True)[0]
-    qc = {elem: dense_scan.qc_tile_inputs(
-        cells8, vw["offsets"], vw["sizes"], queries[:BATCH_QC], c32, None, D,
-        kc=KC, pb=pb)[:7] for elem, vw in views.items()}
-    return views, tiles, qc, pb, nf
+class Inputs:
+    """The SIFT1M- and GIST1M-shape indexes (seed 0, built on first use)
+    and, per batch, the tiles of queries near their points."""
+
+    def __init__(self):
+        self.built = {}
+
+    def index(self, kind: str):
+        """(views per cache, centroids, queries, pb, nf) of one index."""
+        if kind not in self.built:
+            from ivfadc_tpu_torch import IVFADCIndex
+            from ivfadc_tpu_torch.utils.datasets import \
+                synthetic_clustered_device
+            d, m = (D, M) if kind == "sift" else (D_GIST, M_GIST)
+            dev = torch.device("cuda")
+            base = synthetic_clustered_device(N, d, seed=0)
+            index = IVFADCIndex.build(base, kc=KC, k=KQ, m=m, seed=0,
+                                      kmeanspp_sample=65536)
+            g = torch.Generator(device=dev).manual_seed(1)
+            qidx = torch.randint(0, N, (4 * BATCH,), generator=g, device=dev)
+            queries = base[qidx] + 0.05 * torch.randn(
+                (4 * BATCH, d), generator=g, device=dev)
+            del base
+            views = {cache: index.store.device_view_dense(
+                index.quantizer, index.config.scan_chunk, cache=cache)
+                for cache in ("int8", "bf16")}
+            self.built[kind] = (views, index.coarse.centroids, queries,
+                                dense_scan.tile_height(index.config.scan_pb),
+                                index.config.scan_fold_lanes)
+        return self.built[kind]
+
+    def tiles(self, kind: str, B: int, qc: bool):
+        """The tile arguments of B queries (the placement's four, or the qc
+        prep's seven per cache), their slot map and P = B * w."""
+        views, c32, queries, pb, _ = self.index(kind)
+        d = c32.shape[1]
+        cells, _, v, bq = coarse_scan.coarse_probe_vbase(
+            queries[:B], c32, W, torch.eye(d, device=c32.device), False,
+            True)
+        d_dec = views["int8"]["decoded"].shape[1]
+        if qc:
+            preps = {elem: dense_scan.qc_tile_inputs(
+                cells, vw["offsets"], vw["sizes"], queries[:B], c32, None,
+                d_dec, kc=KC, pb=pb) for elem, vw in views.items()}
+            return ({e: p[:7] for e, p in preps.items()},
+                    preps["int8"][7], B * W)
+        *tiles, inv_row = dense_scan.place_tiles(
+            cells, views["int8"]["offsets"], views["int8"]["sizes"],
+            torch.nn.functional.pad(v, (0, d_dec - d)), bq, kc=KC, pb=pb)
+        return tiles, inv_row, B * W
 
 
-def large_kc_inputs(pb: int, nf: int):
+def large_kc_inputs(pb: int):
     """A synthetic batch at 8b's shape (a B=32768, w=32 batch at the
     Deep1B-shard shape, n = 2M, d = 96): 2^18 cells of ~8 rows (8-row
     aligned), 2^20 probes spread over LIVE_BIG of them (that batch's count
@@ -156,9 +211,9 @@ def large_kc_inputs(pb: int, nf: int):
     v = torch.randn((P_BIG // 32, 32, D), generator=g, device=dev) \
         .to(torch.bfloat16)
     bq = 10 + torch.rand((P_BIG // 32, 32), generator=g, device=dev)
-    tiles = dense_scan.place_tiles(cells, offsets, sizes, v, bq, kc=KC_BIG,
-                                   pb=pb)[:4]
-    return tiles, decoded, scale
+    *tiles, inv_row = dense_scan.place_tiles(cells, offsets, sizes, v, bq,
+                                             kc=KC_BIG, pb=pb)
+    return tiles, inv_row, decoded, scale
 
 
 def integer_twin(args, qc: bool, seed: int):
@@ -211,6 +266,8 @@ def compare(a, b, exact: bool) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-src", required=True)
+    ap.add_argument("--old-abi", choices=("same", "tile-order"),
+                    default="same")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--shapes", default=",".join(SHAPES))
     ap.add_argument("--out", default=None, help="also write the JSON here")
@@ -222,27 +279,34 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     wanted = [s for s in args.shapes.split(",") if s]
-    views, tiles, qc, pb, nf = sift_inputs()
+    inputs = Inputs()
+    tile_order = args.old_abi == "tile-order"
     res = {}
     with tempfile.TemporaryDirectory() as tmp:
         old_lib = build_old(args.old_src, tmp, "dense_scan_old")
         sass = dict(old=sass_counts(old_lib), new=sass_counts(
             os.path.join(_build.build_dir(), "libdense_scan.so")))
-        old = old_kernels(old_lib)
+        old = old_kernels(old_lib, tile_order)
         for name in wanted:
-            variant, elem, where = SHAPES[name]
-            vw = views[elem]
-            kw = dict(pb=pb, nf=nf, norm_coef=1.0)
+            variant, elem, where, B = SHAPES[name]
             if where == "large_kc":
-                big, dec, sc = large_kc_inputs(pb, nf)
-                call_args = list(big) + [dec, sc, None, None]
-            elif variant == "qc":
-                call_args = list(qc[elem]) + [vw["decoded"], vw["scale"],
-                                              vw["ids2d"]]
-                kw.update(base_mult=2.0, apply_rot=False)
+                pb, nf = inputs.index("sift")[3:]
+                big, inv_row, dec, sc = large_kc_inputs(pb)
+                call_args, P = list(big) + [dec, sc, None, None], P_BIG
             else:
-                call_args = list(tiles) + [vw["decoded"], vw["scale"],
-                                           vw["ids2d"], vw["norms2d"]]
+                views, _, _, pb, nf = inputs.index(where)
+                vw = views[elem]
+                tiles, inv_row, P = inputs.tiles(where, B, variant == "qc")
+                if variant == "qc":
+                    call_args = list(tiles[elem]) + [
+                        vw["decoded"], vw["scale"], vw["ids2d"]]
+                else:
+                    call_args = list(tiles) + [vw["decoded"], vw["scale"],
+                                               vw["ids2d"], vw["norms2d"]]
+            d = call_args[7 if variant == "qc" else 4].shape[1]
+            kw = dict(pb=pb, nf=nf, norm_coef=1.0)
+            if variant == "qc":
+                kw.update(base_mult=2.0, apply_rot=False)
             if variant in ("pos8", "exact"):
                 call_args[6] = call_args[7] = None
             if variant in ("knorm", "extract"):
@@ -255,42 +319,63 @@ def main() -> None:
                 kw["extract_k"] = TOPK
             scan = dense_scan.grouped_scan_qc if variant == "qc" \
                 else dense_scan.grouped_scan
-            row = dict(variant=variant, cache=elem, tiles=where)
+            T = call_args[0].shape[0]
+            probe_order = dict(slot_row=inv_row, n_rows=P)
+            if tile_order:
+                # the earlier build writes every slot in tile order; its
+                # search then gathered each probe's row by `row`
+                identity = dense_scan.tile_order(T, pb, inv_row.device)
+                live = torch.nonzero(inv_row < P).reshape(-1)
+                row = torch.empty(P, dtype=torch.int64, device=inv_row.device)
+                row[inv_row[live]] = live
+
+            def scan_old(a):
+                with build(old):
+                    if not tile_order:
+                        return scan(*a, **kw, **probe_order)
+                    out_d, out_p = scan(*a, **kw, **identity)
+                    return out_d[row], out_p[row]
+
+            line = dict(variant=variant, cache=elem, tiles=where, batch=B,
+                        d=d, probes=P, old_abi=args.old_abi)
             for integer in (False, True):
                 a = integer_twin(call_args, variant == "qc", 7) \
                     if integer else call_args
-                with build(old):
-                    out_old = scan(*a, **kw)
-                out_new = scan(*a, **kw)
+                out_old = scan_old(a)
+                out_new = scan(*a, **kw, **probe_order)
                 cmp = compare(out_old, out_new, variant == "exact")
-                row["integer" if integer else "real"] = cmp
+                line["integer" if integer else "real"] = cmp
                 del out_old, out_new, a
             t_old, t_new = [], []
 
             def run_old():
-                with build(old):
-                    return scan(*call_args, **kw)
+                return scan_old(call_args)
 
             def run_new():
-                return scan(*call_args, **kw)
+                return scan(*call_args, **kw, **probe_order)
             for first, second in ((run_old, run_new), (run_new, run_old)):
                 for fn in (first, second):
                     (t_old if fn is run_old else t_new).extend(
                         cuda_ms(fn, args.reps))
             kern = (dense_scan.QC_KERNELS[elem] if variant == "qc"
                     else dense_scan.GROUPED_KERNELS[variant, elem])
-            row.update(old_ms=statistics.median(t_old),
-                       new_ms=statistics.median(t_new),
-                       old_device_ms=kernel_ms(run_old, match="grouped_scan"),
-                       new_device_ms=kernel_ms(run_new, match="grouped_scan"),
-                       launch_shape=dense_scan.scan_fit(
-                           kern.fn, D, pb, nf if variant != "exact" else 128,
-                           TOPK if variant in ("exact", "extract") else 0),
-                       tiles_count=int(call_args[0].numel()),
-                       live_tiles=int((call_args[1] > 0).sum().item()))
-            res[name] = row
-            print(json.dumps({name: row}), flush=True)
-            del call_args
+            line.update(
+                old_ms=statistics.median(t_old),
+                new_ms=statistics.median(t_new),
+                old_device_ms=kernel_ms(run_old, match="grouped_scan"),
+                new_device_ms=kernel_ms(run_new, match="grouped_scan"),
+                old_call_device_ms=kernel_ms(run_old, match=""),
+                new_call_device_ms=kernel_ms(run_new, match=""),
+                launch_shape=dense_scan.scan_fit(
+                    kern.fn, d, pb, nf if variant != "exact" else 128,
+                    TOPK if variant in ("exact", "extract") else 0),
+                tiles_count=T,
+                live_tiles=int((call_args[1] > 0).sum().item()))
+            res[name] = line
+            print(json.dumps({name: line}), flush=True)
+            del call_args, inv_row
+            if tile_order:
+                del identity, row, live
             torch.cuda.empty_cache()
     line = json.dumps({"card": card, "sass": sass, "pb": pb, "nf": nf,
                        "shapes": res})

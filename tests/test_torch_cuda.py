@@ -8,6 +8,7 @@ where only PyTorch is installed:
 """
 
 import time
+import types
 
 import numpy as np
 import pytest
@@ -887,11 +888,14 @@ def test_grouped_scan_qc_kernel(dev, pb, d, apply_rot, elem, integer):
     kw = dict(pb=pb, nf=128, norm_coef=1.0, base_mult=2.0,
               apply_rot=apply_rot)
     kern = dense_scan.QC_KERNELS[elem]
+    T = args[0].shape[0]
     n0 = kern.launches
-    kd, kp = dense_scan.grouped_scan_qc(*args, **kw)
+    kd, kp = dense_scan.grouped_scan_qc(
+        *args, **kw, **dense_scan.tile_order(T, pb, dev))
     assert kern.launches == n0 + 1
     pd, pp = dense_scan.grouped_scan_qc_plain(
-        *[None if a is None else a.cpu() for a in args], **kw)
+        *[None if a is None else a.cpu() for a in args], **kw,
+        **dense_scan.tile_order(T, pb, "cpu"))
     kd, kp = kd.cpu(), kp.cpu()
     if integer:
         assert torch.equal(kd, pd) and torch.equal(kp, pp)
@@ -983,9 +987,11 @@ def test_grouped_scan_kernel_edges(dev, pb, d, nf, variant, elem, integer):
     kern = dense_scan.GROUPED_KERNELS[variant, elem]
     n0 = kern.launches
     kd, kp = dense_scan.grouped_scan(
-        *[None if a is None else a.to(dev) for a in args], **call)
+        *[None if a is None else a.to(dev) for a in args], **call,
+        **dense_scan.tile_order(8, pb, dev))
     assert kern.launches == n0 + 1
-    pd, pp = dense_scan.grouped_scan(*args, **call)
+    pd, pp = dense_scan.grouped_scan(*args, **call,
+                                     **dense_scan.tile_order(8, pb, "cpu"))
     kd, kp = kd.cpu(), kp.cpu()
     width = kd.shape[1]
     dead = torch.isinf(args[3].reshape(-1))
@@ -1004,6 +1010,177 @@ def test_grouped_scan_kernel_edges(dev, pb, d, nf, variant, elem, integer):
         assert (kp == pp).float().mean() >= 0.99
 
 
+def _gather_map(inv_row, n_rows: int):
+    """Each row's slot under a slot map (the prep's `row`): the gather
+    that reads a tile-order output in probe order."""
+    live = torch.nonzero(inv_row < n_rows).reshape(-1)
+    row = torch.empty(n_rows, dtype=torch.int64, device=inv_row.device)
+    row[inv_row[live]] = live
+    return row
+
+
+def _same_rows(placed, tiled, inv_row, n_rows: int) -> None:
+    """The probe-order outputs equal the tile-order ones gathered, bit for
+    bit (payloads of every kind, +inf and -1 included)."""
+    row = _gather_map(inv_row, n_rows)
+    for a, b in zip(placed, tiled):
+        assert a.shape == (n_rows,) + b.shape[1:] and a.dtype == b.dtype
+        assert torch.equal(a, b[row])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pb,d,nf,variant", _EDGE_SHAPES)
+@pytest.mark.parametrize("elem", ["int8", "bf16"])
+def test_grouped_scan_kernel_edges_in_probe_order(dev, pb, d, nf, variant,
+                                                  elem):
+    """The edge tiles above plus a size-0 tile with no live slot, written by
+    a slot map that sends the live probes to a random permutation of the
+    rows and drops the dead slots: equal, bit for bit, to the tile-order
+    output gathered by each row's slot. That covers an empty cell's tile
+    with live slots (+inf / -1 rows), a tile of rows with no live slot
+    (scored, nothing written) and a trailing tile (nothing at all)."""
+    from ivfadc_tpu_torch.utils import profiling
+    kw = dict(_EDGE_VARIANTS[variant])
+    rng = np.random.RandomState(pb + d + nf + len(variant))
+    args = _edge_tiles(rng, False, elem, pb, d)
+    if not kw.pop("ids", True):
+        args[6] = None
+    if not kw.pop("norms", True):
+        args[7] = None
+    args[0] = torch.cat([args[0], torch.zeros(1, dtype=torch.int32)])
+    args[1] = torch.cat([args[1], torch.zeros(1, dtype=torch.int32)])
+    args[2] = torch.cat([args[2], torch.zeros((pb, d), dtype=torch.bfloat16)])
+    args[3] = torch.cat([args[3], torch.full((pb, 1), float("inf"))])
+    args = [None if a is None else a.to(dev) for a in args]
+    T = args[0].shape[0]
+    live = torch.isfinite(args[3].reshape(-1))
+    n = int(live.sum())
+    inv_row = torch.full((T * pb,), n, dtype=torch.int64, device=dev)
+    inv_row[live] = torch.from_numpy(rng.permutation(n)).to(dev)
+    call = dict(pb=pb, nf=nf, norm_coef=1.0, **kw)
+    with profiling.counting() as counts:
+        placed = dense_scan.grouped_scan(*args, **call, slot_row=inv_row,
+                                         n_rows=n)
+    assert counts["scan_probe_order_launches"] == 1
+    tiled = dense_scan.grouped_scan(*args, **call,
+                                    **dense_scan.tile_order(T, pb, dev))
+    _same_rows(placed, tiled, inv_row, n)
+
+
+# the cells' shapes: cache width, batch, kc (w = 8, 64-probe tiles, nf =
+# 128), and the kc > MAX_KC sort prep
+_CELL_SHAPES = {"sift_b10240": (128, 10240, 1024),
+                "sift_b65536": (128, 65536, 1024),
+                "gist_b10240": (1024, 10240, 1024),
+                "sort_kc8192": (128, 4096, 8192)}
+_CELL_VARIANTS = {"ids": dict(ids=True, norms=True), "knorm": dict(ids=True),
+                  "pos8": dict(pos8=True), "pos": {},
+                  "exact": dict(merge="exact", k_out=10),
+                  "extract": dict(ids=True, extract_k=10),
+                  "qc": dict(ids=True)}
+# the exact merge and the qc kernel do not fit a block's shared memory at
+# d_pad = 1024 (their plans refuse it), and no route takes them there
+_CELL_CASES = [(shape, variant, elem) for shape in _CELL_SHAPES
+               for variant in _CELL_VARIANTS for elem in ("int8", "bf16")
+               if not (shape.startswith("gist") and variant in ("exact",
+                                                                "qc"))]
+
+
+@pytest.fixture(scope="module")
+def cell_inputs():
+    """Per shape, an index-like layout made on the card: kc 128-row aligned
+    cells (kc = 1024: 1-1954 rows, about SIFT1M's 977 on average; kc =
+    8192: 0-199), four of them empty and probed; both caches, ids and
+    norms; B x 8 probes over uniform cells with v, base, queries and
+    centroids. Layouts are shared by shapes of one (d, kc)."""
+    made, layouts = {}, {}
+
+    def get(shape):
+        if shape in made:
+            return made[shape]
+        d, B, kc = _CELL_SHAPES[shape]
+        dev = torch.device("cuda")
+        g = torch.Generator(device=dev).manual_seed(d + kc)
+        if (d, kc) not in layouts:
+            hi = 1955 if kc <= 1024 else 200
+            sizes = torch.randint(1, hi, (kc,), generator=g, device=dev)
+            sizes[:4] = 0
+            caps = torch.clamp_min((sizes + 127) // 128, 1) * 128
+            offsets = torch.cumsum(caps, 0) - caps
+            rows = int(caps.sum()) + 128
+            dec = torch.randint(-127, 128, (rows, d), generator=g,
+                                device=dev, dtype=torch.int8)
+            scale = 0.01 + 0.02 * torch.rand(d, generator=g, device=dev)
+            layouts[d, kc] = types.SimpleNamespace(
+                sizes=sizes.to(torch.int32), offsets=offsets.to(torch.int32),
+                caches={"int8": (dec, scale), "bf16": (
+                    (dec.float() * scale.to(torch.bfloat16).float())
+                    .to(torch.bfloat16), None)},
+                ids2d=torch.randperm(rows, generator=g, device=dev)
+                .to(torch.int32).reshape(-1, 128),
+                norms2d=5 + torch.rand((rows // 128, 128), generator=g,
+                                       device=dev),
+                cents=torch.randn((kc, d), generator=g, device=dev))
+        cells = torch.randint(0, kc, (B, 8), generator=g, device=dev)
+        hit = torch.rand((B, 8), generator=g, device=dev) < 0.002
+        cells = torch.where(hit, cells % 4, cells).to(torch.int32)
+        made[shape] = types.SimpleNamespace(
+            lay=layouts[d, kc], d=d, B=B, kc=kc, cells=cells,
+            v=torch.randn((B, 8, d), generator=g, device=dev)
+            .to(torch.bfloat16),
+            base=10 + torch.rand((B, 8), generator=g, device=dev),
+            q=torch.randn((B, d), generator=g, device=dev))
+        return made[shape]
+    return get
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,variant,elem", _CELL_CASES)
+def test_grouped_scan_probe_order_at_the_cells_shapes(dev, cell_inputs,
+                                                      shape, variant, elem):
+    """Every grouped variant and cache at the benchmark cells' shapes
+    (SIFT1M at B = 10,240 and 65,536, GIST1M's 1,024-lane cache at B =
+    10,240) and through the sort prep (kc = 8192): the kernel's probe-order
+    rows equal, bit for bit, its tile-order rows gathered by each probe's
+    slot, which is what the search returned before the kernel wrote probe
+    order; the batch holds an empty cell's tiles with live slots and tiles
+    past the last one it needs. The launch counts one probe-order launch,
+    the tile-order one none."""
+    from ivfadc_tpu_torch.utils import profiling
+    x = cell_inputs(shape)
+    lay, P, pb = x.lay, x.B * 8, 64
+    dec, scale = lay.caches[elem]
+    opts = dict(_CELL_VARIANTS[variant])
+    ids = lay.ids2d if opts.pop("ids", False) else None
+    norms = lay.norms2d if opts.pop("norms", False) else None
+    if variant == "qc":
+        prep = dense_scan.qc_tile_inputs(x.cells, lay.offsets, lay.sizes,
+                                         x.q, lay.cents, None, x.d, kc=x.kc,
+                                         pb=pb)
+        args, inv_row, scan = prep[:7] + (dec, scale, ids), prep[7], \
+            dense_scan.grouped_scan_qc
+        kw = dict(pb=pb, nf=128, norm_coef=1.0, base_mult=2.0,
+                  apply_rot=False)
+    else:
+        *tiles, inv_row = dense_scan.place_tiles(
+            x.cells, lay.offsets, lay.sizes, x.v, x.base, kc=x.kc, pb=pb)
+        args, scan = tuple(tiles) + (dec, scale, ids, norms), \
+            dense_scan.grouped_scan
+        kw = dict(pb=pb, nf=128, norm_coef=1.0, **opts)
+    T = args[0].shape[0]
+    live = (inv_row < P).reshape(T, pb)
+    assert ((args[1] == 0) & live.any(1)).any()
+    assert (~live).all(1).any()
+    with profiling.counting() as counts:
+        placed = scan(*args, **kw, slot_row=inv_row, n_rows=P)
+        tiled = scan(*args, **kw, **dense_scan.tile_order(T, pb, dev))
+    assert counts["scan_probe_order_launches"] == 1
+    _same_rows(placed, tiled, inv_row, P)
+    empty = (x.cells < 4).reshape(-1)
+    assert torch.isinf(placed[0][empty]).all()
+    assert (placed[1][empty] == -1).all()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("pb", [8, 24])
 @pytest.mark.parametrize("elem", ["int8", "bf16"])
@@ -1014,11 +1191,14 @@ def test_grouped_scan_qc_kernel_partial_m_tiles(dev, pb, elem, integer):
     args = _qc_case(rng, integer, 128, pb, elem, False, dev)
     kw = dict(pb=pb, nf=128, norm_coef=1.0, base_mult=2.0, apply_rot=False)
     kern = dense_scan.QC_KERNELS[elem]
+    T = args[0].shape[0]
     n0 = kern.launches
-    kd, kp = dense_scan.grouped_scan_qc(*args, **kw)
+    kd, kp = dense_scan.grouped_scan_qc(
+        *args, **kw, **dense_scan.tile_order(T, pb, dev))
     assert kern.launches == n0 + 1
     pd, pp = dense_scan.grouped_scan_qc_plain(
-        *[None if a is None else a.cpu() for a in args], **kw)
+        *[None if a is None else a.cpu() for a in args], **kw,
+        **dense_scan.tile_order(T, pb, "cpu"))
     kd, kp = kd.cpu(), kp.cpu()
     if integer:
         assert torch.equal(kd, pd) and torch.equal(kp, pp)
@@ -2081,10 +2261,13 @@ def test_grouped_scan_one_tile_at_gist_width(dev, variant, elem, integer):
     n0 = kern.launches
     with profiling.counting() as counts:
         kd, kp = dense_scan.grouped_scan(
-            *[None if a is None else a.to(dev) for a in args], **call)
+            *[None if a is None else a.to(dev) for a in args], **call,
+            **dense_scan.tile_order(8, pb, dev))
     assert kern.launches == n0 + 1
     assert counts["scan_single_tile_launches"] == 1
-    pd, pp = dense_scan.grouped_scan(*args, **call)
+    assert counts["scan_probe_order_launches"] == 0     # tile order
+    pd, pp = dense_scan.grouped_scan(*args, **call,
+                                     **dense_scan.tile_order(8, pb, "cpu"))
     kd, kp = kd.cpu(), kp.cpu()
     if integer:             # every f32 sum exact: bit for bit
         assert torch.equal(kd, pd) and torch.equal(kp, pp)

@@ -335,10 +335,15 @@ def two_level(dev):
 # --------------------------------------------------------- the launch table
 @contextlib.contextmanager
 def _counted():
-    """The kernels' launch counts of the block, filled in as it ends."""
+    """The kernels' launch counts of the block, filled in as it ends, and
+    its grouped-scan launches that wrote probe-order rows
+    (`profiling.counting()`'s `scan_probe_order_launches`)."""
+    from ivfadc_tpu_torch.utils import profiling
     before, counts = _launches(), {}
-    yield counts
+    with profiling.counting() as plans:
+        yield counts
     counts.update({k: n - before[k] for k, n in _launches().items()})
+    counts["scan_probe_order_launches"] = plans["scan_probe_order_launches"]
 
 
 # Each route runs its search under `_counted()`, checks its results and
@@ -649,7 +654,8 @@ def _sharded_counts(g: int, grouped: bool) -> dict:
 # route -> (index fixture, run, kernels launched: name -> launches, None
 # where the count is not pinned; kernels idle)
 ROUTES = {
-    "grouped": ("sift", _grouped, _each(1, _GROUPED),
+    "grouped": ("sift", _grouped,
+                _each(1, _GROUPED + ["scan_probe_order_launches"]),
                 ["probe_scan", "topk_index", "coarse_topw",
                  "grouped_scan_knorm"]),
     "small_batch": ("sift", _small_batch, _each(8, _PER_PROBE),
@@ -762,6 +768,9 @@ def test_route_launches(dev, request, route):
         assert (counts[name] > 0 if n is None else counts[name] == n), \
             (route, name, counts)
     assert not [k for k in idle if counts[k]], (route, counts)
+    # every grouped-scan launch of a search writes its rows in probe order
+    grouped = sum(n for k, n in counts.items() if k.startswith("grouped_"))
+    assert counts["scan_probe_order_launches"] == grouped, (route, counts)
 
 
 # ------------------------------------------------------- the SIFT1M index
@@ -992,13 +1001,15 @@ def _kernels_probe(s):
 
 def _kernels_grouped(s):
     """Kernels 3, 8a-8e and 4 on the B = 16,384 batch's own tiles (cells of
-    about 1,000 rows): real inputs against the plain versions, and
-    integer-valued ones (every f32 sum exact) bit for bit."""
+    about 1,000 rows), written in probe order as the search writes them:
+    real inputs against the plain versions, and integer-valued ones (every
+    f32 sum exact) bit for bit."""
     x = _sift_inputs(s, BATCH)
     view, bview, pb, nf = x.view, x.bview, x.pb, x.nf
     dev = x.q.device
-    tstart, tsize, v_t, b_t, row = dense_scan.place_tiles(
+    tstart, tsize, v_t, b_t, inv_row = dense_scan.place_tiles(
         x.cells, view["offsets"], view["sizes"], x.v, x.base, kc=KC, pb=pb)
+    order = dict(slot_row=inv_row, n_rows=BATCH * W)
     real = (tstart, tsize, v_t, b_t, view["decoded"], view["scale"],
             view["ids2d"], view["norms2d"])
     g = torch.Generator(device=dev).manual_seed(7)
@@ -1016,7 +1027,7 @@ def _kernels_grouped(s):
               bview["ids2d"], bview["norms2d"])
     b_ints = (tstart, tsize, v_i, b_i, dec_i.to(torch.bfloat16), None,
               view["ids2d"], n_i)
-    kw = dict(pb=pb, nf=nf, norm_coef=1.0)
+    kw = dict(pb=pb, nf=nf, norm_coef=1.0, **order)
     # (real inputs, integer inputs, options): 3, 8a, 8e, 8c, 8c with the
     # norms in the kernel
     for args, int_args, extra in (
@@ -1035,7 +1046,8 @@ def _kernels_grouped(s):
     assert k8b[1].dtype == torch.int8
     _bit_equal(k8b, dense_scan.grouped_scan_plain(*pos, **kw, pos8=True))
     # 8d: the exact merge (in-kernel norms, slot payloads)
-    ekw = dict(pb=pb, nf=128, norm_coef=1.0, merge="exact", k_out=TOPK)
+    ekw = dict(pb=pb, nf=128, norm_coef=1.0, merge="exact", k_out=TOPK,
+               **order)
     ex = real[:6] + (None, None)
     _exact_topk(dense_scan.grouped_scan(*ex, **ekw),
                 dense_scan.grouped_scan_plain(*ex, **ekw), TOPK)
@@ -1043,8 +1055,8 @@ def _kernels_grouped(s):
                dense_scan.grouped_scan_plain(*pos, **ekw))
     # 4 on kernel 3's candidates (ties and +inf included): exact
     kd, kp = dense_scan.grouped_scan(*real, **kw)
-    flat_d = kd[row].reshape(BATCH, W * nf)
-    flat_p = kp[row].reshape(BATCH, W * nf)
+    flat_d = kd.reshape(BATCH, W * nf)
+    flat_p = kp.reshape(BATCH, W * nf)
     _bit_equal(topk.topk_lastdim_payload(flat_d, flat_p, TOPK),
                topk.topk_lastdim_payload_plain(flat_d, flat_p, TOPK))
 
@@ -1120,11 +1132,13 @@ def _kernels_qc(s):
     for vw, int8, rot in ((x.view, True, None), (x.view, True, rot_r),
                           (x.bview, False, None)):
         apply_rot = rot is not None
-        args = dense_scan.qc_tile_inputs(
+        prep = dense_scan.qc_tile_inputs(
             x.cells, vw["offsets"], vw["sizes"], x.q, x.c32, rot, D, kc=KC,
-            pb=x.pb)[:7] + (vw["decoded"], vw["scale"], vw["ids2d"])
+            pb=x.pb)
+        args = prep[:7] + (vw["decoded"], vw["scale"], vw["ids2d"])
         kw = dict(pb=x.pb, nf=x.nf, norm_coef=1.0, base_mult=2.0,
-                  apply_rot=apply_rot)
+                  apply_rot=apply_rot, slot_row=prep[7],
+                  n_rows=BATCH_QC * W)
         # under the rotation the kernel sums r R in another order than the
         # plain matmul, and bf16(-2 r R) may round the other way: one bf16
         # ulp of one v element moves a score by 2^-8 of its term
@@ -1249,11 +1263,12 @@ def test_two_level_kernels_equal_their_plain_versions(two_level):
     v = torch.nn.functional.pad(
         (-2.0 * q)[:, None, :].expand(NQ3, gp, D3), (0, d_pad - D3))
     qbase = torch.sum(q * q, dim=1)[:, None].expand(NQ3, gp)
-    tstart, tsize, v_t, b_t, row = dense_scan.place_tiles(
+    tstart, tsize, v_t, b_t, inv_row = dense_scan.place_tiles(
         gids, cq.csr_offsets, cq.csr_sizes, v, qbase, kc=g, pb=pb)
     args = (tstart, tsize, v_t, b_t, cq.cent_scan, cq.cent_scale, cq.perm2d,
             None)
-    kw = dict(pb=pb, nf=nf, norm_coef=1.0)
+    kw = dict(pb=pb, nf=nf, norm_coef=1.0, slot_row=inv_row,
+              n_rows=NQ3 * gp)
     kd, kp = dense_scan.grouped_scan(*args, **kw)
     _close_scan((kd, kp), dense_scan.grouped_scan_plain(*args, **kw))
     gi = torch.Generator(device=dev).manual_seed(13)
@@ -1271,8 +1286,8 @@ def test_two_level_kernels_equal_their_plain_versions(two_level):
     _close_scan(dense_scan.grouped_scan(*args, **kw, extract_k=W3),
                 dense_scan.grouped_scan_plain(*args, **kw, extract_k=W3))
     # 4 at stage 2's merge: (NQ3, gp * nf), k = W3
-    flat_d = kd[row].reshape(NQ3, gp * nf)
-    flat_p = kp[row].reshape(NQ3, gp * nf)
+    flat_d = kd.reshape(NQ3, gp * nf)
+    flat_p = kp.reshape(NQ3, gp * nf)
     _bit_equal(topk.topk_lastdim_payload(flat_d, flat_p, W3),
                topk.topk_lastdim_payload_plain(flat_d, flat_p, W3))
     del flat_d, flat_p, kd, kp, v_t, b_t, v_i, b_i, dec_i, v
@@ -1323,32 +1338,36 @@ def test_two_level_kernels_equal_their_plain_versions(two_level):
     torch.testing.assert_close(k1[3][same], p1[3][same], rtol=1e-5,
                                atol=1e-3)
     torch.testing.assert_close(k1[0], p1[0], rtol=1e-5, atol=1e-3)
-    # 8b on the grouped batch's own tiles: every slot row is written (empty
-    # slots too); the plain version on every 128th tile and the last
+    # 8b on the grouped batch's own tiles, in probe order as the search
+    # writes them (every probe's row); the plain version on every 128th
+    # tile and the last, in tile order, held to its live slots' probes
     cells_b, v_b, base_b, _ = _dense_probe(
         cq, index.quantizer.rotation, two_level.q_big, w=W3,
         metric=index.quant_metric, include_base=include, apply_rot=False,
         residual_based=True)
     pbp = dense_scan.tile_height(index.config.scan_pb)
-    tstart, tsize, v_t, b_t, _ = dense_scan.place_tiles(
+    tstart, tsize, v_t, b_t, inv_row = dense_scan.place_tiles(
         cells_b, view["offsets"], view["sizes"],
         torch.nn.functional.pad(v_b, (0, d_dec - D3)), base_b, kc=KC3,
         pb=pbp)
-    T = tstart.shape[0]
+    T, P_big = tstart.shape[0], NQ3_BIG * W3
     pkw = dict(pb=pbp, nf=nfp, norm_coef=1.0, pos8=True)
     kd, kp = dense_scan.grouped_scan(tstart, tsize, v_t, b_t,
                                      view["decoded"], view["scale"], None,
-                                     None, **pkw)
-    assert kp.dtype == torch.int8
+                                     None, slot_row=inv_row, n_rows=P_big,
+                                     **pkw)
+    assert kp.dtype == torch.int8 and kd.shape == (P_big, nfp)
     sub = torch.unique(torch.cat([torch.arange(0, T, 128, device=dev),
                                   torch.tensor([T - 1], device=dev)]))
     pd, pp = dense_scan.grouped_scan_plain(
         tstart[sub], tsize[sub],
         v_t.reshape(T, pbp, d_dec)[sub].reshape(-1, d_dec),
         b_t.reshape(T, pbp, 1)[sub].reshape(-1, 1), view["decoded"],
-        view["scale"], None, None, **pkw)
-    _close_scan((kd.reshape(T, pbp, nfp)[sub].reshape(-1, nfp),
-                 kp.reshape(T, pbp, nfp)[sub].reshape(-1, nfp)), (pd, pp))
+        view["scale"], None, None,
+        **dense_scan.tile_order(sub.shape[0], pbp, dev), **pkw)
+    slots = inv_row.reshape(T, pbp)[sub].reshape(-1)
+    live = slots < P_big
+    _close_scan((kd[slots[live]], kp[slots[live]]), (pd[live], pp[live]))
 
 
 @pytest.mark.cuda

@@ -187,7 +187,8 @@ def test_counting_matches_probe_stats_and_loop_bounds(route, indexes, data,
         "graph_captures": 0, "graph_replays": 0,
         "scan_cache_bytes": _cache_bytes(route, idx, q),
         # the plain versions launch no kernel
-        "probe_narrow_launches": 0, "scan_single_tile_launches": 0}
+        "probe_narrow_launches": 0, "scan_single_tile_launches": 0,
+        "scan_probe_order_launches": 0}
     assert counts["scan_pairs"] >= counts["postings_probed"]
     # outside the block nothing is counted
     before = dict(counts)
