@@ -495,7 +495,9 @@ def _tile_slots(cells, offsets, sizes, *, kc: int, pb: int,
                 rank_engine: str | None):
     """The placement both tile preps share: for kc <= MAX_KC the fused
     counting call (`tile_slots`, engine `rank_engine`: one kernel launch
-    on the card), above it one sort (`sort_ranks`) and `tile_layout`.
+    on the card), above it one sort (`sort_ranks`) and `tile_layout`,
+    inside the span `ivfadc.tileprep.sort`, each such prep one
+    `tileprep_sort_launches` (`profiling.counting`).
     Returns (c_t, tile_start, tile_size (T_max,) i32, row (P,) each
     probe's row in the tile output, inv_row (T_max*pb,) each slot's probe
     or P for an empty slot, both int64), T_max = P // pb + min(kc, P) + 1
@@ -504,9 +506,11 @@ def _tile_slots(cells, offsets, sizes, *, kc: int, pb: int,
     if kc <= MAX_KC:
         return tile_slots(cells_flat, offsets, sizes, kc=kc, pb=pb,
                           engine=rank_engine)[1:]
-    ranks, counts = sort_ranks(cells_flat, kc)
-    return tile_layout(ranks, counts, cells_flat, offsets, sizes, kc=kc,
-                       pb=pb)
+    planned("tileprep_sort_launches")
+    with span("ivfadc.tileprep.sort"):
+        ranks, counts = sort_ranks(cells_flat, kc)
+        return tile_layout(ranks, counts, cells_flat, offsets, sizes, kc=kc,
+                           pb=pb)
 
 
 def place_tiles(cells, offsets, sizes, v, base, *, kc: int, pb: int,

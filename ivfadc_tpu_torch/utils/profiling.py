@@ -18,7 +18,9 @@ order:
   ivfadc.probe    the coarse probe and the scan vectors it yields (the
                   fused kernel, the quantizer's search, the LUT tables)
   ivfadc.tileprep the grouped scan's tile placement, the per-probe scan's
-                  slot ranges, the kernels' argument casts
+                  slot ranges, the kernels' argument casts; past 4096
+                  cells its sort-based ranks and layout in the nested
+                  range `ivfadc.tileprep.sort`, which is no stage
   ivfadc.scan     the scan kernels (grouped, qc, per-probe), the gathered
                   engine and the LUT engine's table lookups
   ivfadc.merge    the output reorder, the top-k merges, `finalize`, the
@@ -152,7 +154,8 @@ def span(name: str):
 COUNTS = ("searches", "queries", "padded_queries", "probes",
           "postings_probed", "scan_pairs", "graph_captures", "graph_replays",
           "scan_cache_bytes", "probe_narrow_launches",
-          "scan_single_tile_launches", "scan_probe_order_launches")
+          "scan_single_tile_launches", "scan_probe_order_launches",
+          "tileprep_sort_launches")
 _DEVICE_COUNTS = ("postings_probed", "scan_pairs", "scan_cache_bytes")
 
 
@@ -262,7 +265,7 @@ def plans_counted() -> bool:
 def planned(name: str) -> None:
     """One kernel launch that ran the plan `name` counts
     (`probe_narrow_launches`, `scan_single_tile_launches`,
-    `scan_probe_order_launches`): logged inside
+    `scan_probe_order_launches`, `tileprep_sort_launches`): logged inside
     `planning()`, else added to the open `counting()` block, if any."""
     log = getattr(_open, "plans", None)
     if log is not None:
@@ -321,12 +324,20 @@ def counting():
                       fewer output rows than slots), so no gather follows;
                       0 where a caller asks for tile order (`dense_scan.
                       tile_order`)
+      tileprep_sort_launches
+                      grouped tile preps that ranked their probes by one
+                      sort (`dense_scan.sort_ranks` and `cell_rank.
+                      tile_layout`) instead of the counting kernel: one a
+                      grouped scan over more than MAX_KC = 4096 cells (or
+                      a two-level stage 2's groups), 1 a grouped search of
+                      such an index, else 0; the same tensor code runs on
+                      the CPU, so it counts there too
 
     Inside, each search adds device-side sums into one small tensor per
-    device, read once (one sync) when the block ends; the three launch
-    counts are host ints, and read 0 where no kernel launches (the plain
-    versions on the CPU). Outside any block the counters launch nothing
-    and allocate nothing. Searches on any
+    device, read once (one sync) when the block ends; the four launch
+    counts are host ints, and the first three read 0 where no kernel
+    launches (the plain versions on the CPU). Outside any block the
+    counters launch nothing and allocate nothing. Searches on any
     thread count; blocks do not nest. The sharded views count their
     scans' postings and pairs, padding rows included, not their
     searches."""

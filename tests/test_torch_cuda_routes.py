@@ -12,11 +12,15 @@ shapes, and what has no route of its own: recall parity with the oracle,
 save and load, `autotune` and `memory_stats`, the two-level index's
 arrays and mutations, and two ranks of one process group on one card.
 
-The routes run on four indexes, each built once a module:
+The routes run on five indexes, each built once a module:
   sift       SIFT1M's shape (n = 1M, d = 128, kc = 1024, m = 8, k = 256)
   inner      200,000 of its points scored by inner product (kc = 256): the
              unfused probe
   opq        200,000 of its points under OPQ (kc = 1024, m = 8)
+  sift8k     SIFT1M's points under the fine coarse quantizer of the
+             `sift1m.ivf8192` cell (kc = 8192, m = 16), searched at its w =
+             64 and k = 100: past MAX_KC = 4096 the grouped scan's tiles
+             come from the sort-based prep
   two_level  the large-kc configuration (coarse_quantizer="hnsw", d = 96,
              m = 16) at kc = 2^15 over 262,144 points (8 a cell): the
              smallest power of two that takes the kernels of kc = 2^18:
@@ -61,6 +65,8 @@ N2, KC2 = 200_000, 256              # the inner-product and OPQ indexes
 N3, D3, KC3, M3, W3 = 262_144, 96, 1 << 15, 16, 32
 NQ3 = 1024                          # B * w < 4 * kc: the per-probe scan
 NQ3_BIG = 4096                      # B * w = 4 * kc: the grouped scan
+KC8, M8, W8, K8 = 8192, 16, 64, 100  # the sift1m.ivf8192 cell's index
+ROUTE_TIMEOUT_S = 600                # a route that hangs the card fails
 
 # the launch counters by the kernel's name, one entry point each
 KERNELS = {
@@ -213,6 +219,19 @@ def _ref(s, name: str):
 
 
 # ----------------------------------------------------------------- indexes
+def _on_cpu(index):
+    """The card's index saved, then loaded on the CPU, whose dense route
+    runs the kernels' plain versions ("auto" is the LUT engine there)."""
+    import tempfile
+    from ivfadc_tpu_torch import IVFADCIndex
+    with tempfile.TemporaryDirectory() as tmp:
+        index.save(os.path.join(tmp, "index.npz"))
+        on_cpu = IVFADCIndex.load(os.path.join(tmp, "index.npz"),
+                                  device="cpu")
+    on_cpu.config = dataclasses.replace(on_cpu.config, scan_mode="dense")
+    return on_cpu
+
+
 def _sift_refs():
     def norms_off(s):
         with _norms_off(s.index):
@@ -226,16 +245,7 @@ def _sift_refs():
         return grouped, _batches(wide, s.qs, B_SMALL)
 
     def cpu(s):
-        # the card's index saved, then loaded on the CPU, whose dense route
-        # runs the kernels' plain versions ("auto" is the LUT engine there)
-        import tempfile
-        from ivfadc_tpu_torch import IVFADCIndex
-        with tempfile.TemporaryDirectory() as tmp:
-            s.index.save(os.path.join(tmp, "index.npz"))
-            on_cpu = IVFADCIndex.load(os.path.join(tmp, "index.npz"),
-                                      device="cpu")
-        on_cpu.config = dataclasses.replace(on_cpu.config, scan_mode="dense")
-        return on_cpu.search_padded(s.qs.cpu(), TOPK, w=W)
+        return _on_cpu(s.index).search_padded(s.qs.cpu(), TOPK, w=W)
 
     return dict(
         grouped=lambda s: s.index.search_padded(s.qs, TOPK, w=W),
@@ -332,18 +342,46 @@ def two_level(dev):
             cells=lambda s: s.index.coarse.search(s.q, W3)))
 
 
+@pytest.fixture(scope="module")
+def sift8k(dev):
+    """SIFT1M's shape under the `sift1m.ivf8192` cell's index (kc = 8192,
+    m = 16) and 1,000 queries near its points."""
+    from ivfadc_tpu_torch import IVFADCIndex
+    from ivfadc_tpu_torch.utils.datasets import synthetic_clustered
+    base = torch.as_tensor(synthetic_clustered(N, D, seed=0), device=dev)
+    index = IVFADCIndex.build(base, kc=KC8, k=KQ, m=M8, seed=0,
+                              kmeanspp_sample=65536, device=dev)
+    g = torch.Generator(device=dev).manual_seed(8)
+    q = base[torch.randint(0, N, (N_SEARCH,), generator=g, device=dev)] \
+        + 0.05 * torch.randn((N_SEARCH, D), generator=g, device=dev)
+    return types.SimpleNamespace(index=index, q=q)
+
+
 # --------------------------------------------------------- the launch table
 @contextlib.contextmanager
 def _counted():
-    """The kernels' launch counts of the block, filled in as it ends, and
-    its grouped-scan launches that wrote probe-order rows
-    (`profiling.counting()`'s `scan_probe_order_launches`)."""
+    """The kernels' launch counts of the block, filled in as it ends, its
+    grouped-scan launches that wrote probe-order rows and its sort-based
+    tile preps (`profiling.counting()`'s `scan_probe_order_launches`,
+    `tileprep_sort_launches`)."""
     from ivfadc_tpu_torch.utils import profiling
     before, counts = _launches(), {}
     with profiling.counting() as plans:
         yield counts
     counts.update({k: n - before[k] for k, n in _launches().items()})
-    counts["scan_probe_order_launches"] = plans["scan_probe_order_launches"]
+    for name in ("scan_probe_order_launches", "tileprep_sort_launches"):
+        counts[name] = plans[name]
+
+
+def _within(seconds: float, fn):
+    """fn() on a worker thread; a search that has not returned within
+    `seconds` fails its test instead of holding the suite."""
+    import concurrent.futures
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    try:
+        return pool.submit(fn).result(timeout=seconds)
+    finally:
+        pool.shutdown(wait=False)
 
 
 # Each route runs its search under `_counted()`, checks its results and
@@ -556,6 +594,38 @@ def _sharded(n_data: int, grouped: bool):
     return route
 
 
+def _sort_prep(s):
+    """The `sift1m.ivf8192` cell's search, B*w = 64,000 >= 4*kc: the
+    grouped scan's tiles from one sort past MAX_KC, kernel 1's top-64,
+    kernel 4's top-100 over 64 x 128 candidates a row; held to the same
+    index's CPU route."""
+    assert s.index.config.kc > cell_rank.MAX_KC
+    assert N_SEARCH * W8 >= 4 * KC8
+    with _counted() as counts:
+        ids, dists = _within(ROUTE_TIMEOUT_S, lambda: s.index.search_padded(
+            s.q, K8, w=W8))
+    _sane(ids, dists, N_SEARCH, N)
+    # f32 sums in another order may swap near-ties, which 100 ranks a row
+    # meet often: each rank's distance agrees, the ids up to ties at the
+    # k-th
+    c_ids, c_dists = _on_cpu(s.index).search_padded(s.q.cpu(), K8, w=W8)
+    np.testing.assert_allclose(dists, c_dists, rtol=1e-5, atol=1e-3)
+    assert _tie_overlap(ids, dists, c_ids, c_dists) >= 0.999
+    # the key's second call captures the route, sort included, as a CUDA
+    # graph and the third replays it: both give the eager call's results,
+    # and each counts its sort
+    from ivfadc_tpu_torch.utils import profiling
+    with profiling.counting() as graphed:
+        again = [_within(ROUTE_TIMEOUT_S, lambda: s.index.search_padded(
+            s.q, K8, w=W8)) for _ in range(2)]
+    assert graphed["graph_captures"] == graphed["graph_replays"] == 1
+    assert graphed["tileprep_sort_launches"] == 2
+    for got in again:
+        np.testing.assert_array_equal(got[0], ids)
+        np.testing.assert_array_equal(got[1], dists)
+    return counts
+
+
 def _two_level_route(s):
     with _counted() as counts:
         ids, dists = s.index.search_padded(s.q, TOPK, w=W3)
@@ -715,6 +785,13 @@ ROUTES = {
                         ["coarse_probe", "grouped_scan"]),
     "opq": ("opq", _opq_route, _each(1, _GROUPED),
             ["coarse_topw", "probe_scan"]),
+    # past MAX_KC the tiles come from the sort: the counting kernel idles
+    "sort_prep_kc8192": ("sift8k", _sort_prep,
+                         _each(1, ["coarse_probe", "grouped_scan",
+                                   "topk_payload", "tileprep_sort_launches",
+                                   "scan_probe_order_launches"]),
+                         ["cell_rank", "cell_rank_v2", "probe_scan",
+                          "topk_index", "grouped_scan_knorm"]),
     "sharded_1x4_grouped": ("sift", _sharded(1, True),
                             _sharded_counts(1, True), ["probe_scan"]),
     "sharded_1x4_per_probe": ("sift", _sharded(1, False),

@@ -188,12 +188,39 @@ def test_counting_matches_probe_stats_and_loop_bounds(route, indexes, data,
         "scan_cache_bytes": _cache_bytes(route, idx, q),
         # the plain versions launch no kernel
         "probe_narrow_launches": 0, "scan_single_tile_launches": 0,
-        "scan_probe_order_launches": 0}
+        "scan_probe_order_launches": 0, "tileprep_sort_launches": 0}
     assert counts["scan_pairs"] >= counts["postings_probed"]
     # outside the block nothing is counted
     before = dict(counts)
     idx.search_padded(q, K, W)
     assert counts == before and profiling.tally() is None
+
+
+@pytest.mark.parametrize("route,sort", [("grouped", False),
+                                        ("grouped", True),
+                                        ("per_probe", True)])
+def test_sort_prep_counts_once_a_grouped_search_and_nests_its_span(
+        route, sort, indexes, data, monkeypatch):
+    """`tileprep_sort_launches` reads 1 a grouped search whose tile prep
+    sorts (kc > MAX_KC, here MAX_KC lowered below the index's kc) and 0
+    where the counting prep serves it or no tiles are made; the sort's span
+    `ivfadc.tileprep.sort` lies inside an `ivfadc.tileprep` span."""
+    from ivfadc_tpu_torch.ops import dense_scan
+    if sort:
+        monkeypatch.setattr(dense_scan, "MAX_KC", KC - 1)
+    idx, q = _setup(route, indexes, data, monkeypatch)
+    with profiling.counting() as counts:
+        idx.search_padded(q, K, W)
+    sorted_prep = int(route == "grouped" and sort)
+    assert counts["tileprep_sort_launches"] == sorted_prep
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        idx.search_padded(q, K, W)
+    spans = _spans(prof)
+    inner = [s for s in spans if s[2] == "tileprep.sort"]
+    assert len(inner) == sorted_prep
+    for s0, s1, _ in inner:
+        assert any(t0 <= s0 and s1 <= t1 for t0, t1, n in spans
+                   if n == "tileprep")
 
 
 def test_counting_sums_over_searches_and_does_not_nest(indexes, data):
