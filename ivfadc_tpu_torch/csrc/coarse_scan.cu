@@ -56,7 +56,17 @@
 //    split. The last block of a query tile to finish (an atomic ticket)
 //    merges the other splits' lists the same way. Every merge ranks by
 //    (score, index), never by position, so the result does not depend on
-//    the order in which atomics land, nor on the plan.
+//    the order in which atomics land, nor on the plan. That is the
+//    selection up to w = 32. Past it (the large-w selection, chosen in
+//    `launch`; w = 64 at k' = 8192), two lists and a 32-place buffer a row
+//    would keep one block a SM; instead each row has one list, merged in
+//    place, and a buffer of the places that two blocks a SM leave it with
+//    the query tile held whole (22 at BQ = 64, d = 128, w = 64). Warps
+//    stand as 16 columns x 2 rows, so a half-warp holds a row's 128 scores
+//    of a tile and a warp owns its rows: a split's first tile fills the
+//    lists by a sort of each row's 128 scores, later tiles offer without
+//    an atomic or a block barrier, and a warp merges its full rows when a
+//    buffer overflows.
 // 5. The epilogues read each query row from the resident tile, else from
 //    device memory, and the winning centroid rows from device memory
 //    (L2-resident; not the TPU kernel's one-hot matmul). v/base without a
@@ -65,8 +75,9 @@
 //    at d = 960). Under a rotation, and in v2, each warp stages a row in
 //    shared memory (q - c, or rotq) and walks it a feature a lane: batched
 //    loads measured 7-11 % slower in v2 and the rotation's loop 2.5x
-//    slower with its loads hoisted (PERF.md). Each lane sums its features
-//    l + 32 m in order.
+//    slower with its loads hoisted (PERF.md). Under the large-w selection,
+//    up to d = 128, a warp keeps four winners' rows in flight. Each lane
+//    sums its features l + 32 m in order.
 
 #include "common.cuh"
 
@@ -82,6 +93,17 @@ constexpr int CAP = 32;        // candidate buffer places per query: a warp
 constexpr int EU = 16;         // epilogue features a lane loads ahead
 constexpr int SENT = 0x7fffffff;  // index of an empty list place
 constexpr size_t SMEM_MAX = 232448;
+// The large-w selection (below) from w = WIDE_W + 1 to WMAX (four list
+// entries a lane when a warp merges, a tile's 128 scores a row). Its
+// buffer holds at most CAPW_MAX candidates a row (one a lane) and takes at
+// least CAPW_MIN where it shares a SM with a second block: a SM has
+// SMEM_SM bytes, of which each block reserves 1 KB.
+constexpr int WIDE_W = 32;
+constexpr int WMAX = 128;
+constexpr int CAPW_MAX = 32;
+constexpr int CAPW_MIN = 16;
+constexpr size_t SMEM_SM = 233472;
+constexpr size_t SMEM_TWO = SMEM_SM / 2 - 1024;
 
 struct __align__(8) Ent {
   float s;
@@ -137,6 +159,16 @@ __host__ __device__ inline bool resident(int bq, int d, int w, bool scratch) {
   return sel_bytes(bq, d, w, scratch, true) <= SMEM_MAX / 2;
 }
 
+// The large-w selection's shared memory: one list a row and a buffer of
+// cap candidate places a row (+1, as above).
+__host__ __device__ inline size_t wide_bytes(int bq, int d, int w,
+                                             bool scratch, bool qres,
+                                             int cap) {
+  return 4 * (qs_floats(bq, d, qres) + ring_floats(bq, d, scratch, qres)) +
+         8 * static_cast<size_t>(bq) * (w + cap + 1) +
+         4 * (static_cast<size_t>(bq) + 1);
+}
+
 struct SelArgs {
   const float* q;      // (B, d)
   const float* cents;  // (kc, d)
@@ -144,6 +176,7 @@ struct SelArgs {
   int B, d, kc, w;
   int splits, tps;     // table splits, tiles per split
   int qres;            // the query tile held whole (resident)
+  int cap;             // candidate places a row (the large-w selection)
   Ent* part;           // (B, splits, w) per-split lists (splits > 1)
   int* tickets;        // one per query tile, zero on entry (splits > 1)
 };
@@ -155,10 +188,12 @@ struct Sel {
   float* qs;     // BQ x qstride(d)   the block's queries, when resident
   float* ring;   // NSTAGE x stage_floats slabs / epilogue rows
   Ent* lists;    // 2 x BQ x w        sorted top-w, and the merge target
+                 //                   (one list under the large-w selection)
   int lstride;   // BQ x w
   Ent* buf;      // BQ x (CAP + 1)    candidates, unordered (+1: the
                  //                   rows of a warp's 8-lane groups on
-                 //                   distinct banks)
+                 //                   distinct banks); BQ x (cap + 1)
+                 //                   under the large-w selection
   int* cnt;      // BQ                candidates offered per query
   int* flag;     // 1                  last block of the query tile
   __device__ __forceinline__ Ent* list(int cur) const {
@@ -166,6 +201,7 @@ struct Sel {
   }
 };
 
+template <bool WIDE>
 __device__ __forceinline__ Sel sel_carve(float* sm, int bq, const SelArgs& a,
                                          bool scratch) {
   Sel s;
@@ -174,9 +210,9 @@ __device__ __forceinline__ Sel sel_carve(float* sm, int bq, const SelArgs& a,
   s.lists = reinterpret_cast<Ent*>(s.ring +
                                    ring_floats(bq, a.d, scratch, a.qres));
   s.lstride = bq * a.w;
-  s.buf = s.lists + 2 * static_cast<size_t>(s.lstride);
+  s.buf = s.lists + (WIDE ? 1 : 2) * static_cast<size_t>(s.lstride);
   s.cnt = reinterpret_cast<int*>(s.buf + static_cast<size_t>(bq) *
-                                             (CAP + 1));
+                                             ((WIDE ? a.cap : CAP) + 1));
   s.flag = s.cnt + bq;
   return s;
 }
@@ -279,6 +315,30 @@ __device__ __forceinline__ int lower_bound(const Ent* r, int n, float xs,
       hi = mid;
   }
   return lo;
+}
+
+// Compare-exchange toward the lesser entry (keep_min) or the greater.
+__device__ __forceinline__ void cmpx(float& s, int& i, float os, int oi,
+                                     bool keep_min) {
+  if (keep_min ? ent_less(os, oi, s, i) : ent_less(s, i, os, oi)) {
+    s = os;
+    i = oi;
+  }
+}
+
+// Sort a warp's 32 entries (one a lane) ascending by (score, index): a
+// bitonic network of shuffles. `merge` keeps its own copy: calling this
+// changes the instructions the w <= 32 kernels compile to.
+__device__ __forceinline__ void warp_sort(float& s, int& i, int lane) {
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const float os = __shfl_xor_sync(IVF_FULL_MASK, s, j);
+      const int oi = __shfl_xor_sync(IVF_FULL_MASK, i, j);
+      cmpx(s, i, os, oi, ((lane & k) == 0) == ((lane & j) == 0));
+    }
+  }
 }
 
 // Merge every live query row's buffered candidates into its list, one
@@ -456,6 +516,177 @@ __device__ __forceinline__ void offer(const float (&sc)[TQ][TC], Id id,
     offer_far<TQ>(sc, id, pend, s, w, nq, cur, ty, lane);
 }
 
+// ---- The large-w selection (w > WIDE_W) ----
+// A warp holds 16 centroid columns x 2 query rows of the register tile, so
+// the 16 lanes of a half-warp hold a row's 128 scores of a tile, and the
+// warp owns its 2 TQ rows' lists, buffers and counts: offers and merges
+// take no block barrier. A split's first tile fills the empty lists by a
+// sort of each row's 128 scores; later ones offer, and when a buffer
+// overflows the warp merges its full rows, in place, one row at a time.
+
+// Merge a warp's buffered candidates into its rows' lists, in place, a
+// row at a time, the rows holding at least `need` of them (the full ones
+// while offers overflow, every non-empty one at the end of a split): the
+// row's n <= CAPW_MAX candidates sorted (one a lane), then every entry at
+// its rank, as in `merge`: a candidate after the list entries before it,
+// a list entry (four a lane) after the candidates before it (binary
+// searches). All of a row's reads come before its writes. Warp-wide.
+template <int TQ>
+__device__ __noinline__ void merge_wide(Ent* lists, Ent* buf, int* cnt,
+                                        int cap, int w, int warp, int lane,
+                                        int need) {
+  __syncwarp();
+  for (int h = 0; h < 2; ++h)
+    for (int i = 0; i < TQ; ++i) {
+      const int r = qrow((warp << 1) | h, i);
+      const int n = min(cnt[r], cap);
+      if (n == 0 || n < need) continue;
+      Ent* L = lists + static_cast<size_t>(r) * w;
+      Ent* Bf = buf + static_cast<size_t>(r) * (cap + 1);
+      float xs = IVF_INF;
+      int xi = SENT;
+      if (lane < n) {
+        xs = Bf[lane].s;
+        xi = Bf[lane].i;
+      }
+      warp_sort(xs, xi, lane);
+      if (lane < n) Bf[lane] = Ent{xs, xi};
+      __syncwarp();
+      const int rx = lane < n ? lane + lower_bound(L, w, xs, xi) : w;
+      Ent le[WMAX / 32];
+      int rl[WMAX / 32];
+#pragma unroll
+      for (int m = 0; m < WMAX / 32; ++m) {
+        const int e = lane + 32 * m;
+        le[m] = Ent{IVF_INF, SENT};
+        rl[m] = w;
+        if (e < w) {
+          le[m] = L[e];
+          rl[m] = e + lower_bound(Bf, n, le[m].s, le[m].i);
+        }
+      }
+      __syncwarp();
+      if (rx < w) L[rx] = Ent{xs, xi};
+#pragma unroll
+      for (int m = 0; m < WMAX / 32; ++m)
+        if (rl[m] < w) L[rl[m]] = le[m];
+      if (lane == 0) cnt[r] = 0;
+      __syncwarp();
+    }
+}
+
+// Offer each thread's TQ x TC candidates (as `offer_body`) to its warp's
+// rows: those that precede the row's threshold take buffer places in lane
+// order, counted by a scan over the half-warp; while a buffer is full the
+// warp merges its full rows and the rest are filtered again. Warp-wide.
+template <int TQ, class Id>
+__device__ __forceinline__ void offer_wide(const float (&sc)[TQ][TC], Id id,
+                                           uint32_t pend, const Sel& s,
+                                           int w, int cap, int ty, int warp,
+                                           int lane) {
+  const int hl = lane & 15;
+  for (;;) {
+#pragma unroll
+    for (int i = 0; i < TQ; ++i) {
+      const int r = qrow(ty, i);
+      const Ent t = s.lists[static_cast<size_t>(r) * w + w - 1];
+#pragma unroll
+      for (int j = 0; j < TC; ++j)
+        if (!ent_less(sc[i][j], id(i, j), t.s, t.i)) pend &= ~bit(i, j);
+      const uint32_t bits = (pend >> (i * TC)) & ((1u << TC) - 1);
+      const int n = __popc(bits);
+      int incl = n;
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) {
+        const int u = __shfl_up_sync(IVF_FULL_MASK, incl, off, 16);
+        if (hl >= off) incl += u;
+      }
+      const int total = __shfl_sync(IVF_FULL_MASK, incl, 15, 16);
+      const int base = s.cnt[r];
+      int pos = base + incl - n;
+      Ent* row = s.buf + static_cast<size_t>(r) * (cap + 1);
+#pragma unroll
+      for (int j = 0; j < TC; ++j)
+        if ((bits >> j) & 1) {
+          if (pos < cap) {
+            row[pos] = Ent{sc[i][j], id(i, j)};
+            pend &= ~bit(i, j);
+          }
+          ++pos;
+        }
+      __syncwarp();
+      if (hl == 0) s.cnt[r] = base + total;
+    }
+    if (!__any_sync(IVF_FULL_MASK, pend != 0)) return;
+    merge_wide<TQ>(s.lists, s.buf, s.cnt, cap, w, warp, lane, cap);
+  }
+}
+
+// A split's first tile into the empty lists: each half-warp sorts its
+// row's 128 candidates (8 a lane, place 8 hl + j) by a bitonic network,
+// across lanes by shuffles within the half-warp and within a lane in
+// registers, and writes the first w places. A candidate that would not
+// pass an empty list (a NaN score, a place past the table or the batch)
+// sorts last as an empty place. Warp-wide.
+template <int TQ>
+__device__ __forceinline__ void fill_wide(const float (&sc)[TQ][TC], int c0,
+                                          int tx, uint32_t pend,
+                                          const Sel& s, int w, int ty,
+                                          int lane) {
+  const int hl = lane & 15;
+#pragma unroll
+  for (int i = 0; i < TQ; ++i) {
+    float vs[TC];
+    int vi[TC];
+#pragma unroll
+    for (int j = 0; j < TC; ++j) {
+      const int c = c0 + ccol(tx, j);
+      const bool ok = ((pend >> (i * TC + j)) & 1) &&
+                      ent_less(sc[i][j], c, IVF_INF, SENT);
+      vs[j] = ok ? sc[i][j] : IVF_INF;
+      vi[j] = ok ? c : SENT;
+    }
+#pragma unroll
+    for (int k = 2; k <= 16 * TC; k <<= 1) {
+#pragma unroll
+      for (int jj = k >> 1; jj > 0; jj >>= 1) {
+        if (jj < TC) {
+#pragma unroll
+          for (int j = 0; j < TC; ++j) {
+            const int o = j ^ jj;
+            if (o > j) {   // places 8 hl + j < 8 hl + o
+              const bool up = ((TC * hl + j) & k) == 0;
+              if (up ? ent_less(vs[o], vi[o], vs[j], vi[j])
+                     : ent_less(vs[j], vi[j], vs[o], vi[o])) {
+                const float ts = vs[j];
+                const int ti = vi[j];
+                vs[j] = vs[o];
+                vi[j] = vi[o];
+                vs[o] = ts;
+                vi[o] = ti;
+              }
+            }
+          }
+        } else {
+          const int lj = jj / TC;
+          const bool lo = (hl & lj) == 0;
+#pragma unroll
+          for (int j = 0; j < TC; ++j) {
+            const float os = __shfl_xor_sync(IVF_FULL_MASK, vs[j], lj);
+            const int oi = __shfl_xor_sync(IVF_FULL_MASK, vi[j], lj);
+            cmpx(vs[j], vi[j], os, oi, (((TC * hl + j) & k) == 0) == lo);
+          }
+        }
+      }
+    }
+    Ent* L = s.lists + static_cast<size_t>(qrow(ty, i)) * w;
+#pragma unroll
+    for (int j = 0; j < TC; ++j)
+      if (TC * hl + j < w) L[TC * hl + j] = Ent{vs[j], vi[j]};
+  }
+  __syncwarp();
+}
+
 struct Pos {
   int q0, nq, split, qtile;
 };
@@ -476,14 +707,16 @@ __device__ __forceinline__ Pos block_pos(const SelArgs& a) {
 // the last block of the query tile to finish merges the others' lists.
 // Returns true in the block that holds the final lists (list(cur), each
 // ascending by (score, index)); the others return false and exit. Ends at
-// a block barrier.
-template <int TQ, bool QRES>
+// a block barrier. WIDE: the large-w selection, on its own thread layout
+// (a warp 16 columns x 2 rows, not 8 x 4); each sum is the same.
+template <int TQ, bool QRES, bool WIDE>
 __device__ __forceinline__ bool coarse_select(const SelArgs& a, const Sel& s,
                                               const Pos& p, int& cur) {
   constexpr int BQ = 16 * TQ;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tx = ((warp & 1) << 3) | (lane & 7);
-  const int ty = ((warp >> 1) << 2) | (lane >> 3);
+  const int tx = WIDE ? lane & 15 : ((warp & 1) << 3) | (lane & 7);
+  const int ty = WIDE ? (warp << 1) | (lane >> 4)
+                      : ((warp >> 1) << 2) | (lane >> 3);
   const int d = a.d, w = a.w;
   const bool qv4 =
       (d & 3) == 0 && (reinterpret_cast<uintptr_t>(a.q) & 15) == 0;
@@ -573,13 +806,23 @@ __device__ __forceinline__ bool coarse_select(const SelArgs& a, const Sel& s,
           sc[i][j] = acc[i][j];
           acc[i][j] = 0.f;
         }
-      offer<TQ, QRES>(sc, [=](int, int j) { return c0 + ccol(tx, j); },
-                      pend, s, w, p.nq, cur, ty, lane);
+      const auto cid = [=](int, int j) { return c0 + ccol(tx, j); };
+      if constexpr (!WIDE)
+        offer<TQ, QRES>(sc, cid, pend, s, w, p.nq, cur, ty, lane);
+      else if (tl == 0)
+        fill_wide<TQ>(sc, c0, tx, pend, s, w, ty, lane);
+      else
+        offer_wide<TQ>(sc, cid, pend, s, w, a.cap, ty, warp, lane);
     }
   }
   cp_async_wait<0>();
   __syncthreads();
-  merge<TQ>(s, w, p.nq, cur);
+  if constexpr (WIDE) {
+    merge_wide<TQ>(s.lists, s.buf, s.cnt, a.cap, w, warp, lane, 1);
+    __syncthreads();
+  } else {
+    merge<TQ>(s, w, p.nq, cur);
+  }
   if (a.splits == 1) return true;
 
   // publish this split's lists; the last block of the query tile merges
@@ -618,10 +861,18 @@ __device__ __forceinline__ bool coarse_select(const SelArgs& a, const Sel& s,
         if (ok) pend |= bit(i, j);
       }
     }
-    offer<TQ, QRES>(sc, [&](int i, int j) { return id[i][j]; }, pend, s, w,
-                    p.nq, cur, ty, lane);
+    const auto eid = [&](int i, int j) { return id[i][j]; };
+    if constexpr (WIDE)
+      offer_wide<TQ>(sc, eid, pend, s, w, a.cap, ty, warp, lane);
+    else
+      offer<TQ, QRES>(sc, eid, pend, s, w, p.nq, cur, ty, lane);
   }
-  merge<TQ>(s, w, p.nq, cur);
+  if constexpr (WIDE) {
+    merge_wide<TQ>(s.lists, s.buf, s.cnt, a.cap, w, warp, lane, 1);
+    __syncthreads();
+  } else {
+    merge<TQ>(s, w, p.nq, cur);
+  }
   return true;
 }
 
@@ -629,15 +880,15 @@ __device__ __forceinline__ int cell_of(const Ent& e) {
   return e.i == SENT ? 0 : e.i;  // only for a table of +inf / NaN scores
 }
 
-template <int TQ, bool QRES>
+template <int TQ, bool QRES, bool WIDE>
 __global__ void __launch_bounds__(NT, 2)
     coarse_topw_kernel(SelArgs a, float* __restrict__ vals,
                        int* __restrict__ cells) {
   extern __shared__ __align__(16) float sm[];
-  const Sel s = sel_carve(sm, 16 * TQ, a, false);
+  const Sel s = sel_carve<WIDE>(sm, 16 * TQ, a, false);
   const Pos p = block_pos<TQ>(a);
   int cur;
-  if (!coarse_select<TQ, QRES>(a, s, p, cur)) return;
+  if (!coarse_select<TQ, QRES, WIDE>(a, s, p, cur)) return;
   const Ent* L = s.list(cur);
   for (int i = threadIdx.x; i < p.nq * a.w; i += NT) {
     const size_t o = static_cast<size_t>(p.q0) * a.w + i;
@@ -646,7 +897,7 @@ __global__ void __launch_bounds__(NT, 2)
   }
 }
 
-template <int TQ, bool QRES>
+template <int TQ, bool QRES, bool WIDE>
 __global__ void __launch_bounds__(NT, 2)
     coarse_vbase_kernel(SelArgs a, const float* __restrict__ rot,
                         int apply_rot, float* __restrict__ vals,
@@ -654,13 +905,70 @@ __global__ void __launch_bounds__(NT, 2)
                         __nv_bfloat16* __restrict__ v,
                         float* __restrict__ rn) {
   extern __shared__ __align__(16) float sm[];
-  const Sel s = sel_carve(sm, 16 * TQ, a, true);
+  const Sel s = sel_carve<WIDE>(sm, 16 * TQ, a, true);
   const Pos p = block_pos<TQ>(a);
   int cur;
-  if (!coarse_select<TQ, QRES>(a, s, p, cur)) return;
+  if (!coarse_select<TQ, QRES, WIDE>(a, s, p, cur)) return;
   const int d = a.d, w = a.w;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31, warps = NT >> 5;
+  // Under the large-w selection without a rotation, up to d = 32 EW: JU
+  // winners' rows in flight a warp (each winner's loads before the first
+  // store, as below, but w of them a row); the same sums.
+  constexpr int EW = 4, JU = 4;
+  if (WIDE && !apply_rot && d <= 32 * EW) {
+    for (int r = warp; r < p.nq; r += warps) {
+      const Ent* L = s.list(cur) + static_cast<size_t>(r) * w;
+      const size_t qi = static_cast<size_t>(p.q0 + r);
+      const float* qr = QRES ? s.qs + static_cast<size_t>(r) * qstride(d)
+                             : a.q + qi * d;
+      float qv[EW];
+#pragma unroll
+      for (int u = 0; u < EW; ++u) {
+        const int k = lane + 32 * u;
+        qv[u] = k < d ? (QRES ? qr[k] : __ldg(qr + k)) : 0.f;
+      }
+      for (int j0 = 0; j0 < w; j0 += JU) {
+        float x[JU][EW];
+        int cs[JU];
+#pragma unroll
+        for (int jj = 0; jj < JU; ++jj) {
+          const int j = min(j0 + jj, w - 1);
+          cs[jj] = cell_of(L[j]);
+          const float* cr = a.cents + static_cast<size_t>(cs[jj]) * d;
+#pragma unroll
+          for (int u = 0; u < EW; ++u) {
+            const int k = lane + 32 * u;
+            x[jj][u] = k < d ? __fsub_rn(qv[u], __ldg(cr + k)) : 0.f;
+          }
+        }
+#pragma unroll
+        for (int jj = 0; jj < JU; ++jj) {
+          const int j = j0 + jj;
+          if (j >= w) break;
+          __nv_bfloat16* vo = v + (qi * w + j) * d;
+          float part = 0.f;
+#pragma unroll
+          for (int u = 0; u < EW; ++u) {
+            const int k = lane + 32 * u;
+            if (k < d) {
+              vo[k] = __float2bfloat16_rn(-2.0f * x[jj][u]);
+              part = __fadd_rn(part, __fmul_rn(x[jj][u], x[jj][u]));
+            }
+          }
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            part = __fadd_rn(part, __shfl_down_sync(IVF_FULL_MASK, part, off));
+          if (lane == 0) {
+            vals[qi * w + j] = L[j].s;
+            cells[qi * w + j] = cs[jj];
+            rn[qi * w + j] = part;
+          }
+        }
+      }
+    }
+    return;
+  }
   float* rr = s.ring + static_cast<size_t>(warp) * d;  // q - c, to rotate
   for (int r = warp; r < p.nq; r += warps) {
     const Ent* L = s.list(cur) + static_cast<size_t>(r) * w;
@@ -715,7 +1023,7 @@ __global__ void __launch_bounds__(NT, 2)
   }
 }
 
-template <int TQ, bool QRES>
+template <int TQ, bool QRES, bool WIDE>
 __global__ void __launch_bounds__(NT, 2)
     coarse_vbase_v2_kernel(SelArgs a, const float* __restrict__ rot,
                            const __nv_bfloat16* __restrict__ hi,
@@ -724,10 +1032,10 @@ __global__ void __launch_bounds__(NT, 2)
                            int* __restrict__ cells,
                            __nv_bfloat16* __restrict__ v) {
   extern __shared__ __align__(16) float sm[];
-  const Sel s = sel_carve(sm, 16 * TQ, a, true);
+  const Sel s = sel_carve<WIDE>(sm, 16 * TQ, a, true);
   const Pos p = block_pos<TQ>(a);
   int cur;
-  if (!coarse_select<TQ, QRES>(a, s, p, cur)) return;
+  if (!coarse_select<TQ, QRES, WIDE>(a, s, p, cur)) return;
   const int d = a.d, w = a.w;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31, warps = NT >> 5;
@@ -771,22 +1079,72 @@ enum Kind { TOPW = 0, VBASE = 1, VBASE_V2 = 2 };
 
 bool valid_tq(int tq) { return tq == 1 || tq == 4; }
 
-template <int TQ, bool QRES>
+template <int TQ, bool QRES, bool WIDE>
 const void* kernel_of(int kind) {
   switch (kind) {
     case TOPW:
-      return reinterpret_cast<const void*>(coarse_topw_kernel<TQ, QRES>);
+      return reinterpret_cast<const void*>(
+          coarse_topw_kernel<TQ, QRES, WIDE>);
     case VBASE:
-      return reinterpret_cast<const void*>(coarse_vbase_kernel<TQ, QRES>);
+      return reinterpret_cast<const void*>(
+          coarse_vbase_kernel<TQ, QRES, WIDE>);
     default:
-      return reinterpret_cast<const void*>(coarse_vbase_v2_kernel<TQ, QRES>);
+      return reinterpret_cast<const void*>(
+          coarse_vbase_v2_kernel<TQ, QRES, WIDE>);
   }
 }
 
-const void* kernel_of(int kind, int tq, bool qres) {
+template <bool WIDE>
+const void* kernel_for(int kind, int tq, bool qres) {
   if (tq == 4)
-    return qres ? kernel_of<4, true>(kind) : kernel_of<4, false>(kind);
-  return qres ? kernel_of<1, true>(kind) : kernel_of<1, false>(kind);
+    return qres ? kernel_of<4, true, WIDE>(kind)
+                : kernel_of<4, false, WIDE>(kind);
+  return qres ? kernel_of<1, true, WIDE>(kind)
+              : kernel_of<1, false, WIDE>(kind);
+}
+
+// A launch's block for (d, w), a kind and query tiles of bq rows: the
+// large-w selection where w > WIDE_W, whether the query tile is held
+// whole, the buffer's candidate places a row, the shared bytes. The
+// large-w selection holds the query tile whole with the most places (even,
+// so that rows of cap + 1 places start on distinct banks; at most
+// CAPW_MAX) with which two blocks still share a SM, at least CAPW_MIN;
+// else streams it likewise; else takes one block a SM with CAPW_MAX
+// places, the query tile held whole where it fits.
+struct Shape {
+  bool wide, qres;
+  int cap;
+  size_t smem;
+  const void* kernel;
+};
+
+Shape shape_of(int kind, int bq, int d, int w) {
+  const bool scratch = kind != TOPW;
+  Shape sh;
+  sh.wide = w > WIDE_W;
+  if (!sh.wide) {
+    sh.qres = resident(bq, d, w, scratch);
+    sh.cap = CAP;
+    sh.smem = sel_bytes(bq, d, w, scratch, sh.qres);
+    sh.kernel = kernel_for<false>(kind, bq / 16, sh.qres);
+    return sh;
+  }
+  sh.qres = wide_bytes(bq, d, w, scratch, true, CAPW_MAX) <= SMEM_MAX;
+  sh.cap = CAPW_MAX;
+  for (int qres = 1; qres >= 0; --qres) {
+    const size_t base = wide_bytes(bq, d, w, scratch, qres, 0);
+    if (base > SMEM_TWO) continue;
+    const size_t fit = (SMEM_TWO - base) / (8 * static_cast<size_t>(bq));
+    const int cap = static_cast<int>(fit < CAPW_MAX ? fit : CAPW_MAX) & ~1;
+    if (cap >= CAPW_MIN) {
+      sh.qres = qres == 1;
+      sh.cap = cap;
+      break;
+    }
+  }
+  sh.smem = wide_bytes(bq, d, w, scratch, sh.qres, sh.cap);
+  sh.kernel = kernel_for<true>(kind, bq / 16, sh.qres);
+  return sh;
 }
 
 // Validate a launch plan, fill the kernel arguments and launch the kind's
@@ -796,12 +1154,11 @@ int launch(int kind, const void* q, const void* cents, const void* cn,
            int B, int d, int kc, int w, int tq, int splits, void* part,
            void* tickets, void** rest, int nrest, void* stream) {
   const int ntiles = (kc + BC - 1) / BC;
-  if (!valid_tq(tq) || d < 1 || w < 1 || w > kc || splits < 1 ||
-      splits > ntiles || (splits > 1 && (!part || !tickets)))
+  if (!valid_tq(tq) || d < 1 || w < 1 || w > WMAX || w > kc ||
+      splits < 1 || splits > ntiles || (splits > 1 && (!part || !tickets)))
     return cudaErrorInvalidValue;
-  const bool qres = resident(16 * tq, d, w, kind != TOPW);
-  const size_t smem = sel_bytes(16 * tq, d, w, kind != TOPW, qres);
-  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
+  const Shape sh = shape_of(kind, 16 * tq, d, w);
+  if (sh.smem > SMEM_MAX) return cudaErrorInvalidValue;
   SelArgs a;
   a.q = static_cast<const float*>(q);
   a.cents = static_cast<const float*>(cents);
@@ -812,17 +1169,18 @@ int launch(int kind, const void* q, const void* cents, const void* cn,
   a.w = w;
   a.splits = splits;
   a.tps = (ntiles + splits - 1) / splits;
-  a.qres = qres;
+  a.qres = sh.qres;
+  a.cap = sh.cap;
   a.part = static_cast<Ent*>(part);
   a.tickets = static_cast<int*>(tickets);
-  const void* k = kernel_of(kind, tq, qres);
-  int err = ivf_set_smem(k, smem);
+  const void* k = sh.kernel;
+  int err = ivf_set_smem(k, sh.smem);
   if (err) return err;
   const int grid = (B + 16 * tq - 1) / (16 * tq) * splits;
   if (grid > 0) {
     void* args[8] = {&a};
     for (int i = 0; i < nrest; ++i) args[1 + i] = rest[i];
-    cudaLaunchKernel(k, dim3(grid), dim3(NT), args, smem,
+    cudaLaunchKernel(k, dim3(grid), dim3(NT), args, sh.smem,
                      static_cast<cudaStream_t>(stream));
   }
   return ivf_launch_status();
@@ -833,14 +1191,16 @@ int launch(int kind, const void* q, const void* cents, const void* cn,
 // A block shape's fit for (d, w) and a kernel kind (0 top-w, 1 v/base,
 // 2 v2), with query tiles of 16 * tq rows (tq 4 or 1): out = {bq, bc,
 // shared bytes, resident blocks per SM, registers a thread, local (spilled)
-// bytes a thread, 1 where the query tile is held whole}, shared bytes and
-// blocks 0 where the shared memory would exceed a block's.
+// bytes a thread, 1 where the query tile is held whole, 1 where the
+// large-w selection runs, its candidate places a row (else 0)}, shared
+// bytes and blocks 0 where the shared memory would exceed a block's.
 extern "C" int coarse_fit(int d, int w, int kind, int tq, int* out) {
-  if (d < 1 || w < 1 || kind < TOPW || kind > VBASE_V2 || !valid_tq(tq))
+  if (d < 1 || w < 1 || w > WMAX || kind < TOPW || kind > VBASE_V2 ||
+      !valid_tq(tq))
     return cudaErrorInvalidValue;
-  const bool qres = resident(16 * tq, d, w, kind != TOPW);
-  const size_t smem = sel_bytes(16 * tq, d, w, kind != TOPW, qres);
-  const void* k = kernel_of(kind, tq, qres);
+  const Shape sh = shape_of(kind, 16 * tq, d, w);
+  const size_t smem = sh.smem;
+  const void* k = sh.kernel;
   cudaFuncAttributes fa;
   int err = static_cast<int>(cudaFuncGetAttributes(&fa, k));
   if (err) return err;
@@ -849,7 +1209,9 @@ extern "C" int coarse_fit(int d, int w, int kind, int tq, int* out) {
   out[2] = out[3] = 0;
   out[4] = fa.numRegs;
   out[5] = static_cast<int>(fa.localSizeBytes);
-  out[6] = qres;
+  out[6] = sh.qres;
+  out[7] = sh.wide;
+  out[8] = sh.wide ? sh.cap : 0;
   if (smem > SMEM_MAX) return 0;
   err = ivf_set_smem(k, smem);
   if (err) return err;

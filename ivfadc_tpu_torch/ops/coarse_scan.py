@@ -44,13 +44,16 @@ TQS = (4, 1)        # register tiles: tq x 8 sums a thread, 16 * tq queries
 
 # The plan's cost model, in query rows x features at the 64-query tile's
 # FMA rate. Its four constants picked the fastest plan (within 0.4 %) at
-# each of 17 shapes of an H100 sweep over every (tq, S) (PERF.md), where the
-# rule before it (the most splits whose blocks all fit the resident slots
-# at once) lost 24-66 % at three of them, GIST's among them. RATE: each
-# tile's FMA rate. Beside its d features, each 128-centroid tile costs
-# TILE_COST (the scores' offer to the lists); a split SPLIT_COST (its
+# each of 17 shapes of an H100 sweep over every (tq, S) at w = 8 (PERF.md),
+# where the rule before it (the most splits whose blocks all fit the
+# resident slots at once) lost 24-66 % at three of them, GIST's among them.
+# RATE: each tile's FMA rate. Beside its d features, each 128-centroid tile
+# costs TILE_COST (the scores' offer to the lists); a split SPLIT_COST (its
 # lists published, the ticket, the last block's merge). LONE: the rate of
 # a SM that runs fewer blocks than it holds (`coarse_fit`'s blocks a SM).
+# Under the large-w selection (`coarse_fit`'s `wide`, w > 32) a split's
+# lists, the offers that fill them and the last block's merge grow with w,
+# and so does its cost: SPLIT_COST w / 8.
 RATE = {4: 1.0, 1: 0.55}
 TILE_COST = 64
 SPLIT_COST = 625
@@ -58,20 +61,24 @@ LONE = 0.6
 
 
 def plan_cost(B: int, bq: int, sms: int, d: int, tq: int, splits: int,
-              tps: int, per_sm: int = 2) -> float:
+              tps: int, per_sm: int = 2, w: int = 8,
+              wide: bool = False) -> float:
     """The model's time of a plan: the rounds of blocks each of `sms` SMs
     runs (ceil(blocks / sms): a last round that fills few SMs costs a
     whole one) times a block's work, bq rows by its tps tiles of
-    d + TILE_COST features and the split's cost, at the tile's RATE, and
-    LONE of it where a SM runs fewer blocks than `per_sm`."""
+    d + TILE_COST features and the split's cost (w / 8 of it under the
+    large-w selection), at the tile's RATE, and LONE of it where a SM runs
+    fewer blocks than `per_sm`."""
     blocks = -(-B // bq) * splits
     n = max(1, -(-blocks // sms))
-    work = tps * (d + TILE_COST) + (SPLIT_COST if splits > 1 else 0)
+    split = SPLIT_COST * (w / 8 if wide else 1)
+    work = tps * (d + TILE_COST) + (split if splits > 1 else 0)
     return n * bq * work / RATE[tq] / (LONE if n < per_sm else 1.0)
 
 
 def split_plan(B: int, kc: int, bq: int, bc: int, sms: int, d: int = 128,
-               tq: int = 4, per_sm: int = 2):
+               tq: int = 4, per_sm: int = 2, w: int = 8,
+               wide: bool = False):
     """(S, tiles per split): the kernels' grid is ceil(B / bq) query tiles
     times S splits of the ceil(kc / bc) centroid tiles, S from 1 to one
     tile a split, tiles spread evenly so no split is empty; the least
@@ -82,7 +89,7 @@ def split_plan(B: int, kc: int, bq: int, bc: int, sms: int, d: int = 128,
         tps = -(-tiles // s)            # as the kernel spreads the tiles
         if -(-tiles // tps) != s:       # an empty split: the same as fewer
             continue
-        cost = plan_cost(B, bq, sms, d, tq, s, tps, per_sm)
+        cost = plan_cost(B, bq, sms, d, tq, s, tps, per_sm, w, wide)
         if best is None or cost < best[2]:
             best = (s, tps, cost)
     return best[:2]
@@ -97,16 +104,17 @@ def choose(B: int, d: int, kc: int, w: int, sms: int, fits: dict) -> dict:
     enough to fill the card, 16-query tiles below that (on an H100 up to
     about 4096 queries at d = 128 and 1024 at d = 960: a smaller batch
     spreads over more blocks and wastes fewer rows). `narrow`: the plan
-    runs 16-query tiles."""
+    runs 16-query tiles; `wide` (from the fit) the large-w selection."""
     plans = []
     for tq in TQS:
         fit = fits.get(tq)
         if fit is None:
             continue
         bq, bc, per_sm = fit["bq"], fit["bc"], fit["blocks_per_sm"]
-        s, tps = split_plan(B, kc, bq, bc, sms, d, tq, per_sm)
-        cost = plan_cost(B, bq, sms, d, tq, s, tps, per_sm)
-        plans.append((cost, -tq, dict(fit, tq=tq, splits=s,
+        wide = fit.get("wide", False)
+        s, tps = split_plan(B, kc, bq, bc, sms, d, tq, per_sm, w, wide)
+        cost = plan_cost(B, bq, sms, d, tq, s, tps, per_sm, w, wide)
+        plans.append((cost, -tq, dict(fit, tq=tq, splits=s, wide=wide,
                                       tiles_per_split=tps,
                                       grid=-(-B // bq) * s, sms=sms,
                                       narrow=tq == 1)))
@@ -121,16 +129,17 @@ def _fit(d: int, w: int, kind: int, tq: int, device_index: int):
     """The fit of query tiles of 16 * tq rows for (d, w) and a kernel kind
     (`coarse_fit`): bq, bc, shared bytes, resident blocks per SM,
     registers and spilled bytes a thread, `resident` (the query tile held
-    whole in shared memory, else streamed in slabs); None where they do not
-    fit."""
-    out = (ctypes.c_int * 7)()
+    whole in shared memory, else streamed in slabs), `wide` (the large-w
+    selection, w > 32) and its `cap` (candidate places a row, else 0);
+    None where they do not fit."""
+    out = (ctypes.c_int * 9)()
     with torch.cuda.device(device_index):
         _FIT(d, w, kind, tq, ctypes.addressof(out))
     if out[3] == 0:
         return None
     return dict(bq=out[0], bc=out[1], smem_bytes=out[2],
                 blocks_per_sm=out[3], registers=out[4], local_bytes=out[5],
-                resident=bool(out[6]))
+                resident=bool(out[6]), wide=bool(out[7]), cap=out[8])
 
 
 @functools.lru_cache(maxsize=None)
@@ -145,8 +154,8 @@ def plan(B: int, d: int, kc: int, w: int, kind: str, device) -> dict:
     (d, w) on this card, at its SM count. Fields: tq, bq (16 * tq query
     rows a block), bc (centroids a tile), splits and tiles_per_split of the
     table, grid, smem_bytes, blocks_per_sm, registers, local_bytes,
-    `resident` (the query tile held whole), sms, `narrow` (16-query
-    tiles)."""
+    `resident` (the query tile held whole), `wide` and `cap` (the large-w
+    selection and its buffer), sms, `narrow` (16-query tiles)."""
     device = torch.device(device)
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
@@ -167,6 +176,8 @@ def _launch_args(B: int, d: int, kc: int, w: int, kind: str, dev):
     p = plan(B, d, kc, w, kind, dev)
     if p["narrow"]:
         planned("probe_narrow_launches")
+    if p["wide"]:
+        planned("probe_wide_select_launches")
     if p["splits"] == 1:
         return p["tq"], 1, None, None
     part = torch.empty((B, p["splits"], w, 2), dtype=torch.int32,

@@ -9,9 +9,12 @@ The earlier source is compiled by nvcc into a temporary directory (beside
 this tree's `csrc/common.cuh`) and bound with the C signatures that take
 a launch plan (query tile tq, table splits, the splits' lists and
 tickets), those of this tree and of every source since the plan was added.
-The earlier build runs the plan of the rule those sources had, from their
-4-int `coarse_fit` (tq = 4 where the 64-query grid fills every SM, else 1;
-the most splits whose blocks all fit the resident slots at once). At each
+The earlier build runs the plan of the rule its source had: a `coarse_fit`
+that reports 7 ints or more (the cost model's sources) takes this tree's
+`choose` over its own fits, which plans a fit that reports no large-w
+selection as those sources did; a 4-int `coarse_fit` the rule before the
+cost model (tq = 4 where the 64-query grid fills every SM, else 1; the
+most splits whose blocks all fit the resident slots at once). At each
 shape the kernel (top-w, v/base or v2) runs on the same inputs through both builds: random-float queries near random centroids
 from a seed, and integer-valued ones (entries in -2..2, so most scores tie
 exactly). Prints one JSON line: the card's name and power limit, and per
@@ -39,7 +42,10 @@ from ivfadc_tpu_torch.ops import coarse_scan as cs
 # (name, kernel, B, kc, d, w, rotation): the SIFT1M shape's small batch
 # (B = 256) and grouped batch (B = 16384), the Deep1B-shard shape's naive
 # probe over kc = 2^18 (B = 4096, d = 96, w = 32), then the benchmark
-# cells' (gist1m.batch, sift1m.batch, sift1m.batch64k)
+# cells' (gist1m.batch, sift1m.batch, sift1m.batch64k, sift1m.ivf8192), and
+# beside the last its top-w kernel and its shape at w = 8: top-w at w = 64
+# less at w = 8 is what w costs the selection, v/base less top-w the
+# epilogue
 SHAPES = [("topw_b256", "topw", 256, 1024, 128, 8, False),
           ("vbase_b16384", "vbase", 16384, 1024, 128, 8, False),
           ("vbase_b16384_rot", "vbase", 16384, 1024, 128, 8, True),
@@ -49,7 +55,10 @@ SHAPES = [("topw_b256", "topw", 256, 1024, 128, 8, False),
           ("vbase_large_kc", "vbase", 4096, 1 << 18, 96, 32, False),
           ("vbase_gist", "vbase", 10240, 1024, 960, 8, False),
           ("vbase_sift", "vbase", 10240, 1024, 128, 8, False),
-          ("vbase_b65536", "vbase", 65536, 1024, 128, 8, False)]
+          ("vbase_b65536", "vbase", 65536, 1024, 128, 8, False),
+          ("vbase_sift8k", "vbase", 10240, 8192, 128, 64, False),
+          ("topw_sift8k", "topw", 10240, 8192, 128, 64, False),
+          ("vbase_sift8k_w8", "vbase", 10240, 8192, 128, 8, False)]
 
 P, I = ctypes.c_void_p, ctypes.c_int
 OLD_ARGS = {"vbase": [P] * 4 + [I] * 7 + [P] * 7,      # the stream last
@@ -69,27 +78,39 @@ def build_old(src: str, out_dir: str, name: str = "coarse_old") -> str:
 
 
 def old_plan(lib, B, d, kc, w, kind):
-    """(tq, splits) of an earlier source by its own rule:
-    64-query tiles where their grid fills every SM, else 16; the most
-    splits whose blocks all fit the card's resident slots at once."""
+    """(tq, splits, fit of the plan's tile) of an earlier source by its own
+    rule: this tree's `choose` over the fits of a `coarse_fit` of 7 ints or
+    more; over a 4-int one, 64-query tiles where their grid fills every SM,
+    else 16, and the most splits whose blocks all fit the card's resident
+    slots at once."""
     fit = lib.coarse_fit
     fit.argtypes = [I, I, I, I, P]
     fit.restype = I
     sms = cs._sms(torch.cuda.current_device())
-    plans = []
-    for tq in (4, 1):
-        out = (ctypes.c_int * 4)()
+    fits, plans = {}, []
+    for tq in cs.TQS:
+        out = (ctypes.c_int * 16)(*[-1] * 16)   # -1: a place not written
         if fit(d, w, cs._KINDS[kind], tq, ctypes.addressof(out)):
             raise RuntimeError("old coarse_fit failed")
-        bq, bc, _, per_sm = out
+        bq, bc, smem, per_sm = out[:4]
         if per_sm == 0:
+            continue
+        if out[4] != -1:
+            fits[tq] = dict(bq=bq, bc=bc, smem_bytes=smem,
+                            blocks_per_sm=per_sm, registers=out[4],
+                            local_bytes=out[5], resident=bool(out[6]),
+                            wide=out[7] == 1, cap=max(out[8], 0))
             continue
         tiles, qtiles = -(-kc // bc), -(-B // bq)
         s = min(tiles, max(1, sms * per_sm // max(qtiles, 1)))
         s = -(-tiles // -(-tiles // s))
-        plans.append((tq, s, qtiles * s))
-    tq, s, _ = plans[0] if plans[0][2] >= sms else plans[-1]
-    return tq, s
+        plans.append((tq, s, qtiles * s, dict(bq=bq, smem_bytes=smem,
+                                               blocks_per_sm=per_sm)))
+    if fits:
+        p = cs.choose(B, d, kc, w, sms, fits)
+        return p["tq"], p["splits"], fits[p["tq"]]
+    tq, s, _, f = plans[0] if plans[0][2] >= sms else plans[-1]
+    return tq, s, f
 
 
 def inputs(B, kc, d, rotation, integer, seed):
@@ -115,7 +136,7 @@ def runners(lib, kind, q, c, cn, rot, w, rotation):
     fn.argtypes = OLD_ARGS[kind]
     fn.restype = ctypes.c_int
     hi, lo = cs.hi_lo_split(c, rot, rotation)
-    tq, splits = old_plan(lib, B, d, kc, w, kind)
+    tq, splits, ofit = old_plan(lib, B, d, kc, w, kind)
     part = torch.empty((B, splits, w, 2), dtype=torch.int32,
                        device="cuda") if splits > 1 else None
     tickets = torch.zeros(-(-B // (16 * tq)), dtype=torch.int32,
@@ -169,7 +190,7 @@ def runners(lib, kind, q, c, cn, rot, w, rotation):
             return list(cs.coarse_vbase(q, c, cn, rot, w, rotation))
         return list(cs.coarse_vbase_v2(q, c, cn, rot, hi, lo, w, rotation))
 
-    return old, new, plan[:2]
+    return old, new, plan[:2] + [ofit]
 
 
 def cuda_ms(fn, reps: int) -> list:

@@ -155,7 +155,7 @@ COUNTS = ("searches", "queries", "padded_queries", "probes",
           "postings_probed", "scan_pairs", "graph_captures", "graph_replays",
           "scan_cache_bytes", "probe_narrow_launches",
           "scan_single_tile_launches", "scan_probe_order_launches",
-          "tileprep_sort_launches")
+          "tileprep_sort_launches", "probe_wide_select_launches")
 _DEVICE_COUNTS = ("postings_probed", "scan_pairs", "scan_cache_bytes")
 
 
@@ -265,7 +265,8 @@ def plans_counted() -> bool:
 def planned(name: str) -> None:
     """One kernel launch that ran the plan `name` counts
     (`probe_narrow_launches`, `scan_single_tile_launches`,
-    `scan_probe_order_launches`, `tileprep_sort_launches`): logged inside
+    `scan_probe_order_launches`, `tileprep_sort_launches`,
+    `probe_wide_select_launches`): logged inside
     `planning()`, else added to the open `counting()` block, if any."""
     log = getattr(_open, "plans", None)
     if log is not None:
@@ -332,11 +333,16 @@ def counting():
                       a two-level stage 2's groups), 1 a grouped search of
                       such an index, else 0; the same tensor code runs on
                       the CPU, so it counts there too
+      probe_wide_select_launches
+                      coarse-kernel launches (kernels 1, 7, 10) planned on
+                      the large-w selection (coarse_scan.plan's `wide`:
+                      w > 32, each warp owning its rows' lists): 1 a
+                      search at w = 64, 0 at w <= 32
 
     Inside, each search adds device-side sums into one small tensor per
-    device, read once (one sync) when the block ends; the four launch
-    counts are host ints, and the first three read 0 where no kernel
-    launches (the plain versions on the CPU). Outside any block the
+    device, read once (one sync) when the block ends; the five launch
+    counts are host ints, and all but `tileprep_sort_launches` read 0
+    where no kernel launches (the plain versions on the CPU). Outside any block the
     counters launch nothing and allocate nothing. Searches on any
     thread count; blocks do not nest. The sharded views count their
     scans' postings and pairs, padding rows included, not their

@@ -328,7 +328,8 @@ def test_probe_scan_kernel(dev, nf, norm_coef, integer):
                                       (33, 96, 100, 5), (16, 128, 256, 128),
                                       (40, 96, 10000, 32),
                                       (24, 128, 9000, 16),
-                                      (17, 32, 70000, 128)])
+                                      (17, 32, 70000, 128),
+                                      (10240, 128, 8192, 64)])
 def test_coarse_topw_kernel(dev, B, d, kc, w):
     # kc > 128: the table is scored in 128-centroid tiles, split over
     # blocks, each keeping a running top-w
@@ -373,12 +374,12 @@ def _tie_table(rng, B, kc, d, dev, w):
 def test_coarse_kernels_break_ties_by_index_across_chunks(dev, kc, w):
     # integer-valued inputs: every score is exact and most tie, within a
     # tile of 128 centroids, across tiles and across the splits of the
-    # table that the kernels score in separate blocks, so both kernels
-    # must return the plain version's cells (lowest index first) bit for
-    # bit
+    # table that the kernels score in separate blocks (the plan's, and
+    # one tile a split past the plan: every tile boundary a split's), so
+    # both kernels must return the plain version's cells (lowest index
+    # first) bit for bit
     rng = np.random.RandomState(kc)
     B, d = 37, 16
-    assert coarse_scan.plan(B, d, kc, w, "topw", dev)["splits"] > 1
     q, c = _tie_table(rng, B, kc, d, dev, w)
     cn = torch.sum(c * c, dim=1)
     pvals, pcells = coarse_scan.coarse_topw_plain(q, c, cn, w)
@@ -393,6 +394,11 @@ def test_coarse_kernels_break_ties_by_index_across_chunks(dev, kc, w):
     pv = coarse_scan.coarse_vbase_plain(q, c, cn, torch.eye(d), w, False)
     assert torch.equal(fvals.cpu(), pv[0]) and torch.equal(fcells.cpu(), pv[1])
     assert torch.equal(fv.cpu(), pv[2]) and torch.equal(frn.cpu(), pv[3])
+    tiles = -(-kc // 128)
+    qd, cd, cnd = q.to(dev), c.to(dev), cn.to(dev)
+    for kind, want in (("topw", (pvals, pcells)), ("vbase", pv)):
+        got = _forced(kind, qd, cd, cnd, w, 1, tiles)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want)), kind
 
 
 @pytest.mark.cuda
@@ -401,13 +407,16 @@ def test_coarse_kernels_break_ties_by_index_across_chunks(dev, kc, w):
     (7, 1000, 96, 128), (256, 1024, 128, 8), (256, 1024, 128, 128),
     (256, 4097, 100, 32), (4096, 1024, 100, 1), (4096, 4097, 96, 32),
     (7, 65536, 128, 1), (1, 65536, 96, 128), (4096, 65536, 96, 32),
-    (1024, 32768, 96, 32)])
+    (1024, 32768, 96, 32), (10240, 8192, 128, 64),
+    (300, 4096, 128, 32), (300, 4096, 128, 33), (300, 4096, 128, 64),
+    (300, 4096, 128, 100), (300, 4096, 128, 128)])
 def test_coarse_kernels_integer_ties_bit_equal(dev, B, kc, d, w):
     # kernels 7, 1 and 10 on integer-tie tables at every batch shape the
-    # split plan distinguishes (one query tile, a few, many), held to the
-    # plain versions bit for bit on the card: (vals, cells) for 7, (vals,
-    # cells, v, rn) for 1, and kernel 10's cells equal to kernel 1's; each
-    # wrapper launches exactly once per call
+    # split plan distinguishes (one query tile, a few, many), and about the
+    # switch to the large-w selection (w = 32 | 33), held to the plain
+    # versions bit for bit on the card: (vals, cells) for 7, (vals, cells,
+    # v, rn) for 1, and kernel 10's cells equal to kernel 1's; each wrapper
+    # launches exactly once per call
     rng = np.random.RandomState(B * 7 + kc + d + w)
     q, c = (t.to(dev) for t in _tie_table(rng, B, kc, d, dev, w))
     cn = torch.sum(c * c, dim=1)
@@ -2124,7 +2133,7 @@ def test_coarse_probe_kernel_at_gist_width(dev, B):
     them (at least 64 queries at B = 10,240) and 16-query tiles for a small
     one (`narrow`). On integer-tie tables the cells, v and base equal the
     plain version bit for bit; `counting()` reads one narrow launch at
-    B = 16, none at 10,240."""
+    B = 16, none at 10,240, and no launch on the large-w selection."""
     from ivfadc_tpu_torch.utils import profiling
     d, kc, w = 960, 1024, 8
     p = coarse_scan.plan(B, d, kc, w, "vbase", dev)
@@ -2140,6 +2149,7 @@ def test_coarse_probe_kernel_at_gist_width(dev, B):
         got = coarse_scan.coarse_vbase(q, c, cn, eye, w, False)
     assert coarse_scan.KERNEL.launches == n0 + 1
     assert counts["probe_narrow_launches"] == int(narrow)
+    assert counts["probe_wide_select_launches"] == 0
     want = coarse_scan.coarse_vbase_plain(q, c, cn, eye, w, False)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
@@ -2181,9 +2191,11 @@ def _forced(kind, q, c, cn, w, tq, splits):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("integer", [True, False])
-@pytest.mark.parametrize("d,kc", [(960, 1024), (97, 1024), (961, 1000),
-                                  (128, 1000)])
-def test_coarse_query_tiles_agree_bit_for_bit(dev, d, kc, integer):
+@pytest.mark.parametrize("d,kc,w", [(960, 1024, 8), (97, 1024, 8),
+                                    (961, 1000, 8), (128, 1000, 8),
+                                    (128, 4096, 64), (97, 1000, 33),
+                                    (961, 1000, 128)])
+def test_coarse_query_tiles_agree_bit_for_bit(dev, d, kc, w, integer):
     """Kernels 7, 1 and 10 on 16- and 64-query tiles, on one split, three
     and one tile a split, give the same bits: the sums run in feature
     order whatever the tile and wherever the query tile lives (streamed for
@@ -2191,9 +2203,12 @@ def test_coarse_query_tiles_agree_bit_for_bit(dev, d, kc, integer):
     ranks by (score, index). At d = 960, at ragged d (97 and 961: the
     4-byte copies, a partial last slab) and at a kc that is not a multiple
     of 128 (a ragged last tile), on random floats and on `_tie_table`'s
-    integer ties, which also equal the plain versions."""
-    B, w = 333, 8
-    rng = np.random.RandomState(d + kc)
+    integer ties, which also equal the plain versions. Past w = 32 the plan
+    reports the large-w selection (a warp owns its rows' lists, a split's
+    first tile fills them by a sort, the last block merges the others'
+    lists through the same offers) and its buffer."""
+    B = 333
+    rng = np.random.RandomState(d + kc + w)
     if integer:
         q, c = (t.to(dev) for t in _tie_table(rng, B, kc, d, dev, w))
     else:
@@ -2202,6 +2217,8 @@ def test_coarse_query_tiles_agree_bit_for_bit(dev, d, kc, integer):
     cn = torch.sum(c * c, dim=1)
     tiles = -(-kc // 128)
     for kind in ("topw", "vbase", "vbase_v2"):
+        p = coarse_scan.plan(B, d, kc, w, kind, dev)
+        assert p["wide"] == (w > 32) and (p["cap"] >= 16 or w <= 32), p
         want = _forced(kind, q, c, cn, w, 1, 1)
         for tq in (1, 4):
             for splits in (1, 3, tiles):
@@ -2327,6 +2344,7 @@ def test_gist_shape_search_on_the_card_equals_the_cpu_route(dev, tmp_path):
     assert coarse_scan.plan(64, 960, 16, 4, "vbase", dev)["narrow"]
     assert eager["probe_narrow_launches"] == 3
     assert eager["scan_single_tile_launches"] == 3
+    assert eager["probe_wide_select_launches"] == 0
     for name in profiling.COUNTS:
         if not name.startswith("graph_"):
             assert replayed[name] == eager[name], name

@@ -361,15 +361,17 @@ def sift8k(dev):
 @contextlib.contextmanager
 def _counted():
     """The kernels' launch counts of the block, filled in as it ends, its
-    grouped-scan launches that wrote probe-order rows and its sort-based
-    tile preps (`profiling.counting()`'s `scan_probe_order_launches`,
-    `tileprep_sort_launches`)."""
+    grouped-scan launches that wrote probe-order rows, its sort-based tile
+    preps and its coarse launches on the large-w selection
+    (`profiling.counting()`'s `scan_probe_order_launches`,
+    `tileprep_sort_launches`, `probe_wide_select_launches`)."""
     from ivfadc_tpu_torch.utils import profiling
     before, counts = _launches(), {}
     with profiling.counting() as plans:
         yield counts
     counts.update({k: n - before[k] for k, n in _launches().items()})
-    for name in ("scan_probe_order_launches", "tileprep_sort_launches"):
+    for name in ("scan_probe_order_launches", "tileprep_sort_launches",
+                 "probe_wide_select_launches"):
         counts[name] = plans[name]
 
 
@@ -613,13 +615,14 @@ def _sort_prep(s):
     assert _tie_overlap(ids, dists, c_ids, c_dists) >= 0.999
     # the key's second call captures the route, sort included, as a CUDA
     # graph and the third replays it: both give the eager call's results,
-    # and each counts its sort
+    # and each counts its sort and its probe on the large-w selection
     from ivfadc_tpu_torch.utils import profiling
     with profiling.counting() as graphed:
         again = [_within(ROUTE_TIMEOUT_S, lambda: s.index.search_padded(
             s.q, K8, w=W8)) for _ in range(2)]
     assert graphed["graph_captures"] == graphed["graph_replays"] == 1
     assert graphed["tileprep_sort_launches"] == 2
+    assert graphed["probe_wide_select_launches"] == 2
     for got in again:
         np.testing.assert_array_equal(got[0], ids)
         np.testing.assert_array_equal(got[1], dists)
@@ -727,7 +730,7 @@ ROUTES = {
     "grouped": ("sift", _grouped,
                 _each(1, _GROUPED + ["scan_probe_order_launches"]),
                 ["probe_scan", "topk_index", "coarse_topw",
-                 "grouped_scan_knorm"]),
+                 "grouped_scan_knorm", "probe_wide_select_launches"]),
     "small_batch": ("sift", _small_batch, _each(8, _PER_PROBE),
                     ["cell_rank", "grouped_scan", "topk_payload",
                      "coarse_topw", "grouped_scan_knorm"]),
@@ -785,11 +788,13 @@ ROUTES = {
                         ["coarse_probe", "grouped_scan"]),
     "opq": ("opq", _opq_route, _each(1, _GROUPED),
             ["coarse_topw", "probe_scan"]),
-    # past MAX_KC the tiles come from the sort: the counting kernel idles
+    # past MAX_KC the tiles come from the sort: the counting kernel idles;
+    # w = 64 probes on the large-w selection
     "sort_prep_kc8192": ("sift8k", _sort_prep,
                          _each(1, ["coarse_probe", "grouped_scan",
                                    "topk_payload", "tileprep_sort_launches",
-                                   "scan_probe_order_launches"]),
+                                   "scan_probe_order_launches",
+                                   "probe_wide_select_launches"]),
                          ["cell_rank", "cell_rank_v2", "probe_scan",
                           "topk_index", "grouped_scan_knorm"]),
     "sharded_1x4_grouped": ("sift", _sharded(1, True),

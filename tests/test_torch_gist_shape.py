@@ -189,7 +189,7 @@ def test_gist_shape_pad_lanes_never_score(gist):
 def test_gist_shape_counters_read_their_formulas(gist):
     """`counting()` on the CPU dense route at this shape: the streamed
     cache bytes are the grouped scan's rows times 1,024 int8 lanes; the
-    two launch counts read 0, since the plain versions launch nothing."""
+    three launch counts read 0, since the plain versions launch nothing."""
     idx, _, q, _, _, _ = gist
     with profiling.counting() as counts:
         idx.search_padded(q, K, W)
@@ -201,3 +201,4 @@ def test_gist_shape_counters_read_their_formulas(gist):
     assert counts["scan_cache_bytes"] == rows * D_PAD
     assert counts["probe_narrow_launches"] == 0
     assert counts["scan_single_tile_launches"] == 0
+    assert counts["probe_wide_select_launches"] == 0

@@ -318,6 +318,50 @@ def test_coarse_tile_choice_at_the_cells_shapes(B, d, tq, splits):
         assert -(-p["grid"] // sms) * sms <= 1.05 * p["grid"]
 
 
+# What `coarse_fit` reported on an H100 for the v/base kernel at d = 128,
+# w = 64, the large-w selection: (shared bytes, resident blocks a SM,
+# candidate places a row) of each query tile tq
+WIDE_FITS_D128 = {tq: dict(bq=16 * tq, bc=128, smem_bytes=smem,
+                           blocks_per_sm=per_sm, wide=True, cap=cap)
+                  for tq, (smem, per_sm, cap) in {1: (57796, 2, 32),
+                                                  4: (115460, 2, 22)}.items()}
+
+
+@pytest.mark.parametrize("B,kc,d,w,tq,splits", [
+    (10240, 1024, 960, 8, 4, 4),      # gist1m.batch
+    (10240, 1024, 128, 8, 4, 1),      # sift1m.batch
+    (65536, 1024, 128, 8, 4, 1),      # sift1m.batch64k
+    (10240, 8192, 128, 8, 4, 4),      # sift1m.ivf8192's shape at w = 8
+    (10240, 8192, 128, 64, 4, 1),     # sift1m.ivf8192
+])
+def test_coarse_plan_weighs_the_large_w_selection(B, kc, d, w, tq, splits):
+    """`choose` on the fits an H100 reported: the plan runs the large-w
+    selection (`wide`) only where the fit reports it (w > 32), and only
+    there does a split's cost grow with w. The w = 8 cells' plans are the
+    w-blind model's, dict for dict; at `sift1m.ivf8192`'s shape w = 64's
+    split cost keeps one split where the w-blind model took four (an H100
+    sweep in turns: S = 1-3 within 1 %, S = 4 5 % slower, PERF.md)."""
+    sms = 132
+    fits = WIDE_FITS_D128 if w > 32 else H100_FITS[d]
+    p = t_coarse.choose(B, d, kc, w, sms, fits)
+    assert (p["tq"], p["splits"]) == (tq, splits)
+    assert p["wide"] == (w > 32)
+    blind = t_coarse.choose(B, d, kc, 8, sms, {
+        k: dict(f, wide=False) for k, f in fits.items()})
+    if w <= 32:
+        assert blind == p
+    else:
+        assert (blind["tq"], blind["splits"]) == (4, 4)
+    # w alone moves no cost: only the large-w selection's splits weigh it
+    tiles = -(-kc // 128)
+    for s in (2, 4):
+        args = (B, 64, sms, d, 4, s, -(-tiles // s))
+        assert t_coarse.plan_cost(*args, w=64) == t_coarse.plan_cost(*args)
+        assert t_coarse.plan_cost(*args, w=64, wide=True) \
+            > t_coarse.plan_cost(*args, w=8, wide=True) \
+            == t_coarse.plan_cost(*args)
+
+
 def test_coarse_topw_equals_fused_probe_cells():
     # the two probe kernels share their score code: same cells, same
     # distances, on the plain versions as on the card

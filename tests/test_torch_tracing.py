@@ -188,7 +188,8 @@ def test_counting_matches_probe_stats_and_loop_bounds(route, indexes, data,
         "scan_cache_bytes": _cache_bytes(route, idx, q),
         # the plain versions launch no kernel
         "probe_narrow_launches": 0, "scan_single_tile_launches": 0,
-        "scan_probe_order_launches": 0, "tileprep_sort_launches": 0}
+        "scan_probe_order_launches": 0, "tileprep_sort_launches": 0,
+        "probe_wide_select_launches": 0}
     assert counts["scan_pairs"] >= counts["postings_probed"]
     # outside the block nothing is counted
     before = dict(counts)
