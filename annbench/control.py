@@ -12,12 +12,15 @@ computed one step below the precision the configuration states
 (bfloat16 for float32, int4 tables for int8: `reference/ivfadc.py`
 CONTROL), answers the same sampled queries with it, and prints the same
 numbers (`"who": "control"`; it trains nothing, so it has no training
-numbers). The training numbers have their own controls, the reference's
-training with the configuration's stated iteration counts (25 Lloyd
-iterations of the coarse k-means and of each PQ subspace's) broken, in
-the program's place (`"who": "fault:<name>"`, see FAULTS), and the
-reference trained again from another generator stream, a sound stand-in
-(`"who": "reference_again"`). A sound comparison reads the program within
+numbers). Where the traffic mutates the index, the control holds every
+point ever pushed and answers each sampled query over the points live at
+that answer's version, with its ids as positions there
+(`reference/replay.py`). The training numbers have their own controls,
+the reference's training with the configuration's stated iteration
+counts (25 Lloyd iterations of the coarse k-means and of each PQ
+subspace's) broken, in the program's place (`"who": "fault:<name>"`, see
+FAULTS), and the reference trained again from another generator stream,
+a sound stand-in (`"who": "reference_again"`). A sound comparison reads the program within
 every limit and the control, and each fault, beyond at least one. The
 benchmark's own runs never run this.
 """
@@ -37,6 +40,7 @@ import torch  # noqa: E402
 from annbench import datagen, harness, specs  # noqa: E402
 from annbench.reference import compare, train  # noqa: E402
 from annbench.reference import ivfadc as ref  # noqa: E402
+from annbench.reference.replay import Replay  # noqa: E402
 from annbench.window import Window  # noqa: E402
 
 
@@ -55,7 +59,7 @@ def readings(cell_name: str, seed: int, seconds: float, control: bool, *,
     dev = torch.device(device or "cuda")
     _, cfg, traffic, check = harness.load(cell_name, overrides)
     index, queries, qh, n, _, _ = harness.build(cfg, traffic, seed, dev)
-    ctx = harness.Ctx(index, queries, qh, traffic, seed)
+    ctx = harness.Ctx(index, queries, qh, traffic, seed, cfg["data"])
     drv = specs.driver(traffic["driver"])
     drv.warm(ctx)
     win = drv.run(ctx, seconds)
@@ -64,7 +68,8 @@ def readings(cell_name: str, seed: int, seconds: float, control: bool, *,
                       min(check["answers"], len(win.answers)), replace=False)
     win.answers = [win.answers[i] for i in sorted(keep)]
     trained = harness.trained_of(index)
-    given, held = harness.stored_of(index, n, dev)
+    end = Replay(n, win.mutations).at_end()
+    given, held = harness.stored_of(index, end.n_all, dev, end.table)
     del ctx, index
     harness.free_memory(dev)
     out = []
@@ -72,24 +77,30 @@ def readings(cell_name: str, seed: int, seconds: float, control: bool, *,
                                   trained, given, held, win, False)
     out.append(("program", numbers))
     if control:
-        base = datagen.clustered(cfg["data"]["n"], cfg["data"]["d"],
-                                 cfg["data"]["n_clusters"],
-                                 cfg["data"]["noise"], seed, dev)
-        cgiven = ref.build(base, trained, ref.CONTROL)
-        del base
-        pool = [a[0] for a in win.answers]
-        q = queries[torch.as_tensor(pool, device=dev)]
-        cells, cd = ref.probe(q, trained, traffic["w"], ref.CONTROL)
-        ids, dists = ref.search(q, cells, cd, cgiven,
-                                ref.Lists(cgiven, trained.centroids.shape[0]),
-                                trained, traffic["k"], ref.CONTROL)
-        cwin = Window(attempted=len(pool), failed=0, completed=len(pool),
-                      elapsed_s=1.0,
-                      answers=[(p, ids[i], dists[i].astype(np.float32))
-                               for i, p in enumerate(pool)])
+        x = harness.points_of(cfg, seed, end, dev)
+        cgiven = ref.build(x, trained, ref.CONTROL)
+        del x
+        lists = ref.Lists(cgiven, trained.centroids.shape[0])
+        walk = Replay(n, win.mutations)
+        answers = []
+        for v in sorted({a[3] for a in win.answers}):
+            walk.advance(v)
+            pool = [a[0] for a in win.answers if a[3] == v]
+            q = queries[torch.as_tensor(pool, device=dev)]
+            cells, cd = ref.probe(q, trained, traffic["w"], ref.CONTROL)
+            ids, dists = ref.search(
+                q, cells, cd, cgiven, lists, trained, traffic["k"],
+                ref.CONTROL, walk.live if win.mutations else None)
+            ids = walk.positions(ids)
+            answers += [(p, ids[i], dists[i].astype(np.float32), v)
+                        for i, p in enumerate(pool)]
+        cwin = Window(attempted=len(answers), failed=0,
+                      completed=len(answers), elapsed_s=1.0,
+                      answers=answers, mutations=win.mutations)
         numbers, _, _ = harness.judge(cfg, traffic, check, seed, dev,
                                       queries, trained, cgiven,
-                                      np.arange(n), cwin, False)
+                                      np.arange(end.table.size), cwin,
+                                      False)
         out.append(("control", {k: v for k, v in numbers.items()
                                 if k not in compare.TRAINING}))
         base = datagen.clustered(cfg["data"]["n"], cfg["data"]["d"],

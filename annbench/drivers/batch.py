@@ -39,11 +39,11 @@ def run(ctx, seconds: float, span=contextlib.nullcontext) -> Window:
         with span():
             ids, dists = ctx.index.search_padded(q, k, w)
         for r in plan[n % len(plan)]:
-            answers.append((int(r), ids[r].copy(), dists[r].copy()))
+            answers.append((int(r), ids[r].copy(), dists[r].copy(), 0))
         n += 1
         if time.perf_counter() - t0 >= seconds:
             break
     elapsed = time.perf_counter() - t0
     return Window(attempted=n * B, failed=0, completed=n * B,
                   elapsed_s=elapsed, searches=n, answers=answers,
-                  sent=[(np.arange(B), n)])
+                  sent=[(np.arange(B), n, 0)])

@@ -2,8 +2,8 @@
 measured window, then the comparison that decides `correct`.
 
 The program is used only through its public API: `IVFADCIndex.build`,
-`search_padded`, `build_timings`, and the index's trained tables and
-store, which the comparison reads after the window.
+`search_padded`, `push_batch`, `delete`, `build_timings`, and the index's
+trained tables and store, which the comparison reads after the window.
 No `IVFADC_*` variable is set, so every cell runs the default routes.
 """
 
@@ -21,6 +21,7 @@ from annbench import datagen, roofline, specs, trace
 from annbench.reference import compare
 from annbench.reference import ivfadc as ref
 from annbench.reference import train
+from annbench.reference.replay import Replay
 from annbench.window import Window
 
 
@@ -32,6 +33,9 @@ class Ctx:
     queries_host: np.ndarray         # the same, float32 on the host
     traffic: dict
     seed: int
+    data: dict = field(default_factory=dict)     # the config's "data"
+    # the mutations a driver applied, its warm-up's first (window.py)
+    mutations: list = field(default_factory=list)
 
 
 @dataclass
@@ -82,9 +86,13 @@ def train_generator(seed: int, dev, stream: int = datagen.STREAM_TRAIN
     return g
 
 
-def stored_of(index, n: int, dev):
-    """The build under test as the store holds it: each point's cell and
-    codes, and every id held (for `lost_rows`)."""
+def stored_of(index, n: int, dev, table: Optional[np.ndarray] = None):
+    """The build under test as the store holds it: the cell and codes of
+    each of n points (every point ever held), a held id read through
+    `table` (position -> point number at the window's end; None: ids are
+    point numbers 0..n-1), and every id held (for `lost_rows`)."""
+    if table is None:
+        table = np.arange(n)
     st = index.store
     sizes = np.asarray(st.sizes, np.int64)
     offsets = np.asarray(st.offsets, np.int64)
@@ -93,20 +101,23 @@ def stored_of(index, n: int, dev):
     held = np.asarray(st.ids)[slots]
     cells = np.repeat(np.arange(sizes.size), sizes)
     codes = np.asarray(st.codes)[slots].astype(np.int64)
-    ok = (held >= 0) & (held < n)
+    ok = (held >= 0) & (held < table.size)
+    pts = table[held[ok]]
     a = np.zeros(n, np.int64)
     c = np.zeros((n, codes.shape[1]), np.int64)
-    a[held[ok]] = cells[ok]
-    c[held[ok]] = codes[ok]
+    a[pts] = cells[ok]
+    c[pts] = codes[ok]
     return ref.Stored(torch.as_tensor(a, device=dev),
                       torch.as_tensor(c, device=dev)), held
 
 
 def work_counts(queries: torch.Tensor, trained: ref.Trained,
                 lists: ref.Lists, cfg: dict, traffic: dict,
-                win: Window) -> Dict[str, tuple]:
+                win: Window, sizes_at=None) -> Dict[str, tuple]:
     """(bytes, ops) of the probe, the scan and the merge over the window's
-    sent work, counted from the problem (roofline.py)."""
+    sent work, counted from the problem (roofline.py): each call's over
+    the lists live at its version, `sizes_at(version)` (None: `lists`'
+    sizes at every version)."""
     d = queries.shape[1]
     idx_cfg = cfg["index"]
     m = idx_cfg["m"]
@@ -115,14 +126,14 @@ def work_counts(queries: torch.Tensor, trained: ref.Trained,
     w, k = traffic["w"], traffic["k"]
     cells, _ = ref.probe(queries, trained, w, ref.EXACT)
     cells = cells.cpu().numpy()
-    sizes = lists.sizes
-    scan_pairs = sizes[cells].sum(1)
     kc = trained.centroids.shape[0]
     out = {"probe": [0.0, 0.0], "scan": [0.0, 0.0], "merge": [0.0, 0.0]}
-    for idx, reps in win.sent:
+    for idx, reps, version in win.sent:
+        sizes = lists.sizes if sizes_at is None else sizes_at(version)
+        scan_pairs = sizes[cells[idx]].sum(1)
         pb, po = roofline.probe_work(idx.size, d, idx.size * kc, kc)
         sb, so = roofline.scan_work(d, m, id_bytes,
-                                    int(scan_pairs[idx].sum()),
+                                    int(scan_pairs.sum()),
                                     int(sizes[np.unique(cells[idx])].sum()))
         mb, mo = roofline.merge_work(idx.size, k)
         for key, (b, o) in (("probe", (pb, po)), ("scan", (sb, so)),
@@ -185,7 +196,7 @@ def run(cell_name: str, seed: int, seconds: float, use_trace: bool, *,
         cfg, traffic, seed, dev)
     if "after_build" in hooks:
         hooks["after_build"](index)
-    ctx = Ctx(index, queries, queries_host, traffic, seed)
+    ctx = Ctx(index, queries, queries_host, traffic, seed, cfg["data"])
     drv.warm(ctx)
     _sync(dev)
     resident = _memory(dev, "memory_allocated") - \
@@ -200,15 +211,15 @@ def run(cell_name: str, seed: int, seconds: float, use_trace: bool, *,
 
     tr = None
     if use_trace:
-        def span():
-            return torch.profiler.record_function(trace.SEARCH_SPAN)
+        def span(name=trace.SEARCH_SPAN):
+            return torch.profiler.record_function(name)
 
         with trace.profiled() as h:
             win = drv.run(ctx, min(seconds, traffic["trace_seconds"]), span)
         layer_map = specs.layer_map(cfg["layers"])
         tr = trace.read(h.prof, h.wall_s, layer_map)
         info = [f"trace: {tr.searches} searches, {tr.device_ops} device ops, "
-                f"layers {tr.layer_s!r}"]
+                f"layers {tr.layer_s!r}, mutations {tr.mutate_s!r} s"]
         info += [f"trace: second search's ops: "
                  + " | ".join(k[:48] for k in tr.first_search)]
     else:
@@ -220,7 +231,8 @@ def run(cell_name: str, seed: int, seconds: float, use_trace: bool, *,
 
     # ---- after the window: the program's results, then its state freed
     trained = trained_of(index)
-    given, held = stored_of(index, n, dev)
+    end = Replay(n, win.mutations).at_end()
+    given, held = stored_of(index, end.n_all, dev, end.table)
     del ctx, index
     free_memory(dev)
     info += window_lines(win)
@@ -268,21 +280,48 @@ def run(cell_name: str, seed: int, seconds: float, use_trace: bool, *,
 
 def window_lines(win: Window) -> list:
     """How the window went, for standard error."""
-    return [f"window: {win.attempted} queries sent, {win.completed} "
-            f"answered, {win.failed} failed, {win.elapsed_s!r} s, "
-            f"{win.searches} driver calls, {len(win.answers)} answers kept"]
+    lines = [f"window: {win.attempted} queries sent, {win.completed} "
+             f"answered, {win.failed} failed, {win.elapsed_s!r} s, "
+             f"{win.searches} driver calls, {len(win.answers)} answers kept"]
+    if win.mutations:
+        kinds = [m[0] for m in win.mutations]
+        versions = [a[3] for a in win.answers] or [0]
+        lines.append(f"mutations: {len(kinds)} applied "
+                     f"({kinds.count('push')} pushes, "
+                     f"{kinds.count('delete')} deletes), answers kept at "
+                     f"versions {min(versions)}..{max(versions)}")
+    return lines
+
+
+def points_of(cfg: dict, seed: int, replay: Replay, dev) -> torch.Tensor:
+    """(n_all, d) every point the index held: the base points made again
+    from the seed, then each push's points at n + first."""
+    data = cfg["data"]
+    base = datagen.clustered(data["n"], data["d"], data["n_clusters"],
+                             data["noise"], seed, dev)
+    if replay.n_all == base.shape[0]:
+        return base
+    x = torch.zeros((replay.n_all, base.shape[1]), device=dev)
+    x[:base.shape[0]] = base
+    del base
+    for first, count in replay.pushes:
+        s = replay.n + first
+        x[s:s + count] = datagen.pushed(data, seed, first, count, dev)
+    return x
 
 
 def judge(cfg, traffic, check, seed, dev, queries, trained, given, held,
           win, use_trace):
     """The comparison (reference/compare.py): the program's training
     against the reference's own, its build, and a sample of the window's
-    answers drawn from the seed; in a traced run also the work counts."""
+    answers drawn from the seed, each at its version of the mutation log;
+    in a traced run also the work counts. `given` covers every point
+    ever held (`stored_of`), `held` is every id the store holds."""
     lines = []
-    base = datagen.clustered(cfg["data"]["n"], cfg["data"]["d"],
-                             cfg["data"]["n_clusters"], cfg["data"]["noise"],
-                             seed, dev)
-    n = base.shape[0]
+    n = cfg["data"]["n"]
+    end = Replay(n, win.mutations).at_end()
+    x = points_of(cfg, seed, end, dev)
+    base = x[:n]
     prev = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -291,10 +330,21 @@ def judge(cfg, traffic, check, seed, dev, queries, trained, given, held,
         t0 = time.perf_counter()
         mine = train.train(base, cfg["index"], train_generator(seed, dev))
         numbers = compare.train_numbers(base, trained, mine)
-        del mine
-        own = ref.build(base, trained, ref.EXACT)
-        numbers["lost_rows"] = compare.lost_rows(given, held, n)
-        numbers.update(compare.build_numbers(base, trained, given, own))
+        del mine, base
+        own = ref.build(x, trained, ref.EXACT)
+        if win.mutations:
+            # a deleted point is scored with the reference's own cell and
+            # codes
+            dead = torch.as_tensor(~end.live, device=dev)
+            given = ref.Stored(torch.where(dead, own.assign, given.assign),
+                               torch.where(dead[:, None], own.codes,
+                                           given.codes))
+        numbers["lost_rows"] = compare.lost_rows(given, held, end.table.size,
+                                                 end.strays)
+        numbers.update(compare.build_numbers(
+            x, trained, given, own,
+            torch.as_tensor(end.table, device=dev) if win.mutations
+            else None))
         kc = trained.centroids.shape[0]
         lists = ref.Lists(own, kc)
         rng = np.random.default_rng(
@@ -302,27 +352,65 @@ def judge(cfg, traffic, check, seed, dev, queries, trained, given, held,
         pick = rng.choice(len(win.answers),
                           min(check["answers"], len(win.answers)),
                           replace=False) if win.answers else []
-        sample = [win.answers[i] for i in sorted(pick)]
+        # in version order (the window's order already), for the replay
+        sample = sorted((win.answers[i] for i in sorted(pick)),
+                        key=lambda a: a[3])
         if sample:
             q = queries[torch.as_tensor([a[0] for a in sample],
                                         device=dev)]
             ids = np.stack([np.asarray(a[1], np.int64) for a in sample])
             dists = np.stack([np.asarray(a[2], np.float64) for a in sample])
+            hits = []
             numbers.update(compare.answer_numbers(
                 q, ids, dists, trained, given, own, lists, traffic["k"],
-                traffic["w"]))
-            nn = ref.brute_force_nn(q, base).cpu().numpy()
-            hit = (ids[:, :10] == nn[:, None]).any(1)
-            lines.append(f"recall@10 {float(hit.mean())!r} (nearest point "
-                         f"among the first 10 ids, {len(sample)} sampled "
-                         f"answers)")
-        del base
-        work = work_counts(queries, trained, lists, cfg, traffic, win) \
+                traffic["w"],
+                _by_version(sample, ids, q, x, win.mutations, n, hits)))
+            lines.append(f"recall@10 {float(np.mean(hits))!r} (nearest "
+                         f"live point among the first 10 ids, "
+                         f"{len(sample)} sampled answers)")
+        work = work_counts(queries, trained, lists, cfg, traffic, win,
+                           _sizes_at(own, n, win.mutations, kc)) \
             if use_trace else {}
         lines.append(f"reference {time.perf_counter() - t0:.3f} s over "
-                     f"{n} points and {len(sample)} answers of "
+                     f"{x.shape[0]} points and {len(sample)} answers of "
                      f"{len(win.answers)} kept")
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = prev
     return numbers, lines, work
+
+
+def _by_version(sample, ids, q, x, log, n, hits):
+    """compare.answer_numbers' groups: the sample's rows of one version
+    at a time, each (start, stop, live). Before yielding a group it reads
+    the group's ids (positions) into point numbers in place, and appends
+    to `hits` whether each answer's first 10 ids hold its query's nearest
+    live point."""
+    walk = Replay(n, log)
+    versions = np.asarray([a[3] for a in sample])
+    starts = np.flatnonzero(np.r_[True, versions[1:] != versions[:-1]])
+    for start, stop in zip(starts, np.r_[starts[1:], len(sample)]):
+        walk.advance(int(versions[start]))
+        ids[start:stop] = walk.points(ids[start:stop])
+        if log:
+            pts = torch.as_tensor(walk.table, device=x.device)
+            nn = pts[ref.brute_force_nn(q[start:stop], x[pts])]
+        else:
+            nn = ref.brute_force_nn(q[start:stop], x)
+        nn = nn.cpu().numpy()
+        hits.extend((ids[start:stop, :10] == nn[:, None]).any(1))
+        yield int(start), int(stop), walk.live if log else None
+
+
+def _sizes_at(own: ref.Stored, n: int, log: list, kc: int):
+    """version -> the reference's list sizes over the points live there,
+    for versions asked in order (the window's sent work)."""
+    if not log:
+        return None
+    walk = Replay(n, log)
+    assign = own.assign.cpu().numpy()
+
+    def sizes(version):
+        return np.bincount(assign[walk.advance(version).table],
+                           minlength=kc)
+    return sizes

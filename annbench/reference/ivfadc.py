@@ -144,7 +144,8 @@ def _sqdist64(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------------ lists
 class Lists:
-    """Posting lists of a build: the points of each cell."""
+    """Posting lists of a build: the points of each cell, in point order
+    within a cell."""
 
     def __init__(self, stored: Stored, kc: int):
         a = stored.assign.cpu().numpy()
@@ -174,11 +175,12 @@ def score(q: torch.Tensor, rows: torch.Tensor, stored: Stored,
 
 def search(q: torch.Tensor, cells: torch.Tensor, cdist: torch.Tensor,
            stored: Stored, lists: Lists, trained: Trained, k: int,
-           prec: str):
+           prec: str, live: np.ndarray = None):
     """Scan the probed cells and keep the k best -> (ids (B, k) int64, -1
     padded; scores (B, k), +inf padded). Exact: float64 scores, ties by
     id. Control: int4 decoded residuals, bfloat16 query residuals, the
-    probe's own coarse distances."""
+    probe's own coarse distances. `live` (bool, a point): only the points
+    it marks are scanned (None: every point of `lists`)."""
     B, d = q.shape
     ids = np.full((B, k), -1, np.int64)
     out = np.full((B, k), np.inf)
@@ -190,6 +192,8 @@ def search(q: torch.Tensor, cells: torch.Tensor, cdist: torch.Tensor,
         cb4 = cb4.reshape(-1, m, dsub).permute(1, 0, 2)
     for i in range(B):
         rows_h = lists.rows(cells_h[i])
+        if live is not None:
+            rows_h = rows_h[live[rows_h]]
         if rows_h.size == 0:
             continue
         rows = torch.as_tensor(rows_h, device=q.device)

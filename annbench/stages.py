@@ -7,7 +7,7 @@ and inside it `ivfadc.setup`, `.probe`, `.tileprep`, `.scan`, `.merge` and
 launch lies in: the host's runtime call (`cudaLaunchKernel`,
 `cudaMemcpyAsync`, ...) that carries the operation's correlation id. The
 device operations are `trace.read`'s (every device event but the
-harness's search annotation), so the stages' seconds and `outside_s` sum
+harness's annotations), so the stages' seconds and `outside_s` sum
 to its per-operation sums.
 
 Not yet read by a metric: the accepted harness keeps only `trace.read`'s
@@ -20,7 +20,7 @@ import bisect
 from dataclasses import dataclass, field
 from typing import Dict, List, Tuple
 
-from annbench.trace import SEARCH_SPAN, _is_device
+from annbench.trace import SPANS, _is_device
 
 PREFIX = "ivfadc."
 SEARCH = "ivfadc.search"
@@ -55,7 +55,7 @@ def read(prof) -> Stages:
     events = prof.events()
     dev = sorted(((e.time_range.start, e.time_range.end, e.id)
                   for e in events if _is_device(e)
-                  and e.name != SEARCH_SPAN
+                  and e.name not in SPANS
                   and not e.name.startswith(PREFIX)), key=lambda t: t[0])
     host = [e for e in events if not _is_device(e)]
     ids = {i for _, _, i in dev}

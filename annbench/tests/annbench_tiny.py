@@ -25,3 +25,13 @@ def tiny(cell: str) -> dict:
                       "limits": {"kmeans_gap": 0.06, "pq_gap": 0.08,
                                  "kmeans_lloyd_gain": 0.01,
                                  "pq_lloyd_gain": 0.02}}}
+
+
+def mutating(cell: str) -> dict:
+    """`tiny(cell)` driven by the mutation driver: a push of 64 points and
+    a delete of 64 ids every 0.05 s over the 6,000 points, about 10 pairs
+    in a 0.5 s window on an idle CPU; the warm-up's pair in any case."""
+    ov = tiny(cell)
+    ov["traffic"] = {**ov["traffic"], "driver": "mutate", "push": 64,
+                     "delete": 64, "every_s": 0.05}
+    return ov

@@ -41,7 +41,7 @@ def test_work_counts_from_the_reference_probe():
     cfg = {"index": {"m": 8, "index_dtype": "uint32"}}
     traffic = {"w": 2, "k": 3}
     win = Window(attempted=3, failed=0, completed=3, elapsed_s=1.0,
-                 sent=[(np.arange(3), 5)])
+                 sent=[(np.arange(3), 5, 0)])
     work = harness.work_counts(q, trained, lists, cfg, traffic, win)
     # cells: q0 {0, 1} 3+2 rows, q1 {3, 2} 4+1, q2 {2, 3} 1+4 -> 15 pairs;
     # the batch probes all 4 cells: 10 postings of 12 bytes
@@ -86,3 +86,24 @@ def test_trace_reduction_by_hand():
     assert t.layer_s == pytest.approx({"probe": 20e-6, "tileprep": 5e-6,
                                        "scan": 20e-6, "merge": 10e-6})
     assert dict(t.idle_gaps) == pytest.approx({"aten::copy_": 15e-6})
+
+
+def test_work_counts_follow_each_calls_version():
+    # as above, but the calls of version 1 see cell 3 emptied by deletes
+    cen = torch.tensor([[0.0, 0], [10, 0], [20, 0], [30, 0]])
+    trained = ref.Trained(cen, torch.zeros((1, 2, 2)))
+    assign = torch.tensor([0, 0, 0, 1, 1, 2, 3, 3, 3, 3])
+    lists = ref.Lists(ref.Stored(assign, torch.zeros((10, 1),
+                                                     dtype=torch.long)), 4)
+    q = torch.tensor([[1.0, 0], [29, 0], [21, 0]])
+    cfg = {"index": {"m": 8, "index_dtype": "uint32"}}
+    traffic = {"w": 2, "k": 3}
+    win = Window(attempted=3, failed=0, completed=3, elapsed_s=1.0,
+                 sent=[(np.arange(3), 5, 0), (np.arange(3), 2, 1)])
+    sizes = {0: lists.sizes, 1: np.array([3, 2, 1, 0])}
+    work = harness.work_counts(q, trained, lists, cfg, traffic, win,
+                               sizes.__getitem__)
+    # version 1: q0 3+2, q1 0+1, q2 1+0 -> 7 pairs over 6 postings
+    assert work["scan"] == (5 * 120.0 + 2 * 72.0,
+                            5 * 2 * 2 * 15.0 + 2 * 2 * 2 * 7.0)
+    assert work["probe"] == (7 * 4 * 2 * (3 + 4.0), 7 * 2 * 2 * 12.0)

@@ -1,10 +1,13 @@
 """Reading a torch.profiler trace of the measured window.
 
-Frozen from the readers `chip_smoke.py` uses (`device_ms`, `device_ops`,
-`phase_profile`), extended to intervals: device busy time is the union of
-the device operations' intervals, a layer's time is the summed time of
-the kernels its layer map assigns to it, and each idle gap of the device
-is named by the innermost host operation running at its middle.
+Device busy time is the union of the device operations' intervals, a
+layer's time is the summed time of the kernels its layer map assigns to
+it, and each idle gap of the device is named by the innermost host
+operation running at its middle. A driver that mutates the index wraps
+each mutation in a `MUTATE_SPAN`: the device operations launched inside
+one (matched to their launch by correlation id, as `stages.py` does; by
+their start where no launch is seen) go to no search's layers, and their
+summed time is `mutate_s`. A trace without such spans is read as before.
 """
 
 from __future__ import annotations
@@ -17,6 +20,10 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 SEARCH_SPAN = "annbench.search"
+MUTATE_SPAN = "annbench.mutate"
+# the harness's own spans, which also show on the device's timeline as
+# annotations: no device operations
+SPANS = (SEARCH_SPAN, MUTATE_SPAN)
 
 
 @dataclass
@@ -30,6 +37,7 @@ class Trace:
     top_ops: List[Tuple[str, float]] = field(default_factory=list)
     idle_gaps: List[Tuple[str, float]] = field(default_factory=list)
     first_search: List[str] = field(default_factory=list)   # kernel order
+    mutate_s: float = 0.0                 # device seconds of mutations
 
 
 @contextmanager
@@ -80,15 +88,14 @@ def read(prof, wall_s: float, layer_map: dict, top: int = 10) -> Trace:
     """Reduce a profiler to a `Trace` under `layer_map` ({"rules": [...]};
     kernels no rule matches count as "other")."""
     events = prof.events()
-    # the search span also shows on the device's timeline as an
-    # annotation: it is no device operation
-    dev = sorted(((e.time_range.start, e.time_range.end, e.name)
-                  for e in events
-                  if _is_device(e) and e.name != SEARCH_SPAN),
-                 key=lambda t: t[0])
+    devs = sorted((e for e in events
+                   if _is_device(e) and e.name not in SPANS),
+                  key=lambda e: e.time_range.start)
+    dev = [(e.time_range.start, e.time_range.end, e.name) for e in devs]
     host = [e for e in events if not _is_device(e)]
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in host if e.name == SEARCH_SPAN)
+    mutating = _mutation_ops(devs, host)
     # busy: union of device intervals
     busy, gaps = 0.0, []
     cur_s = cur_e = None
@@ -110,7 +117,12 @@ def read(prof, wall_s: float, layer_map: dict, top: int = 10) -> Trace:
     first = []
     afters = {r["after"] for r in layer_map["rules"] if "after" in r}
     seen: Dict[int, set] = {}
-    for s, e, name in dev:
+    mutate = 0.0
+    for j, (s, e, name) in enumerate(dev):
+        by_name[name] = by_name.get(name, 0.0) + (e - s) / 1e6
+        if j in mutating:
+            mutate += (e - s) / 1e6
+            continue
         i = bisect.bisect_right(starts, s) - 1
         if i == 1 and spans[1][0] <= s <= spans[1][1]:
             first.append(name)
@@ -121,7 +133,6 @@ def read(prof, wall_s: float, layer_map: dict, top: int = 10) -> Trace:
             or "other"
         met.update(a for a in afters if re.search(a, name))
         layer_s[layer] = layer_s.get(layer, 0.0) + (e - s) / 1e6
-        by_name[name] = by_name.get(name, 0.0) + (e - s) / 1e6
     # idle gaps: named by the innermost host op at the gap's middle
     host_iv = sorted((e.time_range.start, e.time_range.end, e.name)
                      for e in host if e.name != SEARCH_SPAN)
@@ -141,4 +152,25 @@ def read(prof, wall_s: float, layer_map: dict, top: int = 10) -> Trace:
         layer_s=layer_s, searches=len(spans),
         top_ops=sorted(by_name.items(), key=lambda t: -t[1])[:top],
         idle_gaps=sorted(idle.items(), key=lambda t: -t[1])[:top],
-        first_search=first)
+        first_search=first, mutate_s=mutate)
+
+
+def _mutation_ops(devs: list, host: list) -> set:
+    """Positions in `devs` of the device operations launched inside a
+    `MUTATE_SPAN`: by the host launch that carries the operation's
+    correlation id, or by the operation's start where none does."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in host if e.name == MUTATE_SPAN)
+    if not spans:
+        return set()
+    starts = [s for s, _ in spans]
+    ids = {getattr(e, "id", None) for e in devs}
+    launch = {e.id: e.time_range.start for e in host
+              if e.name.startswith("cu") and getattr(e, "id", None) in ids}
+
+    def inside(t) -> bool:
+        i = bisect.bisect_right(starts, t) - 1
+        return i >= 0 and t <= spans[i][1]
+
+    return {j for j, e in enumerate(devs)
+            if inside(launch.get(getattr(e, "id", None), e.time_range.start))}
