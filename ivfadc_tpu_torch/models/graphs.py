@@ -160,6 +160,8 @@ class SearchGraphs:
         """Drop every graph and pool (a pool's memory goes once no caller
         holds a graph of it)."""
         with self._lock:
+            if self._graphs:
+                profiling.count("graph_drops")
             self._graphs.clear()
             self._seen.clear()
             self._pools.clear()

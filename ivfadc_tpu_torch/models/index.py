@@ -65,7 +65,7 @@ from ivfadc_tpu_torch.ops.coarse_scan import coarse_probe_vbase
 from ivfadc_tpu_torch.ops.kmeans import (assign_blocks, kmeans, kmeans_block,
                                          make_generator)
 from ivfadc_tpu_torch.ops.metrics import Metric, get_metric
-from ivfadc_tpu_torch.utils.profiling import BuildTimer, span, tally
+from ivfadc_tpu_torch.utils.profiling import BuildTimer, count, span, tally
 
 # auto-cap for PQ codebook training when quantization_sample is unset (0)
 _PQ_TRAIN_AUTOCAP = 1 << 20
@@ -1194,42 +1194,48 @@ class IVFADCIndex:
 
     def push(self, point) -> None:
         """Append `point` with id n."""
-        self._check_push(point)
-        cell, codes = self._encode_point(point)
-        self.store.append(cell, codes, len(self))
+        with span("ivfadc.push"):
+            self._check_push(point)
+            cell, codes = self._encode_point(point)
+            self.store.append(cell, codes, len(self))
+            count("pushed_rows")
 
     def push_batch(self, points) -> None:
         """Append B points at once, ids n..n+B-1: the same index as B
         pushes, from one batched coarse search and one batched encode."""
-        points = points.to(self.device, torch.float32) \
-            if isinstance(points, torch.Tensor) \
-            else torch.as_tensor(np.asarray(points, np.float32),
-                                 device=self.device)
-        if points.ndim != 2 or points.shape[1] != self.dim:
-            raise AssertionError(
-                f"push_batch expects (B, {self.dim}) points, got "
-                f"{tuple(points.shape)}")
-        if len(self) + len(points) > self._capacity():
-            raise AssertionError(
-                f"Index would exceed capacity for dtype "
-                f"{self.config.index_dtype} ({self._capacity()} vectors)")
-        if len(points) == 0:
-            return
-        cells, _ = self.coarse.search(points, 1)
-        cells = cells[:, 0].to(torch.int64)
-        residuals = points - self.coarse.centroids[cells]
-        codes = pq_ops.encode(self.quantizer, residuals,
-                              metric=self.quant_metric)
-        self.store.append_batch(cells.cpu().numpy(),
-                                codes.cpu().numpy().astype(
-                                    self.store.code_dtype), len(self))
+        with span("ivfadc.push"):
+            points = points.to(self.device, torch.float32) \
+                if isinstance(points, torch.Tensor) \
+                else torch.as_tensor(np.asarray(points, np.float32),
+                                     device=self.device)
+            if points.ndim != 2 or points.shape[1] != self.dim:
+                raise AssertionError(
+                    f"push_batch expects (B, {self.dim}) points, got "
+                    f"{tuple(points.shape)}")
+            if len(self) + len(points) > self._capacity():
+                raise AssertionError(
+                    f"Index would exceed capacity for dtype "
+                    f"{self.config.index_dtype} ({self._capacity()} vectors)")
+            if len(points) == 0:
+                return
+            cells, _ = self.coarse.search(points, 1)
+            cells = cells[:, 0].to(torch.int64)
+            residuals = points - self.coarse.centroids[cells]
+            codes = pq_ops.encode(self.quantizer, residuals,
+                                  metric=self.quant_metric)
+            self.store.append_batch(cells.cpu().numpy(),
+                                    codes.cpu().numpy().astype(
+                                        self.store.code_dtype), len(self))
+            count("pushed_rows", len(points))
 
     def push_front(self, point) -> None:
         """Insert `point` with id 0; every live id moves up by one."""
-        self._check_push(point)
-        cell, codes = self._encode_point(point)
-        self.store.shift_ids(-1, +1)
-        self.store.append(cell, codes, 0)
+        with span("ivfadc.push"):
+            self._check_push(point)
+            cell, codes = self._encode_point(point)
+            self.store.shift_ids(-1, +1)
+            self.store.append(cell, codes, 0)
+            count("pushed_rows")
 
     def _reconstruct_from(self, cell: int, codes: np.ndarray) -> np.ndarray:
         centroid = self.coarse.centroids[cell].cpu().numpy()
@@ -1243,17 +1249,22 @@ class IVFADCIndex:
         n = len(self)
         if n == 0:
             raise IndexError("pop from empty index")
-        cell, slot = self.store.find(n - 1)
-        return self._reconstruct_from(cell, self.store.remove_slot(cell, slot))
+        with span("ivfadc.delete"):
+            cell, slot = self.store.find(n - 1)
+            codes = self.store.remove_slot(cell, slot)
+            count("deleted_rows")
+        return self._reconstruct_from(cell, codes)
 
     def pop_front(self) -> np.ndarray:
         """Remove the point with id 0 and return its reconstruction; every
         other id moves down by one."""
         if len(self) == 0:
             raise IndexError("pop from empty index")
-        cell, slot = self.store.find(0)
-        codes = self.store.remove_slot(cell, slot)
-        self.store.shift_ids(0, -1)
+        with span("ivfadc.delete"):
+            cell, slot = self.store.find(0)
+            codes = self.store.remove_slot(cell, slot)
+            self.store.shift_ids(0, -1)
+            count("deleted_rows")
         return self._reconstruct_from(cell, codes)
 
     def delete(self, ids) -> None:
@@ -1261,16 +1272,18 @@ class IVFADCIndex:
         contiguous range 0..n'-1. One id swap-removes and shifts, up to
         2048 take the incremental path (views patched), more the bulk path
         (views rebuilt)."""
-        id_list = np.unique(np.asarray(list(ids), np.int64))
-        if id_list.size == 1:
-            target = int(id_list[0])
-            cell, slot = self.store.find(target)
-            self.store.remove_slot(cell, slot)
-            self.store.shift_ids(target, -1)
-        elif id_list.size <= 2048:
-            self.store.delete_ids_incremental(id_list)
-        else:
-            self.store.delete_ids(id_list)
+        with span("ivfadc.delete"):
+            id_list = np.unique(np.asarray(list(ids), np.int64))
+            if id_list.size == 1:
+                target = int(id_list[0])
+                cell, slot = self.store.find(target)
+                self.store.remove_slot(cell, slot)
+                self.store.shift_ids(target, -1)
+            elif id_list.size <= 2048:
+                self.store.delete_ids_incremental(id_list)
+            else:
+                self.store.delete_ids(id_list)
+            count("deleted_rows", id_list.size)
 
     def reconstruct(self, ext_id: int) -> np.ndarray:
         """The stored approximation of a point, from one code row (a single

@@ -20,6 +20,11 @@ Mutation (append, swap-remove, id shifts, deletes, cell growth) runs on the
 host. The first mutation brings codes and ids to the host, where they stay
 the truth; the device arrays of the build are dropped. `find` reads ids
 only, and a single code row (`_code_rows`) is one device gather until then.
+A small delete's renumbering of the survivors waits on the host (`_gone`:
+the deleted ids in the host ids' numbering) until something reads the
+ids, which then come back current; `find`, `cell_entries` and the flush
+convert just what they read. The id -> slot map, once built, is kept up
+by every append, swap-remove, grow and small delete.
 Mutations record dirty slots, and the next view access patches each cached
 view in place, one batched scatter per array, with rows decoded and normed
 exactly as a rebuild makes them: a patched view equals a rebuilt one bit
@@ -57,6 +62,7 @@ import numpy as np
 import torch
 
 from ivfadc_tpu_torch.models.graphs import SearchGraphs
+from ivfadc_tpu_torch.utils.profiling import count, span
 
 _LANE = 128
 
@@ -180,9 +186,15 @@ class PostingStore:
         self._chunk_cache: Optional[tuple] = None
         self._gather_cache: Optional[tuple] = None
         self._dirty_slots: set = set()
-        # id -> slot map for find(); built lazily, kept up by append and
-        # remove, dropped by bulk renumbers
+        # id -> slot map for find() and the small delete, in the host ids'
+        # numbering; built lazily, kept up by appends, removes, grows and
+        # small deletes, dropped by shifts and the bulk delete
         self._slot_of: Optional[np.ndarray] = None
+        # deleted ids whose renumbering the host ids still wait for, sorted,
+        # in the host ids' numbering (None: the host ids are current), and
+        # _gone - arange, which maps a current id back to that numbering
+        self._gone: Optional[np.ndarray] = None
+        self._gone_q: Optional[np.ndarray] = None
         # cells sorted by offset, for slot -> cell (offsets stop being
         # sorted once a grown cell relocates to the end)
         self._cell_order: Optional[np.ndarray] = None
@@ -228,16 +240,57 @@ class PostingStore:
 
     @property
     def ids(self) -> np.ndarray:
+        """The host ids, current (a pending renumbering runs first)."""
+        ids = self._host_ids()
+        self._renumber()
+        return ids
+
+    def _host_ids(self) -> np.ndarray:
+        """The host ids as held: in the numbering before the pending
+        deletes (`_gone`)."""
         if self._ids_h is None:
             if self._ids_dev is None:
                 raise self._payload_missing()
             self._ids_h = self._ids_dev.cpu().numpy().astype(np.int64)
         return self._ids_h[:self._total]
 
+    def _renumber(self) -> None:
+        """Run the pending renumbering: each live host id drops by the count
+        of pending deleted ids below it, and the slot map loses their
+        entries. One gather from a running count over the held numbering
+        (a live id is never pending, so the count up to it is the count
+        below it); its last entry, 0, is what a dead slot's -1 reads."""
+        gone = self._gone
+        if gone is None:
+            return
+        self._gone = self._gone_q = None
+        ids = self._ids_h[:self._total]
+        below = np.zeros(max(int(ids.max()), int(gone[-1])) + 2, np.int64)
+        below[gone] = 1
+        np.cumsum(below, out=below)
+        below[-1] = 0
+        ids -= below[ids]
+        if self._slot_of is not None:
+            self._slot_of = np.delete(self._slot_of,
+                                      gone[gone < len(self._slot_of)])
+
+    def _held_ids(self, ids: np.ndarray) -> np.ndarray:
+        """Current ids -> the host ids' numbering."""
+        if self._gone is None:
+            return ids
+        return ids + np.searchsorted(self._gone_q, ids, side="right")
+
+    def _current_ids(self, held: np.ndarray) -> np.ndarray:
+        """Host ids as held -> current ones (-1 stays -1)."""
+        if self._gone is None:
+            return held
+        return np.where(held >= 0, held - np.searchsorted(self._gone, held),
+                        held)
+
     def _materialize_for_mutation(self) -> None:
         """Host arrays become the truth: the build's device arrays are
         dropped (views already built keep their own tensors)."""
-        _ = self.codes, self.ids
+        _ = self.codes, self._host_ids()
         self._codes_dev = None
         self._ids_dev = None
 
@@ -279,6 +332,7 @@ class PostingStore:
         new._dense_quantizer = self._dense_quantizer
         new._dirty_slots = set(self._dirty_slots)
         new._slot_of = None if self._slot_of is None else self._slot_of.copy()
+        new._gone, new._gone_q = self._gone, self._gone_q   # never written
         new._cell_order = self._cell_order
         return new
 
@@ -333,12 +387,13 @@ class PostingStore:
         return _round_up(max(1, int(self.caps.max())), _LANE)
 
     def valid_mask(self) -> np.ndarray:
-        return self.ids >= 0
+        return self._host_ids() >= 0
 
     def cell_entries(self, cell: int) -> Tuple[np.ndarray, np.ndarray]:
         """(ids, codes) of one cell."""
         o, s = int(self.offsets[cell]), int(self.sizes[cell])
-        return self.ids[o:o + s].copy(), self.codes[o:o + s].copy()
+        return (self._current_ids(self._host_ids()[o:o + s]).copy(),
+                self.codes[o:o + s].copy())
 
     def _slots_to_cells(self, slots) -> np.ndarray:
         """Live flat slots -> their cells, through the offset-sorted cell
@@ -350,32 +405,40 @@ class PostingStore:
         return order[pos]
 
     def _slot_map(self) -> np.ndarray:
-        """id -> slot (-1 for dead entries), built in one vectorized pass."""
+        """id in the host ids' numbering -> slot (-1 for dead entries),
+        built in one vectorized pass."""
         if self._slot_of is None:
-            ids = self.ids
+            ids = self._host_ids()
             live = np.nonzero(ids >= 0)[0]
-            smap = np.full(self.n, -1, np.int64)
+            gone = 0 if self._gone is None else len(self._gone)
+            smap = np.full(self.n + gone, -1, np.int64)
             smap[ids[live]] = live
             self._slot_of = smap
         return self._slot_of
 
-    def _note_slot(self, ext_id: int, slot: int) -> None:
+    def _note_slots(self, held: np.ndarray, slots: np.ndarray) -> None:
+        """The map's entries of ids `held` (host numbering) -> `slots`. The
+        map grows ahead by a quarter of its length, so a stream of pushes
+        copies it rarely."""
         m = self._slot_of
-        if m is None:
+        if m is None or not held.size:
             return
-        if ext_id >= len(m):
+        top = int(held.max())
+        if top >= len(m):
+            grow = max(top + 1, len(m) + len(m) // 4) - len(m)
             self._slot_of = m = np.concatenate(
-                [m, np.full(ext_id + 1 - len(m), -1, np.int64)])
-        m[ext_id] = slot
+                [m, np.full(grow, -1, np.int64)])
+        m[held] = slots
 
     def find(self, ext_id: int) -> Tuple[int, int]:
         """-> (cell, slot) through the id -> slot map. Reads `ids` only,
         never `codes`."""
         ext_id = int(ext_id)
         smap = self._slot_map()
-        if not (0 <= ext_id < len(smap)) or smap[ext_id] < 0:
+        held = int(self._held_ids(np.asarray([ext_id]))[0])
+        if not (0 <= held < len(smap)) or smap[held] < 0:
             raise KeyError(f"id {ext_id} not in index")
-        slot = int(smap[ext_id])
+        slot = int(smap[held])
         cell = int(self._slots_to_cells(np.asarray([slot], np.int64))[0])
         return cell, slot
 
@@ -400,6 +463,8 @@ class PostingStore:
         """Drop the cached device views, the index's caches keyed on caps
         and its search graphs; the next search rebuilds them (and reads
         IVFADC_NORMS again)."""
+        if self._device is not None or self._device_dense is not None:
+            count("view_rebuilds")
         self._device = None
         self._device_dense = None
         self._chunk_cache = None
@@ -459,30 +524,33 @@ class PostingStore:
         and the sizes copied in place."""
         if not self._dirty_slots:
             return
-        slots = np.fromiter(self._dirty_slots, np.int64,
-                            len(self._dirty_slots))
-        slots.sort()
-        self._dirty_slots = set()
-        sl = torch.as_tensor(slots, device=self.device)
-        code_rows = self._codes_tensor(self.codes[slots])
-        id_rows = torch.as_tensor(self.ids[slots].astype(np.int32),
-                                  device=self.device)
-        sizes = torch.as_tensor(self.sizes.astype(np.int32),
-                                device=self.device)
-        if self._device is not None:
-            view = self._device
-            self._writable(view, "codes")[sl] = code_rows
-            self._writable(view, "ids")[sl] = id_rows
-            self._writable(view, "sizes").copy_(sizes)
-        if self._device_dense is not None:
-            view = self._device_dense
-            rows = self._decode_rows(view, code_rows)
-            self._writable(view, "decoded")[sl] = rows
-            self._writable(view, "ids")[sl] = id_rows
-            if view["norms2d"] is not None:
-                self._writable(view, "norms2d").view(-1)[sl] = \
-                    _row_norms(rows, view["scale"])
-            self._writable(view, "sizes").copy_(sizes)
+        with span("ivfadc.flush"):
+            slots = np.fromiter(self._dirty_slots, np.int64,
+                                len(self._dirty_slots))
+            slots.sort()
+            self._dirty_slots = set()
+            count("flushed_slots", slots.size)
+            sl = torch.as_tensor(slots, device=self.device)
+            code_rows = self._codes_tensor(self.codes[slots])
+            held = self._host_ids()[slots]
+            id_rows = torch.as_tensor(
+                self._current_ids(held).astype(np.int32), device=self.device)
+            sizes = torch.as_tensor(self.sizes.astype(np.int32),
+                                    device=self.device)
+            if self._device is not None:
+                view = self._device
+                self._writable(view, "codes")[sl] = code_rows
+                self._writable(view, "ids")[sl] = id_rows
+                self._writable(view, "sizes").copy_(sizes)
+            if self._device_dense is not None:
+                view = self._device_dense
+                rows = self._decode_rows(view, code_rows)
+                self._writable(view, "decoded")[sl] = rows
+                self._writable(view, "ids")[sl] = id_rows
+                if view["norms2d"] is not None:
+                    self._writable(view, "norms2d").view(-1)[sl] = \
+                        _row_norms(rows, view["scale"])
+                self._writable(view, "sizes").copy_(sizes)
 
     def _dev_shift_ids(self, threshold: int, delta: int) -> None:
         for view in self._views():
@@ -491,9 +559,12 @@ class PostingStore:
 
     def _dev_rank_shift(self, dels: np.ndarray) -> None:
         """Each live device id drops by the count of deleted ids below it."""
-        for view in self._views():
+        views = self._views()
+        if not views:
+            return
+        d = torch.as_tensor(dels.astype(np.int32), device=self.device)
+        for view in views:
             ids = self._writable(view, "ids")
-            d = torch.as_tensor(dels.astype(np.int32), device=ids.device)
             below = torch.searchsorted(d, ids, out_int32=True)
             ids.copy_(torch.where(ids >= 0, ids - below, ids))
 
@@ -503,10 +574,11 @@ class PostingStore:
         if self.sizes[cell] >= self.caps[cell]:
             self._grow_cell(cell)
         slot = int(self.offsets[cell] + self.sizes[cell])
+        held = self._held_ids(np.asarray([ext_id], np.int64))
         self._codes_h[slot] = code_row
-        self._ids_h[slot] = ext_id
+        self._ids_h[slot] = held[0]
         self.sizes[cell] += 1
-        self._note_slot(ext_id, slot)
+        self._note_slots(held, np.asarray([slot]))
         self._mark_dirty(slot)
         self._log_cell(cell)
 
@@ -522,16 +594,17 @@ class PostingStore:
         for c in np.nonzero(self.sizes + need > self.caps)[0]:
             while self.sizes[c] + need[c] > self.caps[c]:
                 self._grow_cell(int(c))
-        self._slot_of = None          # bulk op: rebuild the map lazily
         order = np.argsort(cells, kind="stable")
         sorted_cells = cells[order]
         uniq, first = np.unique(sorted_cells, return_index=True)
         within = np.arange(len(cells)) - \
             first[np.searchsorted(uniq, sorted_cells)]
         slots = self.offsets[sorted_cells] + self.sizes[sorted_cells] + within
+        held = self._held_ids(first_ext_id + order)
         self._codes_h[slots] = code_rows[order]
-        self._ids_h[slots] = first_ext_id + order
+        self._ids_h[slots] = held
         self.sizes += need
+        self._note_slots(held, slots)
         if self._device is not None or self._device_dense is not None:
             if len(self._dirty_slots) + len(slots) > self._dirty_limit():
                 self._invalidate()
@@ -546,6 +619,7 @@ class PostingStore:
         flat arrays; its old region goes dead. The host arrays grow ahead
         by half their length, so a grow copies only the cell's rows."""
         self._materialize_for_mutation()
+        count("cell_grows")
         a = self.align
         old_off = int(self.offsets[cell])
         s = int(self.sizes[cell])
@@ -565,6 +639,8 @@ class PostingStore:
             self._codes_h[old_off:old_off + s] = 0
             self._ids_h[new_off:new_off + s] = self._ids_h[old_off:old_off + s]
             self._ids_h[old_off:old_off + s] = -1
+            self._note_slots(self._ids_h[new_off:new_off + s],
+                             np.arange(new_off, new_off + s))
         if self._dirty_slots:         # remap pending patches that moved
             self._dirty_slots = {
                 (d - old_off + new_off if old_off <= d < old_off + s else d)
@@ -573,7 +649,6 @@ class PostingStore:
         self.caps[cell] = new_cap
         self._total = new_total
         self._cell_order = None
-        self._slot_of = None
         self._patch_views_after_grow(old_off, new_off, s, new_cap)
 
     def _patch_views_after_grow(self, old_off: int, new_off: int, s: int,
@@ -583,7 +658,7 @@ class PostingStore:
         (whose rows would have to move too); drop any other view for a
         rebuild. The vacated and the new rows take a zero code's row, as
         the host arrays hold them."""
-        views = []
+        views, dropped = [], False
         for name, key in (("_device", "codes"), ("_device_dense", "decoded")):
             view = getattr(self, name)
             if view is None:
@@ -594,8 +669,11 @@ class PostingStore:
                     or view["ids"].shape[0] < need):
                 setattr(self, name, None)
                 self.graphs.clear()
+                dropped = True
             else:
                 views.append((view, key))
+        if dropped:
+            count("view_rebuilds")
         if self._device is None and self._device_dense is None:
             self._dirty_slots = set()
         offsets = torch.as_tensor(self.offsets.astype(np.int32),
@@ -633,7 +711,7 @@ class PostingStore:
             if 0 <= removed_id < len(self._slot_of):
                 self._slot_of[removed_id] = -1
             if slot != last:
-                self._note_slot(moved_id, slot)
+                self._note_slots(np.asarray([moved_id]), np.asarray([slot]))
         if slot != last:
             self._mark_dirty(slot)
         self._mark_dirty(last)
@@ -651,31 +729,67 @@ class PostingStore:
         self._log_op(("shift", int(threshold), int(delta)))
 
     def delete_ids_incremental(self, dels: np.ndarray) -> int:
-        """Small-batch delete that keeps the views patchable: swap-remove
-        each hit (cells in ascending order, slots descending within a cell,
-        so a moved last row that is itself deleted is still pending), then
-        renumber ids by rank, on the host and on the views."""
+        """Small-batch delete that keeps the views patchable, in a bounded
+        number of vectorized steps. The hits come from the id -> slot map.
+        Each hit cell swap-removes its hits from its highest slot down, each
+        hole taking the cell's current last row: round r removes the r-th
+        highest hit of every cell at once, so the rounds leave the state of
+        `remove_slot` called hit by hit (cells ascending, slots descending)
+        and a hole may take a row an earlier round moved. The survivors'
+        renumbering by rank runs on the views now and waits on the host
+        (`_gone`)."""
         self._materialize_for_mutation()
         dels = np.unique(np.asarray(dels, np.int64))
-        ids = self.ids
-        hit = np.isin(ids, dels) & (ids >= 0)
-        hit_slots = np.nonzero(hit)[0]
-        if hit_slots.size != dels.size:
-            missing = np.setdiff1d(dels, ids[hit_slots])
-            raise KeyError(f"ids not in index: {missing[:10].tolist()}")
-        cells = self._slots_to_cells(hit_slots)
-        for cell in np.unique(cells):
-            for slot in np.sort(hit_slots[cells == cell])[::-1]:
-                # a previous swap in this cell may have moved a kept row
-                # here; remove only while the slot holds a deleted id
-                cur = ids[slot]
-                if cur >= 0:
-                    pos = np.searchsorted(dels, cur)
-                    if pos < dels.size and dels[pos] == cur:
-                        self.remove_slot(int(cell), int(slot))
-        live = ids >= 0
-        ids[live] -= np.searchsorted(dels, ids[live])
-        self._slot_of = None
+        held = self._held_ids(dels)
+        smap = self._slot_map()
+        slots = np.full(dels.size, -1, np.int64)
+        known = (held >= 0) & (held < len(smap))
+        slots[known] = smap[held[known]]
+        if (slots < 0).any():
+            raise KeyError(
+                f"ids not in index: {dels[slots < 0][:10].tolist()}")
+        cells = self._slots_to_cells(slots)
+        order = np.lexsort((-slots, cells))
+        cells, slots, held = cells[order], slots[order], held[order]
+        # each hit's rank among its cell's hits, highest slot first
+        starts = np.flatnonzero(np.r_[True, cells[1:] != cells[:-1]])
+        rank = np.arange(cells.size) - np.repeat(
+            starts, np.diff(np.r_[starts, cells.size]))
+        codes, ids = self._codes_h, self._ids_h
+        dirty = []
+        for r in range(int(rank.max()) + 1 if rank.size else 0):
+            pick = rank == r
+            c, hole = cells[pick], slots[pick]
+            last = self.offsets[c] + self.sizes[c] - 1
+            moved = ids[last]
+            codes[hole] = codes[last]
+            ids[hole] = moved
+            codes[last] = 0
+            ids[last] = -1
+            self.sizes[c] -= 1
+            swap = hole != last
+            smap[held[pick]] = -1
+            smap[moved[swap]] = hole[swap]
+            dirty += [hole[swap], last]
+        if dirty and self._views():
+            self._dirty_slots.update(np.concatenate(dirty).tolist())
+            if len(self._dirty_slots) > self._dirty_limit():
+                self._invalidate()
+        if self._mlogs:
+            for c in np.unique(cells):
+                self._log_cell(int(c))
+        if held.size:
+            gone = np.sort(held)
+            if self._gone is not None:
+                gone = np.insert(self._gone,
+                                 np.searchsorted(self._gone, gone), gone)
+            self._gone = gone
+            self._gone_q = gone - np.arange(gone.size)
+            # more pending ids than a quarter of the slots renumber the host
+            # ids at once, which bounds the pending list and the slot map's
+            # dead entries
+            if gone.size > self._total // 4:
+                self._renumber()
         self._dev_rank_shift(dels)
         self._log_op(("rank", dels.copy()))
         return int(dels.size)
@@ -782,6 +896,7 @@ class PostingStore:
         if (self._device_dense is not None
                 and self._device_dense["cache"] != cache):
             self._device_dense = None            # cache type switch: rebuild
+            count("view_rebuilds")
             self.graphs.clear()
         self._flush_dirty()
         if self._device_dense is None:

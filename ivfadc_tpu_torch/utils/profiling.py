@@ -32,8 +32,19 @@ order:
   ivfadc.to_host  the device-to-host copy of the results
 
 A stage opened inside another stage records nothing: the outer stage owns
-the work (the two-level quantizer's grouped stage 2 is probe work). The
-ranges are host ranges (torch.profiler's function scope, which puts no
+the work (the two-level quantizer's grouped stage 2 is probe work).
+
+Mutations name theirs with spans that are no stage (they nest anywhere):
+
+  ivfadc.push     `push`, `push_front`, `push_batch`: the coarse search and
+                  encode of the new points, the store's append (and grows)
+  ivfadc.delete   `delete`, `pop`, `pop_front`: the swap-removes and the
+                  renumbering on the host and on the views
+  ivfadc.flush    the patch of the views' dirty slots at the next view
+                  access (models/inverted.py `_flush_dirty`), when there
+                  is one: inside a search's `ivfadc.setup`
+
+The ranges are host ranges (torch.profiler's function scope, which puts no
 annotation on the device's timeline); a device operation belongs to the
 stage its launch, the runtime call with its correlation id, lies in.
 """
@@ -155,7 +166,9 @@ COUNTS = ("searches", "queries", "padded_queries", "probes",
           "postings_probed", "scan_pairs", "graph_captures", "graph_replays",
           "scan_cache_bytes", "probe_narrow_launches",
           "scan_single_tile_launches", "scan_probe_order_launches",
-          "tileprep_sort_launches", "probe_wide_select_launches")
+          "tileprep_sort_launches", "probe_wide_select_launches",
+          "pushed_rows", "deleted_rows", "flushed_slots", "view_rebuilds",
+          "graph_drops", "cell_grows")
 _DEVICE_COUNTS = ("postings_probed", "scan_pairs", "scan_cache_bytes")
 
 
@@ -277,6 +290,14 @@ def planned(name: str) -> None:
             t._add(name, 1)
 
 
+def count(name: str, n: int = 1) -> None:
+    """Add n to the open `counting()` block's host counter `name`, if any
+    (the mutation path's counters)."""
+    t = tally()
+    if t is not None:
+        t._add(name, n)
+
+
 @contextlib.contextmanager
 def counting():
     """Count the searches run inside the block; yields a dict that holds,
@@ -338,6 +359,20 @@ def counting():
                       the large-w selection (coarse_scan.plan's `wide`:
                       w > 32, each warp owning its rows' lists): 1 a
                       search at w = 64, 0 at w <= 32
+      pushed_rows, deleted_rows
+                      points the index's `push`, `push_front` and
+                      `push_batch` added; ids its `delete`, `pop` and
+                      `pop_front` removed
+      flushed_slots   slots a view patch (models/inverted.py
+                      `_flush_dirty`) wrote, counted once whatever the
+                      number of views
+      view_rebuilds   events that dropped a built view for a rebuild:
+                      `_invalidate` calls that found one, grows that could
+                      not move a view's rows in place, a switch of the
+                      dense view's cache type
+      graph_drops     `SearchGraphs.clear` calls that dropped at least one
+                      captured search
+      cell_grows      cells relocated to double their capacity
 
     Inside, each search adds device-side sums into one small tensor per
     device, read once (one sync) when the block ends; the five launch

@@ -917,6 +917,62 @@ def test_recall_matches_the_oracle(sift, state):
 
 
 @pytest.mark.cuda
+def test_live_pair_patches_the_views_in_place(sift):
+    """The `sift1m.mutate` cell's pair on a fork of the SIFT1M-shape index:
+    after a first pair (the fork's first writes clone the views it shares)
+    and warm searches (eager, captured, replayed), a push_batch of 1,024
+    points and a delete of 1,024 ids patch the views in place (the same
+    tensors), rebuild no view, drop no graph, and the next search replays
+    its graph; a cold rebuild of the views equals the patched ones bit for
+    bit, and its eager search the replayed results."""
+    from ivfadc_tpu_torch.utils import profiling
+    dev, B = sift.base.device, 10000
+    g = torch.Generator(device=dev).manual_seed(14)
+    new = sift.base[torch.randint(0, N, (2 * 1024,), generator=g,
+                                  device=dev)]
+    new = new + 0.05 * torch.randn(new.shape, generator=g, device=dev)
+    rng = np.random.RandomState(15)
+    fork = sift.index.fork()
+    q = sift.queries[:B]
+
+    def pair(i):
+        fork.push_batch(new[i * 1024:(i + 1) * 1024])
+        fork.delete(rng.choice(len(fork), 1024, replace=False))
+
+    pair(0)
+    for _ in range(3):
+        fork.search_padded(q, TOPK, w=W)
+    st = fork.store
+    views = {name: getattr(st, name) for name in ("_device", "_device_dense")
+             if getattr(st, name) is not None}
+    assert "_device_dense" in views
+    held = {(name, key): t for name, view in views.items()
+            for key, t in view.items() if isinstance(t, torch.Tensor)}
+    with profiling.counting() as counts:
+        pair(1)
+        got = fork.search_padded(q, TOPK, w=W)
+    assert counts["pushed_rows"] == counts["deleted_rows"] == 1024
+    assert counts["flushed_slots"] >= 1024
+    assert counts["view_rebuilds"] == counts["graph_drops"] == 0
+    assert counts["cell_grows"] == 0
+    assert counts["graph_captures"] == 0 and counts["graph_replays"] == 1
+    for (name, key), t in held.items():
+        assert getattr(st, name)[key] is t, (name, key)
+    cold = fork.fork()
+    cold.store._invalidate()
+    rebuilt = dict(
+        _device=cold.store.device_view(),
+        _device_dense=cold.store.device_view_dense(
+            cold.quantizer, cold.config.scan_chunk,
+            cache=cold._resolve_cache()))
+    for (name, key), t in held.items():
+        assert torch.equal(rebuilt[name][key], t), (name, key)
+    want = cold.search_padded(q, TOPK, w=W)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.cuda
 def test_save_and_load_keep_the_results(sift, tmp_path):
     """An index saved on the card loads on the card with the same results
     bit for bit, and on the CPU with the same arrays (the grouped route's

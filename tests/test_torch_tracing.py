@@ -189,7 +189,10 @@ def test_counting_matches_probe_stats_and_loop_bounds(route, indexes, data,
         # the plain versions launch no kernel
         "probe_narrow_launches": 0, "scan_single_tile_launches": 0,
         "scan_probe_order_launches": 0, "tileprep_sort_launches": 0,
-        "probe_wide_select_launches": 0}
+        "probe_wide_select_launches": 0,
+        # a search mutates nothing
+        "pushed_rows": 0, "deleted_rows": 0, "flushed_slots": 0,
+        "view_rebuilds": 0, "graph_drops": 0, "cell_grows": 0}
     assert counts["scan_pairs"] >= counts["postings_probed"]
     # outside the block nothing is counted
     before = dict(counts)
